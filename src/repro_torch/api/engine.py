@@ -1,0 +1,247 @@
+"""SREngine — the facade over the port's inference entry points (twin of
+``repro.api.engine`` for fp32 single-frame serving under host dispatch).
+
+One engine owns the supernet weights (an `ESSR` module on one device), the
+`ESSRConfig`, a frozen `ExecutionPlan` and a backend chosen once:
+
+  * "cuda" — the fused kernel chain (BSConv -> n_sfb x SFB -> DSConv), the
+    counterpart of the reference's "pallas" and the default. On the card it
+    launches the CUDA kernels and is labelled "cuda"; on ``device="cpu"``
+    the kernel wrappers take their plain versions and the label says
+    "cuda-plain";
+  * "ref"  — the plain PyTorch model.
+
+The engine runs on the card unless the caller asks for ``device="cpu"``;
+without a card it raises, never falling back to the CPU.
+
+Modes: ``upscale(frame)`` (edge-selective), ``upscale(frame,
+mode="all_patches", width=...)`` and ``reference(frame)`` (whole-image
+convolution, always the plain model).
+"""
+from __future__ import annotations
+
+import collections
+import time
+import warnings
+from typing import Any, Deque, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.plan import ExecutionPlan
+from repro_torch.api.result import FrameResult, summarize_stats
+from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _health_counts,
+                                       _sanitize, _sr_all_patches_result, _sr_whole)
+from repro_torch.models.essr import ESSR, ESSRConfig
+from repro_torch.runtime.guard import PoisonFrameError
+
+MODES = ("edge_select", "all_patches", "whole")
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("SREngine runs on the CUDA card by default and none is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class SREngine:
+    """Facade over the edge-selective pipeline. See module docstring."""
+
+    def __init__(self, model: ESSR, plan: Optional[ExecutionPlan] = None,
+                 backend: str = "cuda", device=None):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
+        self.device = _resolve_device(device)
+        self.model = model.to(self.device).requires_grad_(False)
+        self.cfg: ESSRConfig = model.cfg
+        self.params = self.model.tree()
+        self.plan = plan if plan is not None else ExecutionPlan()
+        self.backend = backend
+        self.stats: Deque[FrameResult] = collections.deque(maxlen=self.plan.stats_window)
+        self._warm: set = set()
+
+    # -- constructors --------------------------------------------------------
+
+    @classmethod
+    def from_config(cls, cfg: Optional[ESSRConfig] = None, *, seed: int = 0,
+                    plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
+                    device=None) -> "SREngine":
+        """Fresh engine with He-normal weights drawn from ``seed``."""
+        cfg = cfg if cfg is not None else ESSRConfig()
+        model = ESSR(cfg, generator=torch.Generator().manual_seed(seed))
+        return cls(model, plan=plan, backend=backend, device=device)
+
+    @classmethod
+    def from_params(cls, params: Dict[str, Any], cfg: ESSRConfig, *,
+                    plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
+                    device=None) -> "SREngine":
+        """Engine over a reference param tree with numpy leaves."""
+        from repro_torch.models.convert import params_from_numpy
+        return cls(params_from_numpy(params, cfg), plan=plan, backend=backend,
+                   device=device)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, *, cfg: Optional[ESSRConfig] = None,
+                        scale: int = 4, prefer: str = "ema", step: Optional[int] = None,
+                        plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
+                        device=None) -> "SREngine":
+        """Engine over a checkpoint the reference's ``CheckpointManager``
+        wrote, holding a ``{"params", "ema"}`` tree (or one of the two);
+        ``prefer`` picks the tree that serves."""
+        from repro_torch.ckpt.checkpoint import restore_numpy
+        cfg = cfg if cfg is not None else ESSRConfig(scale=scale)
+        tree, _ = restore_numpy(ckpt_dir, step)
+        use = prefer
+        if use not in tree:
+            if "params" not in tree:
+                raise ValueError(f"checkpoint {ckpt_dir} holds {sorted(tree)}, "
+                                 f"neither {prefer!r} nor 'params'")
+            use = "params"
+            warnings.warn(f"checkpoint {ckpt_dir} has no {prefer!r} tree; serving 'params'")
+        return cls.from_params(tree[use], cfg, plan=plan, backend=backend, device=device)
+
+    # -- labels and ingest -----------------------------------------------------
+
+    @property
+    def backend_label(self) -> str:
+        """What executes: "cuda" on the card, "cuda-plain" when the kernel
+        wrappers ran their plain versions on CPU tensors, "ref"."""
+        if self.backend == "cuda" and self.device.type != "cuda":
+            return "cuda-plain"
+        return self.backend
+
+    def _ingest(self, frame, p: ExecutionPlan) -> torch.Tensor:
+        """Host-side dtype gate: integer frames are rejected under "raise",
+        otherwise normalised by their dtype's range (uint8 -> /255)."""
+        t = frame if isinstance(frame, torch.Tensor) else torch.tensor(np.asarray(frame))
+        if t.is_floating_point():
+            return t.to(device=self.device, dtype=torch.float32)
+        if p.on_poison == "raise":
+            raise PoisonFrameError(f"frame dtype {t.dtype} is not floating point "
+                                   f"(plan.on_poison='raise')")
+        return t.to(device=self.device, dtype=torch.float32) / float(torch.iinfo(t.dtype).max)
+
+    def _host_health(self, frame: torch.Tensor, p: ExecutionPlan):
+        """(frame, health or None, route-to-bilinear) under ``p.on_poison``."""
+        if p.on_poison == "off":
+            return frame, None, False
+        health = tuple(int(c) for c in _health_counts(frame).tolist())
+        if not any(health):
+            return frame, health, False
+        if p.on_poison == "raise":
+            raise PoisonFrameError(f"frame failed health verdict nan/inf/oob={health} "
+                                   f"(plan.on_poison='raise')", health=health)
+        return _sanitize(frame), health, p.on_poison == "bilinear"
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _mark_warm(self, key) -> bool:
+        warm = key in self._warm
+        self._warm.add(key)
+        return warm
+
+    # -- single-frame inference ---------------------------------------------
+
+    def upscale(self, frame, mode: str = "edge_select", width: Optional[int] = None,
+                ids_override: Optional[np.ndarray] = None,
+                plan: Optional[ExecutionPlan] = None) -> FrameResult:
+        """One (H,W,3) frame in [0,1] (numpy or tensor) through the pipeline.
+
+        ``mode``: "edge_select" (the plan's routing, or ``ids_override``),
+        "all_patches" (every patch through the subnet of ``width``) or
+        "whole" (whole-image convolution; ``width`` optional). ``plan``
+        overrides the engine's plan for this call."""
+        return self._upscale(frame, mode, width, ids_override, plan, record=True)
+
+    def _upscale(self, frame, mode, width, ids_override, plan, record: bool) -> FrameResult:
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
+        if mode == "edge_select" and width is not None:
+            raise ValueError("width only applies to mode='all_patches'/'whole'; "
+                             "for forced routing use mode='all_patches'")
+        if mode != "edge_select" and ids_override is not None:
+            raise ValueError("ids_override requires mode='edge_select'")
+        p = plan if plan is not None else self.plan
+        widths = self.cfg.subnet_widths()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            frame = self._ingest(frame, p)
+            frame, health, force_bilinear = self._host_health(frame, p)
+            hw = (int(frame.shape[0]), int(frame.shape[1]))
+            if mode == "whole":
+                if width is not None and width not in widths:
+                    raise ValueError(f"mode='whole' needs width in {widths} "
+                                     f"(or None for full), got {width}")
+                compiled = self._mark_warm(("whole", hw, width))
+                img = _sr_whole(self.params, frame, self.cfg, width=width)
+                self._sync()
+                # the whole-image reference always runs the plain model
+                return FrameResult(image=img, mode=mode, backend="ref",
+                                   latency_s=time.perf_counter() - t0,
+                                   compiled=compiled, health=health)
+            geom = p.geometry(hw[0], hw[1], self.cfg.scale, self.device)
+            compiled = self._mark_warm(("host", hw, p.patch, p.overlap))
+            common = dict(patch=p.patch, overlap=p.overlap, buckets=p.buckets,
+                          backend=self.backend, geometry=geom)
+            result_mode, scored = mode, False
+            if mode == "all_patches":
+                if width not in widths:
+                    raise ValueError(f"mode='all_patches' needs width in {widths}, "
+                                     f"got {width}")
+                res = _sr_all_patches_result(self.params, frame, self.cfg, width, **common)
+            elif ids_override is None and p.subnet_policy != "threshold":
+                result_mode = "all_patches"      # a forced policy ignores the scores
+                forced = widths[int(p.decide(np.zeros(1))[0])]
+                res = _sr_all_patches_result(self.params, frame, self.cfg, forced, **common)
+            else:
+                if force_bilinear and ids_override is None:
+                    ids_override = np.zeros(geom.n, np.int64)
+                scored = ids_override is None
+                res = _edge_selective_sr(self.params, frame, self.cfg, t1=p.t1, t2=p.t2,
+                                         ids_override=ids_override, **common)
+            self._sync()
+            out = FrameResult(image=res.image, mode=result_mode, backend=self.backend_label,
+                              ids=res.ids, scores=res.scores if scored else None,
+                              counts=res.counts, mac_saving=res.mac_saving,
+                              latency_s=time.perf_counter() - t0,
+                              thresholds=p.thresholds if scored else (0.0, 0.0),
+                              compiled=compiled, health=health)
+        if record:
+            self.stats.append(FrameResult(
+                image=None, mode=out.mode, backend=out.backend, counts=out.counts,
+                mac_saving=out.mac_saving, latency_s=out.latency_s,
+                thresholds=out.thresholds, compiled=out.compiled, health=out.health))
+        return out
+
+    def reference(self, frame, width: Optional[int] = None) -> FrameResult:
+        """Whole-image convolution — the lossless reference."""
+        return self.upscale(frame, mode="whole", width=width)
+
+    def warmup(self, shape: Tuple[int, int]) -> FrameResult:
+        """Pay an ``(h, w)`` frame shape's one-off set-up (index maps, kernel
+        builds) on a synthetic frame — thirds of smooth gradient, mild
+        texture and checkerboard, so every subnet runs — without recording
+        it in ``stats``."""
+        h, w = int(shape[0]), int(shape[1])
+        yy, xx = torch.meshgrid(torch.linspace(0.0, 1.0, h), torch.linspace(0.0, 1.0, w),
+                                indexing="ij")
+        checker = ((torch.arange(h)[:, None] + torch.arange(w)[None, :]) % 2).float()
+        smooth = torch.stack([yy, xx, (yy + xx) / 2], dim=-1)
+        frame = torch.where((xx < 1 / 3)[..., None], smooth,
+                            torch.where((xx < 2 / 3)[..., None],
+                                        smooth + 0.03 * checker[..., None],
+                                        checker[..., None] * torch.ones(3)))
+        return self._upscale(torch.clamp(frame, 0.0, 1.0), "edge_select", None, None,
+                             None, record=False)
+
+    def summary(self) -> Dict[str, Any]:
+        """Aggregate over the recorded ``upscale`` frames (the newest
+        ``plan.stats_window``), with what served them."""
+        out = {"backend": self.backend_label, "device": str(self.device),
+               "stats_window": self.plan.stats_window}
+        out.update(summarize_stats(self.stats))
+        return out

@@ -1,0 +1,123 @@
+"""ExecutionPlan — the frozen description of how a frame is run (twin of
+``repro.api.plan`` over the fields this package serves).
+
+Validation is declarative: ``_FIELD_RULES`` (one predicate + allowed-set
+description per field) and ``_CROSS_RULES`` (constraints spanning fields),
+with one error format, ``ExecutionPlan.<field>=<got!r>: allowed <set>``.
+Values the reference accepts but this package does not run yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core import subnet_policy as sp
+from repro_torch.core.patching import PatchGeometry, get_geometry
+from repro_torch.core.pipeline import DEFAULT_BUCKETS, FUSION_MODES, HEALTH_POLICIES
+
+SUBNET_POLICIES = ("threshold", "all_bilinear", "all_c27", "all_c54")
+DISPATCH_MODES = ("host", "fused")
+QUANT_MODES = (None, "fxp10", "int8")
+
+
+def _plan_error(field: str, got, allowed: str) -> ValueError:
+    return ValueError(f"ExecutionPlan.{field}={got!r}: allowed {allowed}")
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _pos_int(v) -> bool:
+    return _is_int(v) and v >= 1
+
+
+def _is_num(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+_FIELD_RULES: Dict[str, Tuple[Callable, str]] = {
+    "patch": (_pos_int, "a positive int"),
+    "overlap": (lambda v: _is_int(v) and v >= 0, "an int >= 0"),
+    "t1": (_is_num, "a number"),
+    "t2": (_is_num, "a number"),
+    "buckets": (lambda v: bool(v) and all(_pos_int(b) for b in v)
+                and list(v) == sorted(set(v)),
+                "a non-empty ascending tuple of positive ints"),
+    "subnet_policy": (lambda v: v in SUBNET_POLICIES, f"one of {SUBNET_POLICIES}"),
+    "quant": (lambda v: v in QUANT_MODES, f"one of {QUANT_MODES}"),
+    "dispatch": (lambda v: v in DISPATCH_MODES, f"one of {DISPATCH_MODES}"),
+    "fusion": (lambda v: v in FUSION_MODES, f"one of {FUSION_MODES}"),
+    "stats_window": (_pos_int, "a positive int"),
+    "on_poison": (lambda v: v in HEALTH_POLICIES, f"one of {HEALTH_POLICIES}"),
+}
+
+_CROSS_RULES: Tuple[Tuple[str, Callable, Callable], ...] = (
+    ("overlap", lambda p: p.overlap < p.patch, lambda p: f"an int < patch ({p.patch})"),
+    ("t2", lambda p: p.t2 >= p.t1, lambda p: f"a number >= t1 ({p.t1})"),
+)
+
+#: Valid values this package does not run yet: (field, predicate, ROADMAP item).
+_NOT_PORTED: Tuple[Tuple[str, Callable, str], ...] = (
+    ("dispatch", lambda v: v == "fused", "queue 1 item 7 (fused single dispatch)"),
+    ("fusion", lambda v: v == "group", "queue 2 item 4 (the subnet-group megakernel)"),
+    ("quant", lambda v: v is not None, "queue 1 item 8 (quantized serving)"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan:
+    patch: int = 32
+    overlap: int = 2
+    t1: float = sp.DEFAULT_T1
+    t2: float = sp.DEFAULT_T2
+    buckets: Tuple[int, ...] = DEFAULT_BUCKETS
+    subnet_policy: str = "threshold"
+    #: "host": routing on the host, one batch per subnet (the one served here)
+    dispatch: str = "host"
+    #: "layer": one kernel launch per layer group (BSConv, each SFB, DSConv)
+    fusion: str = "layer"
+    #: None = fp32 serving
+    quant: Optional[str] = None
+    #: what serving does about a frame with NaN/Inf/out-of-[0,1] pixels
+    on_poison: str = "raise"
+    #: bound on the per-frame records ``SREngine.stats`` keeps
+    stats_window: int = 4096
+
+    def __post_init__(self):
+        object.__setattr__(self, "buckets", tuple(self.buckets))
+        for field, (ok, allowed) in _FIELD_RULES.items():
+            value = getattr(self, field)
+            if not ok(value):
+                raise _plan_error(field, value, allowed)
+        for field, ok, allowed in _CROSS_RULES:
+            if not ok(self):
+                raise _plan_error(field, getattr(self, field), allowed(self))
+        for field, later, item in _NOT_PORTED:
+            value = getattr(self, field)
+            if later(value):
+                raise NotImplementedError(
+                    f"ExecutionPlan.{field}={value!r} is not ported yet: ROADMAP {item}")
+
+    def replace(self, **kw) -> "ExecutionPlan":
+        return dataclasses.replace(self, **kw)
+
+    def decide(self, scores) -> np.ndarray:
+        """Edge scores -> subnet ids under this plan's policy."""
+        scores = np.asarray(scores)
+        if self.subnet_policy == "threshold":
+            return sp.decide(scores, self.t1, self.t2)
+        fixed = {"all_bilinear": sp.BILINEAR, "all_c27": sp.C27,
+                 "all_c54": sp.C54}[self.subnet_policy]
+        return np.full(scores.shape, fixed, dtype=np.int64)
+
+    def geometry(self, h: int, w: int, scale: int, device: str) -> PatchGeometry:
+        """Cached patch geometry of an (h, w) frame on ``device``."""
+        return get_geometry(int(h), int(w), self.patch, self.overlap, int(scale), str(device))
+
+    @property
+    def thresholds(self) -> Tuple[float, float]:
+        return (self.t1, self.t2)

@@ -1,0 +1,166 @@
+"""End-to-end edge-selective SR of full frames, host dispatch (twin of the
+host-dispatch path of ``repro.core.pipeline``).
+
+frame -> slim-overlap patches -> edge scores -> subnet decision ->
+per-subnet batched forward -> overlap-average fusion.
+
+Routing stays on the host: the scores are copied back once per frame, each
+subnet's patches are gathered into a batch padded to a bucketed size (with
+the bucket's own last index), run through the subnet, and set back into the
+patch tensor. Width-0 patches go through bilinear resize, never a kernel.
+
+``backend`` picks the per-subnet forward: "cuda" (the fused kernel chain;
+on CPU tensors its wrappers run their plain versions) or "ref" (the plain
+PyTorch model).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import subnet_policy as sp
+from repro_torch.core.edge_score import edge_score
+from repro_torch.core.patching import PatchGeometry, get_geometry
+from repro_torch.models.essr import ESSRConfig, essr_forward
+from repro_torch.models.layers import bilinear_resize
+
+DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+#: ``ExecutionPlan.on_poison`` values: what serving does about a frame with
+#: NaN/Inf/out-of-[0,1] pixels ("off": no verdict; "raise": PoisonFrameError;
+#: "sanitize": nan_to_num + clamp; "bilinear": sanitize, then route every
+#: patch to bilinear).
+HEALTH_POLICIES = ("off", "raise", "sanitize", "bilinear")
+
+#: ``ExecutionPlan.fusion`` values; only "layer" runs in this package yet
+#: (the plan refuses "group").
+FUSION_MODES = ("layer", "group")
+
+
+def _bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(np.ceil(n / buckets[-1]) * buckets[-1])
+
+
+def _forward_width(params, patches, cfg: ESSRConfig, width: int) -> torch.Tensor:
+    """The plain model ("ref" backend)."""
+    return essr_forward(params, patches, cfg, width=width)
+
+
+def _forward_width_cuda(params, patches, cfg: ESSRConfig, width: int) -> torch.Tensor:
+    """The fused kernel chain ("cuda" backend); width 0 is the bilinear bypass."""
+    from repro_torch.kernels.ops import essr_forward_kernels
+    if width == 0:
+        return bilinear_resize(patches, cfg.scale)
+    return essr_forward_kernels(params, patches, cfg, width=width)
+
+
+BACKENDS = {"cuda": _forward_width_cuda, "ref": _forward_width}
+
+
+def resolve_forward(backend: str):
+    """Backend name -> the per-subnet forward ``(params, patches, cfg, width)``.
+    Group fusion and quant are refused earlier, by `ExecutionPlan`."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
+    return BACKENDS[backend]
+
+
+def _health_counts(frame: torch.Tensor) -> torch.Tensor:
+    """(nan, inf, out-of-[0,1]) pixel counts of one frame, int32 (3,)."""
+    nan = torch.isnan(frame).sum()
+    inf = torch.isinf(frame).sum()
+    oob = (torch.isfinite(frame) & ((frame < 0.0) | (frame > 1.0))).sum()
+    return torch.stack([nan, inf, oob]).to(torch.int32)
+
+
+def _sanitize(frame: torch.Tensor) -> torch.Tensor:
+    """nan -> 0, +inf -> 1, -inf -> 0, clamp to [0,1]; bit-exact identity on
+    clean in-range frames."""
+    return torch.clamp(torch.nan_to_num(frame, nan=0.0, posinf=1.0, neginf=0.0), 0.0, 1.0)
+
+
+@dataclasses.dataclass
+class SRResult:
+    image: torch.Tensor
+    ids: np.ndarray
+    scores: np.ndarray
+    counts: Tuple[int, int, int]
+    mac_saving: float
+
+
+def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRConfig, *,
+                       t1: float = sp.DEFAULT_T1, t2: float = sp.DEFAULT_T2,
+                       patch: int = 32, overlap: int = 2,
+                       ids_override: Optional[np.ndarray] = None,
+                       buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
+                       backend: str = "cuda",
+                       geometry: Optional[PatchGeometry] = None) -> SRResult:
+    """frame: (H,W,3) in [0,1] -> SRResult with the (H*s, W*s, 3) image.
+    ``ids_override`` forces the routing and skips the edge scores (reported
+    as zeros)."""
+    forward = resolve_forward(backend)
+    s = cfg.scale
+    h, w = int(frame.shape[0]), int(frame.shape[1])
+    g = geometry if geometry is not None else get_geometry(
+        h, w, patch, overlap, s, str(frame.device))
+    patches = g.extract(frame)
+    if ids_override is None:
+        scores = edge_score(patches).cpu().numpy()
+        ids = sp.decide(scores, t1, t2)
+    else:
+        scores = np.zeros(g.n, np.float32)
+        ids = np.asarray(ids_override)
+    out = torch.zeros((g.n, patch * s, patch * s, cfg.in_channels),
+                      dtype=patches.dtype, device=patches.device)
+    for k, width in enumerate(cfg.subnet_widths()):
+        idx = np.flatnonzero(ids == k)
+        if idx.size == 0:
+            continue
+        if idx.size == len(ids):
+            # one subnet takes the whole frame: no gather/scatter and no
+            # bucket padding (the full-batch shape recurs per geometry)
+            out = forward(params, patches, cfg, width)
+            continue
+        cap = _bucket(idx.size, buckets)
+        # pad with the bucket's own last index: duplicate work, never
+        # another subnet's patch
+        pad = np.concatenate([idx, np.full(cap - idx.size, idx[-1], idx.dtype)])
+        sel = torch.from_numpy(pad).to(patches.device)
+        sr = forward(params, patches.index_select(0, sel), cfg, width)[: idx.size]
+        # idx is strictly increasing, so this set-scatter is unique and
+        # deterministic
+        out.index_copy_(0, sel[: idx.size], sr.contiguous())
+    counts = sp.subnet_counts(ids)
+    saving = sp.SubnetMacs.make(cfg, patch).saving_vs_c54(counts)
+    return SRResult(image=g.fuse_average(out), ids=ids, scores=scores, counts=counts,
+                    mac_saving=saving)
+
+
+def _sr_all_patches_result(params, frame: torch.Tensor, cfg: ESSRConfig, width: int, *,
+                           patch: int = 32, overlap: int = 2,
+                           buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
+                           backend: str = "cuda",
+                           geometry: Optional[PatchGeometry] = None) -> SRResult:
+    """Every patch through one subnet (the non-edge-selective reference)."""
+    widths = cfg.subnet_widths()
+    if width not in widths:
+        raise ValueError(f"width {width} not one of the subnet widths {widths}")
+    g = geometry if geometry is not None else get_geometry(
+        int(frame.shape[0]), int(frame.shape[1]), patch, overlap, cfg.scale,
+        str(frame.device))
+    ids = np.full((g.n,), widths.index(width), dtype=np.int64)
+    return _edge_selective_sr(params, frame, cfg, patch=patch, overlap=overlap,
+                              ids_override=ids, buckets=buckets, backend=backend,
+                              geometry=g)
+
+
+def _sr_whole(params, frame: torch.Tensor, cfg: ESSRConfig,
+              width: Optional[int] = None) -> torch.Tensor:
+    """Whole-image convolution (the lossless reference), plain model."""
+    return essr_forward(params, frame[None], cfg, width=width)[0]

@@ -1,0 +1,87 @@
+"""Convolution / resampling primitives of the SR models, in PyTorch.
+
+Twin of ``repro.models.layers``: NHWC activations, HWIO weights, the same
+operation order, so the port and the reference agree to fp32 rounding. These
+are the plain versions every CUDA kernel of ``repro_torch.kernels`` is held
+against.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def conv_init(shape: Tuple[int, ...], generator: torch.Generator,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """He-normal initializer for HWIO weights: std = sqrt(2 / (H*W*I))."""
+    fan_in = int(shape[0] * shape[1] * shape[2])
+    std = math.sqrt(2.0 / max(1, fan_in))
+    return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+def _dw3_shift(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME depthwise via 9 shifted multiply-accumulates. x: (N,H,W,C),
+    w3: (3,3,C). Zero padding, accumulated in (dy, dx) raster order."""
+    _, h, w, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    y = torch.zeros_like(x)
+    for dy in range(3):
+        for dx in range(3):
+            y = y + xp[:, dy:dy + h, dx:dx + w, :] * w3[dy, dx]
+    return y
+
+
+def dwconv2d(x: torch.Tensor, w: torch.Tensor,
+             b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """3x3 SAME depthwise conv. x: (N,H,W,C), w: (3,3,1,C)."""
+    if tuple(w.shape[:3]) != (3, 3, 1):
+        raise ValueError(f"depthwise weight must be (3,3,1,C), got {tuple(w.shape)}")
+    y = _dw3_shift(x, w[:, :, 0, :])
+    return y + b if b is not None else y
+
+
+def pointwise(x: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1x1 conv as a matmul over the channel dim. w: (1,1,Cin,Cout) or (Cin,Cout)."""
+    if w.ndim == 4:
+        w = w[0, 0]
+    y = torch.matmul(x, w)
+    return y + b if b is not None else y
+
+
+def bsconv(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """BSConv: 1x1 pointwise (+bias) then 3x3 depthwise (+bias)."""
+    y = pointwise(x, p["pw"], p.get("pw_b"))
+    return dwconv2d(y, p["dw"], p.get("dw_b"))
+
+
+def dsconv(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """DSConv: 3x3 depthwise (+bias) then 1x1 pointwise (+bias)."""
+    y = dwconv2d(x, p["dw"], p.get("dw_b"))
+    return pointwise(y, p["pw"], p.get("pw_b"))
+
+
+def pixel_shuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """(N,H,W,C*s^2) -> (N,H*s,W*s,C) in PyTorch's c*s^2 + i*s + j channel
+    order: ``F.pixel_shuffle`` on the NCHW view."""
+    y = F.pixel_shuffle(x.permute(0, 3, 1, 2), scale)
+    return y.permute(0, 2, 3, 1)
+
+
+def bilinear_resize(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bilinear upsample of (N,H,W,C) by an integer scale: half-pixel
+    centres, edge clamp, no antialias (what ``jax.image.resize`` does when
+    upsampling)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale,
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+def rgb_to_luma(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) RGB in [0,1] -> (...,) BT.601 luma in [16, 235]. Operation
+    order matches the reference: the score it feeds decides routing."""
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    return (65.481 * r + 128.553 * g + 24.966 * b) + 16.0

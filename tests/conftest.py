@@ -12,3 +12,8 @@ except ModuleNotFoundError:
     # property tests still collect and run
     sys.path.insert(0, os.path.dirname(__file__))
     import _hypothesis_fallback  # noqa: F401
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped where none is visible")

@@ -1,0 +1,85 @@
+"""The port's CUDA kernels on the card: each against its plain version, and
+the serving path's "cuda" frame against its "ref" frame. Marked ``cuda``;
+skipped where no CUDA device is visible. Run on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: one kernel rtol 1e-4 / atol 1e-5 (fp32 FFMA against fp32
+PyTorch with TF32 off); whole frame rtol 1e-3 / atol 1e-3.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import SREngine
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bsconv import bsconv_fused
+from repro_torch.kernels.dsconv import dsconv_fused
+from repro_torch.kernels.sfb import SFB_KEYS, sfb_fused
+from repro_torch.models.essr import ESSRConfig
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def _w(g, *shape, scale=0.2):
+    return (torch.randn(shape, generator=g) * scale).cuda()
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(0, 32, 32, 3, 54), (1, 32, 32, 3, 54),
+                                            (7, 32, 32, 27, 27), (3, 13, 21, 5, 18)])
+def test_bsconv_kernel_matches_plain(cuda, n, h, w, cin, cout):
+    g = torch.Generator().manual_seed(n + cin)
+    x = torch.rand((n, h, w, cin), generator=g).cuda()
+    ws = (_w(g, cin, cout), _w(g, cout), _w(g, 3, 3, cout), _w(g, cout))
+    before = bsconv_fused.launches
+    got = bsconv_fused(x, *ws, relu=True)
+    torch.cuda.synchronize()
+    assert bsconv_fused.launches == before + (n > 0)
+    torch.testing.assert_close(got, ref.bsconv_ref(x, *ws, relu=True), **TOL)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(1, 32, 32, 54), (5, 32, 32, 27), (2, 17, 9, 54)])
+def test_sfb_kernel_matches_plain(cuda, n, h, w, c):
+    g = torch.Generator().manual_seed(n + c)
+    x = torch.rand((n, h, w, c), generator=g).cuda()
+    p = {k: _w(g, c, c) if k in ("b1_pw", "b2_pw", "fuse") else
+         _w(g, 3, 3, c) if k.endswith("_dw") else _w(g, c) for k in SFB_KEYS}
+    got = sfb_fused(x, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.sfb_ref(x, p), **TOL)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 32, 32, 54, 48), (7, 32, 32, 27, 12),
+                                            (2, 10, 30, 12, 48)])
+def test_dsconv_kernel_matches_plain(cuda, n, h, w, cin, cout):
+    g = torch.Generator().manual_seed(n + cin)
+    x = torch.rand((n, h, w, cin), generator=g).cuda()
+    ws = (_w(g, 3, 3, cin), _w(g, cin), _w(g, cin, cout), _w(g, cout))
+    got = dsconv_fused(x, *ws)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.dsconv_ref(x, *ws), **TOL)
+
+
+def test_engine_frame_on_card_matches_ref(cuda):
+    r = np.random.default_rng(0)
+    frame = np.clip(np.linspace(0, 1, 96 * 160 * 3, dtype=np.float32).reshape(96, 160, 3)
+                    + (np.arange(160) > 80)[None, :, None] * (r.random((96, 160, 3)) - 0.5),
+                    0, 1).astype(np.float32)
+    eng = SREngine.from_config(ESSRConfig(scale=2), seed=3)
+    ops.reset_launch_counts()
+    got = eng.upscale(frame)
+    assert got.backend == "cuda" and ops.launch_counts()["sfb"] > 0
+    want = SREngine(eng.model, backend="ref").upscale(frame)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    torch.testing.assert_close(got.image, want.image, rtol=1e-3, atol=1e-3)

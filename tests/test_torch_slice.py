@@ -1,0 +1,203 @@
+"""The port's serving slice end to end against ``repro.api.SREngine`` on the
+same weights and frames, on the CPU (the "cuda" backend's wrappers take
+their plain versions there and say so in the label).
+
+Golden frame: the mixed smooth/texture frame of tests/test_fused_dispatch.py
+(x2, full C54 width, 5 SFBs), routing counts (10, 2, 13). Tolerances:
+scores rtol 1e-5 / atol 1e-5 (smooth patches score ~1e-5: the Laplacian
+cancels luma near 100, whose fp32 spacing is 7.6e-6, and the two Laplacians
+sum in different orders); images rtol 1e-3 / atol 1e-3, the whole-chain
+tolerance of tests/test_kernels.py:77: with random He-normal weights the 12
+fp32 layers carry intermediates of O(100), so outputs near zero differ by
+~1e-4 between XLA's and PyTorch's CPU sums (measured 1.4e-4 on 2 of 196608
+pixels of the golden frame).
+"""
+import os
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import ExecutionPlan as JPlan
+from repro.api import SREngine as JEngine
+from repro.data.synthetic import degrade, random_image
+from repro.models.essr import ESSRConfig as JCfg
+from repro_torch.api import ExecutionPlan, SREngine
+from repro_torch.models.essr import ESSRConfig
+from repro_torch.runtime.guard import PoisonFrameError
+
+CFG, JCFG = ESSRConfig(scale=2), JCfg(scale=2)
+GOLDEN_COUNTS = (10, 2, 13)
+IMG_TOL = dict(rtol=1e-3, atol=1e-3)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _golden_frame(hw: int = 128, seed: int = 1234) -> np.ndarray:
+    yy, xx = jnp.meshgrid(jnp.linspace(0, 1, hw), jnp.linspace(0, 1, hw), indexing="ij")
+    smooth = jnp.stack([yy, xx, (yy + xx) / 2], axis=-1)
+    tex = degrade(jnp.asarray(random_image(seed, 2 * hw, 2 * hw)), 2)
+    return np.asarray(jnp.where((yy < 0.5)[..., None], smooth, tex))
+
+
+@pytest.fixture(scope="module")
+def engines():
+    ref = JEngine.from_config(JCFG, seed=1)
+    tree = jax.tree_util.tree_map(np.asarray, ref.params)
+    return ref, tree
+
+
+def _port(tree, backend="cuda", plan=None):
+    return SREngine.from_params(tree, CFG, plan=plan, backend=backend, device="cpu")
+
+
+@pytest.mark.parametrize("backend,label", [("cuda", "cuda-plain"), ("ref", "ref")])
+def test_golden_frame_matches_reference(engines, backend, label):
+    ref, tree = engines
+    frame = _golden_frame()
+    rj = ref.upscale(frame)
+    rp = _port(tree, backend).upscale(frame)
+    assert rp.backend == label and rp.mode == "edge_select" and rp.dispatch == "host"
+    assert rp.counts == rj.counts == GOLDEN_COUNTS
+    np.testing.assert_array_equal(rp.ids, np.asarray(rj.ids))
+    np.testing.assert_allclose(rp.scores, np.asarray(rj.scores), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **IMG_TOL)
+    assert rp.mac_saving == pytest.approx(rj.mac_saving, abs=1e-12)
+    assert rp.thresholds == rj.thresholds
+
+
+@pytest.mark.parametrize("mode,width", [("all_patches", 27), ("all_patches", 0),
+                                        ("whole", None)])
+def test_other_modes_match_reference(engines, mode, width):
+    ref, tree = engines
+    frame = _golden_frame(64)
+    rj = ref.upscale(frame, mode=mode, width=width)
+    rp = _port(tree).upscale(frame, mode=mode, width=width)
+    assert rp.mode == rj.mode and rp.counts == rj.counts and rp.scores is None
+    assert rp.backend == ("ref" if mode == "whole" else "cuda-plain")
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **IMG_TOL)
+
+
+def test_forced_policy_and_ids_override_match_reference(engines):
+    ref, tree = engines
+    frame = _golden_frame(64)
+    plan = ExecutionPlan(subnet_policy="all_c54")
+    rj = ref.upscale(frame, plan=JPlan(subnet_policy="all_c54"))
+    rp = _port(tree).upscale(frame, plan=plan)
+    assert rp.mode == rj.mode == "all_patches" and rp.counts == rj.counts
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **IMG_TOL)
+    ids = np.arange(9) % 3
+    rj = ref.upscale(frame, ids_override=ids)
+    rp = _port(tree).upscale(frame, ids_override=ids)
+    assert rp.counts == rj.counts == (3, 3, 3)
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **IMG_TOL)
+
+
+def test_sub_patch_size_frame_matches_reference(engines):
+    ref, tree = engines
+    frame = np.asarray(_golden_frame(64))[:20, :25]
+    rj, rp = ref.upscale(frame), _port(tree).upscale(frame)
+    assert rp.image.shape == (40, 50, 3) and rp.counts == rj.counts
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **IMG_TOL)
+
+
+def test_poison_policies(engines):
+    _, tree = engines
+    frame = _golden_frame(64).copy()
+    frame[3, 4, 1] = np.nan
+    frame[5, 6, 0] = 2.0
+    with pytest.raises(PoisonFrameError) as e:
+        _port(tree).upscale(frame)
+    assert e.value.health == (1, 0, 1)
+    with pytest.raises(PoisonFrameError, match="not floating"):
+        _port(tree).upscale(np.zeros(frame.shape, np.uint8))
+    r = _port(tree, plan=ExecutionPlan(on_poison="bilinear")).upscale(frame)
+    assert r.health == (1, 0, 1) and r.counts == (9, 0, 0)
+    assert bool(torch.isfinite(r.image).all())
+    clean = _golden_frame(64)
+    a = _port(tree, plan=ExecutionPlan(on_poison="sanitize")).upscale(clean)
+    b = _port(tree, plan=ExecutionPlan(on_poison="off")).upscale(clean)
+    assert a.health == (0, 0, 0) and b.health is None
+    assert torch.equal(a.image, b.image)           # sanitize is bit-exact on clean frames
+    u8 = np.round(clean * 255).astype(np.uint8)
+    c = _port(tree, plan=ExecutionPlan(on_poison="sanitize")).upscale(u8)
+    d = _port(tree).upscale(u8.astype(np.float32) / 255)
+    assert torch.equal(c.image, d.image)           # integer frames scale by their range
+
+
+def test_plan_validation_text_matches_reference():
+    for kw in [dict(patch=0), dict(overlap=40), dict(t1=50.0, t2=40.0),
+               dict(buckets=(16, 8)), dict(on_poison="loud"), dict(dispatch="gpu")]:
+        with pytest.raises(ValueError) as mine:
+            ExecutionPlan(**kw)
+        with pytest.raises(ValueError) as theirs:
+            JPlan(**kw)
+        assert str(mine.value) == str(theirs.value)
+    for kw, item in [(dict(dispatch="fused"), "queue 1 item 7"),
+                     (dict(fusion="group"), "queue 2 item 4"),
+                     (dict(quant="int8"), "queue 1 item 8")]:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            ExecutionPlan(**kw)
+
+
+def test_engine_runs_on_the_card_unless_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SREngine.from_config(CFG)
+    with pytest.raises(ValueError, match="backend"):
+        SREngine.from_config(CFG, backend="pallas", device="cpu")
+    e = SREngine.from_config(CFG, device="cpu")
+    assert e.backend_label == "cuda-plain" and e.device.type == "cpu"
+
+
+def test_warmup_and_summary(engines):
+    _, tree = engines
+    e = _port(tree)
+    w = e.warmup((64, 96))
+    assert w.compiled is False and all(c > 0 for c in w.counts)
+    assert e.summary()["backend"] == "cuda-plain" and "frames" not in e.summary()
+    r = e.upscale(_golden_frame(64)[:, :64].copy())
+    assert r.compiled is False
+    r = e.upscale(_golden_frame(64))
+    assert r.compiled is True
+    s = e.summary()
+    assert s["frames"] == 2 and s["warmup_frames_excluded"] == 1
+
+
+def test_checkpoint_written_by_reference_reads_back(engines, tmp_path):
+    pytest.importorskip("msgpack")
+    pytest.importorskip("zstandard")
+    from repro.ckpt.checkpoint import CheckpointManager
+    from repro_torch.ckpt.checkpoint import read_manifest, restore_numpy
+    ref, tree = engines
+    cm = CheckpointManager(str(tmp_path))
+    ema = jax.tree_util.tree_map(lambda v: v * 0.5, ref.params)
+    cm.save(7, {"params": ref.params, "ema": ema}, meta={"note": "x"})
+    assert read_manifest(str(tmp_path))["step"] == 7
+    got, meta = restore_numpy(str(tmp_path))
+    assert meta == {"note": "x", "step": 7}
+    for a, b in zip(jax.tree_util.tree_leaves(got["ema"]), jax.tree_util.tree_leaves(ema)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    frame = _golden_frame(64)
+    rp = SREngine.from_checkpoint(str(tmp_path), cfg=CFG, prefer="params",
+                                  device="cpu").upscale(frame)
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(ref.upscale(frame).image),
+                               **IMG_TOL)
+    cm2 = CheckpointManager(str(tmp_path / "only"))
+    cm2.save(1, {"params": ref.params})
+    with pytest.warns(UserWarning, match="no 'ema' tree"):
+        SREngine.from_checkpoint(str(tmp_path / "only"), cfg=CFG, device="cpu")
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    """The port and chip_smoke.py run where JAX is not installed."""
+    bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+                     r"from\s+repro(\.|\s))", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [f"{os.path.relpath(f, ROOT)}: {m.group(0).strip()}"
+                 for f in files for m in bad.finditer(f.read_text())]
+    assert offenders == []
