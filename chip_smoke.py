@@ -10,18 +10,29 @@ line:
      (one nvcc per source, all started together) and time it;
   3. hold each kernel against its plain PyTorch version on the card, at C54
      and C27 (bsconv also at Cin = 3) and N in {1, 7, 512}, rtol 1e-4 /
-     atol 1e-5 (TF32 off for the plain versions);
+     atol 1e-5 (TF32 off for the plain versions); the subnet-group
+     megakernel (the whole 12-layer chain) against its plain version and
+     against the layer chain of kernels at C54 and C27, N in {1, 7, 512}
+     and at an odd 13x21 patch, rtol 1e-3 / atol 1e-3;
   4. time each kernel at N = 1024 C54 32x32 patches (CUDA events, median of
      25 launches) beside its plain version, a cuDNN composition of the same
      function (a yardstick only: the port never calls it) and its bound;
+     the megakernel also beside the layer chain (the sum of the per-op
+     kernels' times);
   5. the main path: SREngine.from_config(ESSRConfig(scale=4)) on the card
      with the default plan and backend "cuda", warm-up, then three
      synthetic 1920x1080 LR frames to 7680x4320 with every routing bucket
      filled; the launch counts of that run must show bsconv, 5 x sfb and
-     dsconv for each non-empty conv bucket; one frame again through backend
-     "ref" must route identically and agree (rtol 1e-3 / atol 1e-3);
-     one more frame runs under torch.profiler for device time by kernel;
-  6. the TPU kernel table with each row's port status, the per-kernel JSON
+     dsconv for each non-empty conv bucket and no megakernel; the three
+     frames again through backend "ref" must route identically and agree
+     (rtol 1e-3 / atol 1e-3); one more frame runs under torch.profiler for
+     device time by kernel;
+  6. group fusion: the same engine's weights under
+     ExecutionPlan(fusion="group") serve the same three frames; the launch
+     counts must show one megakernel launch per non-empty conv bucket and
+     no per-op launch, the ids must equal the layer frames' and the images
+     the "ref" frames' (rtol 1e-3 / atol 1e-3); one frame is profiled;
+  7. the TPU kernel table with each row's port status, the per-kernel JSON
      line, and the result line.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
@@ -53,7 +64,7 @@ TPU_KERNELS = (
     ("bsconv_fused", "src/repro/kernels/bsconv.py:57", "ported"),
     ("sfb_fused", "src/repro/kernels/sfb.py:42", "ported"),
     ("dsconv_fused", "src/repro/kernels/dsconv.py:34", "ported"),
-    ("essr_forward_megakernel", "src/repro/kernels/megakernel.py:292", "not yet"),
+    ("essr_forward_megakernel", "src/repro/kernels/megakernel.py:292", "ported"),
     ("essr_forward_qmegakernel", "src/repro/kernels/megakernel.py:360", "not yet"),
     ("quantize_fused", "src/repro/kernels/qconv.py:147", "not yet"),
     ("qbsconv_fused", "src/repro/kernels/qconv.py:175", "not yet"),
@@ -163,6 +174,40 @@ def work(kind: str, n: int, c: int, cin: int = 3, cout: int = 48):
     return 4 * (2 * px * c + 3 * c * c + 23 * c), 2 * px * (3 * c * c + 18 * c)
 
 
+def mega_operands(width: int, g, torch):
+    """An ESSR x4 param tree on the card (He-normal weights from ``g``, and
+    non-zero biases: a halo reading pw(0) + b instead of 0 would show) and
+    its packed megakernel buffer at ``width``."""
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.models.essr import ESSR, ESSRConfig
+    tree = ESSR(ESSRConfig(scale=4), generator=g).cuda().requires_grad_(False).tree()
+    for leaf in mk._leaves(tree):
+        if leaf.ndim == 1:
+            leaf.copy_(0.1 * torch.randn(leaf.shape, generator=g))
+    return tree, mk.pack_weights(tree, width)
+
+
+def mega_library(x, w, torch):
+    """The whole chain as a cuDNN composition (NCHW 1x1 and depthwise
+    conv2d), on the unpacked weights ``w``: a yardstick only."""
+    import torch.nn.functional as F
+
+    def conv1x1(xc, m, b):
+        return F.conv2d(xc, m.t().reshape(m.shape[1], m.shape[0], 1, 1), b)
+
+    def dw3(xc, k, b):
+        return F.conv2d(xc, k.permute(2, 0, 1)[:, None], b, padding=1, groups=k.shape[-1])
+
+    p = w["first"]
+    f = dw3(conv1x1(x.permute(0, 3, 1, 2), p["pw"], p["pw_b"]), p["dw"], p["dw_b"])
+    for s in w["sfbs"]:
+        y = torch.relu(dw3(conv1x1(f, s["b1_pw"], s["b1_pwb"]), s["b1_dw"], s["b1_dwb"]))
+        y = torch.relu(dw3(conv1x1(y, s["b2_pw"], s["b2_pwb"]), s["b2_dw"], s["b2_dwb"]))
+        f = torch.relu(conv1x1(y + f, s["fuse"], s["fuse_b"]))
+    r = w["recon"]
+    return conv1x1(dw3(f, r["dw"], r["dw_b"]), r["pw"], r["pw_b"]).permute(0, 2, 3, 1)
+
+
 def median_ms(fn, torch) -> float:
     fn()
     torch.cuda.synchronize()
@@ -230,9 +275,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import numpy as np
-    from repro_torch.api import SREngine
+    from repro_torch.api import ExecutionPlan, SREngine
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.kernels.ops import essr_forward_kernels, launch_counts, reset_launch_counts
+    from repro_torch.kernels.ref import mega_ref
     from repro_torch.models.essr import ESSRConfig
 
     # 1. the card
@@ -246,7 +293,7 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = _build.build(["bsconv", "sfb", "dsconv"])
+    reports = _build.build(["bsconv", "sfb", "dsconv", "mega"])
     say(f"phase build: {time.perf_counter() - t0:.1f} s")
     for lib, rep in reports.items():
         for line in rep.splitlines():
@@ -257,7 +304,7 @@ def main() -> None:
     g = torch.Generator().manual_seed(SEED)
     cases = [("bsconv", 54, 3), ("bsconv", 27, 3), ("bsconv", 54, 54), ("bsconv", 27, 27),
              ("sfb", 54, None), ("sfb", 27, None), ("dsconv", 54, None), ("dsconv", 27, None)]
-    max_err = {"bsconv": 0.0, "sfb": 0.0, "dsconv": 0.0}
+    max_err = {"bsconv": 0.0, "sfb": 0.0, "dsconv": 0.0, "mega": 0.0}
     for kind, c, cin in cases:
         kern, plain, _ = runners(kind, torch)
         for n in (1, 7, 512):
@@ -274,6 +321,31 @@ def main() -> None:
             if not ok:
                 fail(f"{kind} disagrees with its plain version")
             max_err[kind] = max(max_err[kind], err)
+
+    cfg = ESSRConfig(scale=4)
+    for width in (54, 27):
+        tree, wbuf = mega_operands(width, g, torch)
+        lay = mk.WeightLayout(3, width, cfg.out_channels, cfg.n_sfb)
+        for n, h, w in ((1, 32, 32), (7, 32, 32), (512, 32, 32), (3, 13, 21)):
+            x = torch.rand((n, h, w, 3), generator=g).cuda()
+            got = mk.mega_fused(x, wbuf, width=width, n_sfb=cfg.n_sfb,
+                                out_channels=cfg.out_channels)
+            torch.cuda.synchronize()
+            want = mega_ref(x, mk.unpack_weights(wbuf, lay))
+            err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, **CHAIN_TOL)
+            layer = essr_forward_kernels(tree, x, cfg, width=width)
+            mega = mk.essr_forward_megakernel(tree, x, cfg, width=width)
+            torch.cuda.synchronize()
+            err_layer = (mega - layer).abs().max().item()
+            ok_layer = torch.allclose(mega, layer, **CHAIN_TOL)
+            say(f"phase check mega C={width} N={n} {h}x{w}: max_abs vs plain {err:.3e}, "
+                f"vs layer chain {err_layer:.3e} (rtol {CHAIN_TOL['rtol']:g} "
+                f"atol {CHAIN_TOL['atol']:g}) {'ok' if ok and ok_layer else 'MISMATCH'}")
+            if not (ok and ok_layer):
+                fail("the megakernel disagrees with its plain version or the layer chain")
+            max_err["mega"] = max(max_err["mega"], err)
+        del tree, wbuf, x, got, want, layer, mega
 
     # 4. times at N = 1024 C54
     timing = {}
@@ -299,18 +371,48 @@ def main() -> None:
             f"bound {timing[kind]['bound_ms']:.4f} ms by {timing[kind]['bound_by']} "
             f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         del x, w, got, want, yard
+    tree, wbuf = mega_operands(54, g, torch)
+    wts = mk.unpack_weights(wbuf, mk.WeightLayout(3, 54, cfg.out_channels, cfg.n_sfb))
+    x = torch.rand((TIMING_N, 32, 32, 3), generator=g).cuda()
+
+    def mega():
+        return mk.mega_fused(x, wbuf, width=54, n_sfb=cfg.n_sfb, out_channels=cfg.out_channels)
+
+    got, want, yard = mega(), mega_ref(x, wts), mega_library(x, wts, torch)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, **CHAIN_TOL):
+        fail(f"mega disagrees with its plain version at N={TIMING_N}")
+    max_err["mega"] = max(max_err["mega"], (got - want).abs().max().item())
+    ms = median_ms(mega, torch)
+    plain_ms = median_ms(lambda: mega_ref(x, wts), torch)
+    lib_ms = median_ms(lambda: mega_library(x, wts, torch), torch)
+    sum_ms = timing["bsconv"]["ms"] + cfg.n_sfb * timing["sfb"]["ms"] + timing["dsconv"]["ms"]
+    sizing = mk.group_report(54, 32, cfg.scale, cfg.n_sfb)
+    flops = TIMING_N * sizing["flops_per_patch"]
+    nbytes = TIMING_N * sizing["bytes_per_patch"] + sizing["weight_bytes"]
+    t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_flops * 1e3
+    timing["mega"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=max(t_bytes, t_flops),
+                          bound_by="bytes" if t_bytes >= t_flops else "operations")
+    say(f"phase time mega N={TIMING_N} C54: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"layer chain {sum_ms:.4f} ms (the per-op kernels' times summed), "
+        f"cuDNN {lib_ms:.4f} ms (max_abs vs plain "
+        f"{(yard - want).abs().max().item():.2e}), bound {timing['mega']['bound_ms']:.4f} ms "
+        f"by {timing['mega']['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+        f"sizing {json.dumps(sizing)}, resident clusters "
+        f"{mk.resident_clusters(54, 32, cfg.scale, cfg.n_sfb)}")
+    del tree, wbuf, wts, x, got, want, yard
     torch.cuda.empty_cache()
 
     # 5. the main path
-    cfg = ESSRConfig(scale=4)
     engine = SREngine.from_config(cfg, seed=SEED, device="cuda")
     t0 = time.perf_counter()
     engine.warmup((1080, 1920))
     say(f"phase warmup: 1920x1080 -> 7680x4320 in {time.perf_counter() - t0:.3f} s")
     frames = [mixed_frame(SEED + i) for i in range(3)]
-    expect = {"bsconv": 0, "sfb": 0, "dsconv": 0}
+    expect = {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0}
     reset_launch_counts()
-    results, lats = [], []
+    layer_ids, lats = [], []
     for i, f in enumerate(frames):
         r = engine.upscale(f)
         if r.backend != "cuda":
@@ -323,17 +425,20 @@ def main() -> None:
         expect["dsconv"] += buckets
         say(f"phase frame {i}: latency {r.latency_s * 1e3:.2f} ms, counts "
             f"(bilinear, C27, C54) {r.counts}, mac_saving {r.mac_saving:.4f}")
-        results.append(r if i == 0 else None)
+        layer_ids.append(r.ids)
         lats.append(r.latency_s)
+        if i == 0:
+            r0 = r
     launches = launch_counts()
     say(f"phase launches over 3 frames: {launches} (expected {expect})")
-    if launches != expect or min(launches.values()) == 0:
+    if launches != expect or min(launches[k] for k in ("bsconv", "sfb", "dsconv")) == 0:
         fail("the main path did not launch every kernel as its routing requires")
     say(f"phase summary: {json.dumps(engine.summary())}")
     profile_frame(engine, frames[1], statistics.median(lats), torch)
     ref_engine = SREngine(engine.model, backend="ref", device="cuda")
-    r0, rr = results[0], ref_engine.upscale(frames[0])
-    ids_equal = bool(np.array_equal(r0.ids, rr.ids))
+    refs = [ref_engine.upscale(f) for f in frames]
+    rr = refs[0]
+    ids_equal = all(np.array_equal(a, b.ids) for a, b in zip(layer_ids, refs))
     diff = (r0.image - rr.image).abs().max().item()
     close = torch.allclose(r0.image, rr.image, **CHAIN_TOL)
     say(f"phase ref: ids equal {ids_equal}, image max_abs {diff:.3e} "
@@ -341,15 +446,53 @@ def main() -> None:
         f"ref latency {rr.latency_s * 1e3:.2f} ms")
     if not (ids_equal and close):
         fail("the kernel frame disagrees with the plain-model frame")
+    del r0
 
-    # 6. tables and the result
+    # 6. group fusion
+    group = SREngine(engine.model, plan=ExecutionPlan(fusion="group"), device="cuda")
+    t0 = time.perf_counter()
+    group.warmup((1080, 1920))
+    say(f"phase group warmup: 1920x1080 -> 7680x4320 in {time.perf_counter() - t0:.3f} s")
+    expect = {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0}
+    reset_launch_counts()
+    glats = []
+    for i, f in enumerate(frames):
+        r = group.upscale(f)
+        if r.backend != "cuda":
+            fail(f"group frame {i} served by {r.backend!r}, not the kernels")
+        if tuple(r.image.shape) != (4320, 7680, 3) or not bool(torch.isfinite(r.image).all()):
+            fail(f"group frame {i}: image {tuple(r.image.shape)} not a finite 4320x7680x3")
+        expect["mega"] += sum(1 for k in (1, 2) if r.counts[k] > 0)
+        ids_equal = bool(np.array_equal(r.ids, layer_ids[i]))
+        diff = (r.image - refs[i].image).abs().max().item()
+        close = torch.allclose(r.image, refs[i].image, **CHAIN_TOL)
+        say(f"phase group frame {i}: latency {r.latency_s * 1e3:.2f} ms (layer frame "
+            f"{lats[i] * 1e3:.2f} ms), counts {r.counts}, ids equal to the layer frame's "
+            f"{ids_equal}, image vs ref max_abs {diff:.3e} {'ok' if close else 'MISMATCH'}")
+        if not (ids_equal and close):
+            fail(f"group frame {i} disagrees with the layer frame's routing or the ref image")
+        glats.append(r.latency_s)
+    launches_group = launch_counts()
+    say(f"phase group launches over 3 frames: {launches_group} (expected {expect})")
+    if launches_group != expect or launches_group["mega"] == 0:
+        fail("group fusion did not launch the megakernel once per non-empty conv bucket")
+    say(f"phase group summary: {json.dumps(group.summary())}")
+    profile_frame(group, frames[1], statistics.median(glats), torch)
+    del refs
+
+    # 7. tables and the result
     say("tpu_kernels: " + json.dumps([dict(name=n, tpu=loc, status=s)
                                       for n, loc, s in TPU_KERNELS]))
     replaces = {n: loc for n, loc, _ in TPU_KERNELS}
-    say(json.dumps({"kernels": [
-        dict(name=k, route="cuda", source=f"src/repro_torch/csrc/{k}.cu",
-             replaces=replaces[f"{k}_fused"], launches=launches[k], max_abs_err=max_err[k],
-             **timing[k]) for k in ("bsconv", "sfb", "dsconv")]}))
+    rows = [dict(name=k, route="cuda", source=f"src/repro_torch/csrc/{k}.cu",
+                 replaces=replaces[f"{k}_fused"], launches=launches[k],
+                 max_abs_err=max_err[k], **timing[k]) for k in ("bsconv", "sfb", "dsconv")]
+    rows.append(dict(name="essr_forward_megakernel", route="cuda",
+                     source="src/repro_torch/csrc/mega.cu",
+                     replaces=replaces["essr_forward_megakernel"],
+                     launches=launches_group["mega"], max_abs_err=max_err["mega"],
+                     **timing["mega"]))
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))
 

@@ -4,11 +4,13 @@
 One engine owns the supernet weights (an `ESSR` module on one device), the
 `ESSRConfig`, a frozen `ExecutionPlan` and a backend chosen once:
 
-  * "cuda" — the fused kernel chain (BSConv -> n_sfb x SFB -> DSConv), the
-    counterpart of the reference's "pallas" and the default. On the card it
-    launches the CUDA kernels and is labelled "cuda"; on ``device="cpu"``
-    the kernel wrappers take their plain versions and the label says
-    "cuda-plain";
+  * "cuda" — the fused kernels, the counterpart of the reference's "pallas"
+    and the default: under ``plan.fusion="layer"`` the chain BSConv ->
+    n_sfb x SFB -> DSConv, one launch each; under "group" one megakernel
+    launch per routed bucket. On the card it launches the CUDA kernels and
+    is labelled "cuda" (whatever the fusion, as in the reference); on
+    ``device="cpu"`` the kernel wrappers take their plain versions and the
+    label says "cuda-plain";
   * "ref"  — the plain PyTorch model.
 
 The engine runs on the card unless the caller asks for ``device="cpu"``;
@@ -184,9 +186,9 @@ class SREngine:
                                    latency_s=time.perf_counter() - t0,
                                    compiled=compiled, health=health)
             geom = p.geometry(hw[0], hw[1], self.cfg.scale, self.device)
-            compiled = self._mark_warm(("host", hw, p.patch, p.overlap))
+            compiled = self._mark_warm(("host", hw, p.patch, p.overlap, p.fusion))
             common = dict(patch=p.patch, overlap=p.overlap, buckets=p.buckets,
-                          backend=self.backend, geometry=geom)
+                          backend=self.backend, fusion=p.fusion, geometry=geom)
             result_mode, scored = mode, False
             if mode == "all_patches":
                 if width not in widths:
@@ -242,6 +244,6 @@ class SREngine:
         """Aggregate over the recorded ``upscale`` frames (the newest
         ``plan.stats_window``), with what served them."""
         out = {"backend": self.backend_label, "device": str(self.device),
-               "stats_window": self.plan.stats_window}
+               "fusion": self.plan.fusion, "stats_window": self.plan.stats_window}
         out.update(summarize_stats(self.stats))
         return out

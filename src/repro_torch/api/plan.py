@@ -63,7 +63,6 @@ _CROSS_RULES: Tuple[Tuple[str, Callable, Callable], ...] = (
 #: Valid values this package does not run yet: (field, predicate, ROADMAP item).
 _NOT_PORTED: Tuple[Tuple[str, Callable, str], ...] = (
     ("dispatch", lambda v: v == "fused", "queue 1 item 7 (fused single dispatch)"),
-    ("fusion", lambda v: v == "group", "queue 2 item 4 (the subnet-group megakernel)"),
     ("quant", lambda v: v is not None, "queue 1 item 8 (quantized serving)"),
 )
 
@@ -78,7 +77,8 @@ class ExecutionPlan:
     subnet_policy: str = "threshold"
     #: "host": routing on the host, one batch per subnet (the one served here)
     dispatch: str = "host"
-    #: "layer": one kernel launch per layer group (BSConv, each SFB, DSConv)
+    #: "layer": one kernel launch per layer group (BSConv, each SFB, DSConv);
+    #: "group": one megakernel launch per routed bucket runs the whole chain
     fusion: str = "layer"
     #: None = fp32 serving
     quant: Optional[str] = None

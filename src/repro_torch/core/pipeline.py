@@ -9,9 +9,9 @@ subnet's patches are gathered into a batch padded to a bucketed size (with
 the bucket's own last index), run through the subnet, and set back into the
 patch tensor. Width-0 patches go through bilinear resize, never a kernel.
 
-``backend`` picks the per-subnet forward: "cuda" (the fused kernel chain;
-on CPU tensors its wrappers run their plain versions) or "ref" (the plain
-PyTorch model).
+``backend`` picks the per-subnet forward: "cuda" (the fused kernels; on
+CPU tensors their wrappers run their plain versions) or "ref" (the plain
+PyTorch model); ``fusion`` picks the "cuda" backend's kernel granularity.
 """
 from __future__ import annotations
 
@@ -35,8 +35,12 @@ DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 #: patch to bilinear).
 HEALTH_POLICIES = ("off", "raise", "sanitize", "bilinear")
 
-#: ``ExecutionPlan.fusion`` values; only "layer" runs in this package yet
-#: (the plan refuses "group").
+#: ``ExecutionPlan.fusion`` values, the "cuda" backend's kernel granularity:
+#: "layer" — one launch per layer group (BSConv, each SFB, DSConv), the
+#:           feature map round-trips device memory between them;
+#: "group" — one megakernel launch per routed bucket runs the whole chain with
+#:           each patch's feature in shared memory (`kernels.megakernel`).
+#: The "ref" backend has no kernels to fuse and runs both identically.
 FUSION_MODES = ("layer", "group")
 
 
@@ -60,14 +64,29 @@ def _forward_width_cuda(params, patches, cfg: ESSRConfig, width: int) -> torch.T
     return essr_forward_kernels(params, patches, cfg, width=width)
 
 
+def _forward_width_mega(params, patches, cfg: ESSRConfig, width: int) -> torch.Tensor:
+    """The subnet-group megakernel ("cuda" backend, fusion "group"): one
+    launch runs the whole layer chain; width 0 is the same bilinear bypass."""
+    from repro_torch.kernels.megakernel import essr_forward_megakernel
+    if width == 0:
+        return bilinear_resize(patches, cfg.scale)
+    return essr_forward_megakernel(params, patches, cfg, width=width)
+
+
 BACKENDS = {"cuda": _forward_width_cuda, "ref": _forward_width}
 
 
-def resolve_forward(backend: str):
-    """Backend name -> the per-subnet forward ``(params, patches, cfg, width)``.
-    Group fusion and quant are refused earlier, by `ExecutionPlan`."""
+def resolve_forward(backend: str, fusion: str = "layer"):
+    """(backend, fusion) -> the per-subnet forward ``(params, patches, cfg,
+    width)``. ``fusion`` (see `FUSION_MODES`) selects the "cuda" backend's
+    kernel granularity; "ref" resolves both values to the plain model. Quant
+    is refused earlier, by `ExecutionPlan`."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
+    if fusion not in FUSION_MODES:
+        raise ValueError(f"unknown fusion {fusion!r}; choose from {FUSION_MODES}")
+    if backend == "cuda" and fusion == "group":
+        return _forward_width_mega
     return BACKENDS[backend]
 
 
@@ -99,12 +118,12 @@ def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRCon
                        patch: int = 32, overlap: int = 2,
                        ids_override: Optional[np.ndarray] = None,
                        buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-                       backend: str = "cuda",
+                       backend: str = "cuda", fusion: str = "layer",
                        geometry: Optional[PatchGeometry] = None) -> SRResult:
     """frame: (H,W,3) in [0,1] -> SRResult with the (H*s, W*s, 3) image.
     ``ids_override`` forces the routing and skips the edge scores (reported
     as zeros)."""
-    forward = resolve_forward(backend)
+    forward = resolve_forward(backend, fusion)
     s = cfg.scale
     h, w = int(frame.shape[0]), int(frame.shape[1])
     g = geometry if geometry is not None else get_geometry(
@@ -145,7 +164,7 @@ def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRCon
 def _sr_all_patches_result(params, frame: torch.Tensor, cfg: ESSRConfig, width: int, *,
                            patch: int = 32, overlap: int = 2,
                            buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-                           backend: str = "cuda",
+                           backend: str = "cuda", fusion: str = "layer",
                            geometry: Optional[PatchGeometry] = None) -> SRResult:
     """Every patch through one subnet (the non-edge-selective reference)."""
     widths = cfg.subnet_widths()
@@ -157,7 +176,7 @@ def _sr_all_patches_result(params, frame: torch.Tensor, cfg: ESSRConfig, width: 
     ids = np.full((g.n,), widths.index(width), dtype=np.int64)
     return _edge_selective_sr(params, frame, cfg, patch=patch, overlap=overlap,
                               ids_override=ids, buckets=buckets, backend=backend,
-                              geometry=g)
+                              fusion=fusion, geometry=g)
 
 
 def _sr_whole(params, frame: torch.Tensor, cfg: ESSRConfig,

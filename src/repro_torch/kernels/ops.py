@@ -3,6 +3,10 @@
 
     BSConv kernel -> n_sfb x SFB kernel -> DSConv kernel -> pixel shuffle
 
+and the registry of every kernel wrapper with its launch count; the
+subnet-group megakernel (``essr_forward_megakernel``, one launch for the
+whole chain) is re-exported from `kernels.megakernel`.
+
 The CUDA kernels take any batch size, so the TPU grid's block padding
 (``pad_batch`` / ``resolve_block`` / ``block_patches``) and its
 interpreter policy have no counterpart here.
@@ -15,12 +19,17 @@ import torch
 
 from repro_torch.kernels.bsconv import bsconv_fused
 from repro_torch.kernels.dsconv import dsconv_fused
+from repro_torch.kernels.megakernel import essr_forward_megakernel, mega_fused
 from repro_torch.kernels.sfb import sfb_fused
 from repro_torch.models.essr import ESSRConfig, slice_width
 from repro_torch.models.layers import pixel_shuffle
 
 #: Every kernel wrapper of this package; each carries a ``launches`` count.
-KERNELS = {"bsconv": bsconv_fused, "sfb": sfb_fused, "dsconv": dsconv_fused}
+KERNELS = {"bsconv": bsconv_fused, "sfb": sfb_fused, "dsconv": dsconv_fused,
+           "mega": mega_fused}
+
+__all__ = ["KERNELS", "essr_forward_kernels", "essr_forward_megakernel", "flat_sfb",
+           "launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,7 +7,7 @@ kernel is held against.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -34,3 +34,15 @@ def sfb_ref(x, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     y = bsconv_ref(x, p["b1_pw"], p["b1_pwb"], p["b1_dw"], p["b1_dwb"], relu=True)
     y = bsconv_ref(y, p["b2_pw"], p["b2_pwb"], p["b2_dw"], p["b2_dwb"], relu=True)
     return torch.relu(L.pointwise(y + x, p["fuse"], p["fuse_b"]))
+
+
+def mega_ref(x, w: Dict[str, Any]) -> torch.Tensor:
+    """The whole subnet-group chain, bsconv_ref -> n x sfb_ref -> dsconv_ref,
+    on the pre-shuffle output. ``w``: "first" (pw, pw_b, dw, dw_b), "sfbs"
+    (one `sfb_ref` dict each) and "recon" (dw, dw_b, pw, pw_b)."""
+    p = w["first"]
+    f = bsconv_ref(x, p["pw"], p["pw_b"], p["dw"], p["dw_b"])
+    for s in w["sfbs"]:
+        f = sfb_ref(f, s)
+    r = w["recon"]
+    return dsconv_ref(f, r["dw"], r["dw_b"], r["pw"], r["pw_b"])

@@ -1,25 +1,29 @@
 """The port's CUDA kernels on the card: each against its plain version, and
-the serving path's "cuda" frame against its "ref" frame. Marked ``cuda``;
+the serving path's "cuda" frames (layer and group fusion) against its "ref"
+frame. Marked ``cuda``;
 skipped where no CUDA device is visible. Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: one kernel rtol 1e-4 / atol 1e-5 (fp32 FFMA against fp32
-PyTorch with TF32 off); whole frame rtol 1e-3 / atol 1e-3.
+PyTorch with TF32 off); the megakernel's whole chain and whole frames
+rtol 1e-3 / atol 1e-3 (12 fp32 layers sum in different orders).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import SREngine
+from repro_torch.api import ExecutionPlan, SREngine
+from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bsconv import bsconv_fused
 from repro_torch.kernels.dsconv import dsconv_fused
 from repro_torch.kernels.sfb import SFB_KEYS, sfb_fused
-from repro_torch.models.essr import ESSRConfig
+from repro_torch.models.essr import ESSR, ESSRConfig
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-5)
+CHAIN_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 @pytest.fixture
@@ -83,3 +87,41 @@ def test_engine_frame_on_card_matches_ref(cuda):
     want = SREngine(eng.model, backend="ref").upscale(frame)
     np.testing.assert_array_equal(got.ids, want.ids)
     torch.testing.assert_close(got.image, want.image, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,h,w,width", [(0, 32, 32, 54), (1, 32, 32, 54), (7, 32, 32, 54),
+                                         (1, 32, 32, 27), (7, 32, 32, 27), (3, 13, 21, 54)])
+def test_megakernel_matches_plain(cuda, n, h, w, width):
+    cfg = ESSRConfig(scale=4)
+    g = torch.Generator().manual_seed(n + width)
+    tree = ESSR(cfg, generator=g).to("cuda").tree()
+    with torch.no_grad():
+        for leaf in mk._leaves(tree):          # non-zero biases: a halo that read
+            if leaf.ndim == 1:                 # pw(0) + b instead of 0 would show
+                leaf.copy_(0.1 * torch.randn(leaf.shape, generator=g).cuda())
+    x = torch.rand((n, h, w, 3), generator=g).cuda()
+    wbuf = mk.pack_weights(tree, width)
+    lay = mk.WeightLayout(3, width, cfg.out_channels, cfg.n_sfb)
+    before = mk.mega_fused.launches
+    got = mk.mega_fused(x, wbuf, width=width, n_sfb=cfg.n_sfb, out_channels=cfg.out_channels)
+    torch.cuda.synchronize()
+    assert mk.mega_fused.launches == before + (n > 0)
+    assert tuple(got.shape) == (n, h, w, cfg.out_channels)
+    torch.testing.assert_close(got, ref.mega_ref(x, mk.unpack_weights(wbuf, lay)), **CHAIN_TOL)
+
+
+def test_engine_group_frame_on_card_matches_ref(cuda):
+    r = np.random.default_rng(1)
+    frame = np.clip(np.linspace(0, 1, 96 * 160 * 3, dtype=np.float32).reshape(96, 160, 3)
+                    + (np.arange(160) > 80)[None, :, None] * (r.random((96, 160, 3)) - 0.5),
+                    0, 1).astype(np.float32)
+    eng = SREngine.from_config(ESSRConfig(scale=2), seed=3, plan=ExecutionPlan(fusion="group"))
+    ops.reset_launch_counts()
+    got = eng.upscale(frame)
+    counts = ops.launch_counts()
+    buckets = sum(1 for k in (1, 2) if got.counts[k] > 0)
+    assert got.backend == "cuda" and buckets > 0
+    assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": buckets}
+    want = SREngine(eng.model, backend="ref").upscale(frame)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    torch.testing.assert_close(got.image, want.image, **CHAIN_TOL)

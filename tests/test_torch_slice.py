@@ -137,10 +137,12 @@ def test_plan_validation_text_matches_reference():
             JPlan(**kw)
         assert str(mine.value) == str(theirs.value)
     for kw, item in [(dict(dispatch="fused"), "queue 1 item 7"),
-                     (dict(fusion="group"), "queue 2 item 4"),
-                     (dict(quant="int8"), "queue 1 item 8")]:
+                     (dict(quant="int8"), "queue 1 item 8"),
+                     (dict(quant="int8", fusion="group"), "queue 1 item 8")]:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             ExecutionPlan(**kw)
+    for kw in [dict(), dict(fusion="group")]:        # constructs, as in the reference
+        assert ExecutionPlan(**kw).fusion == JPlan(**kw).fusion
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch):
