@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, one line or more each; any failure exits non-zero before the last
-line:
+Phases, one line or more each (7 and 8 run right after 3 and 4, before the
+frames); any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -32,7 +32,23 @@ line:
      counts must show one megakernel launch per non-empty conv bucket and
      no per-op launch, the ids must equal the layer frames' and the images
      the "ref" frames' (rtol 1e-3 / atol 1e-3); one frame is profiled;
-  7. the TPU kernel table with each row's port status, the per-kernel JSON
+  7. the four quantized kernels (quantize, qBSConv, qSFB, qDSConv) against
+     their plain versions on the card with torch.equal (integer codes), for
+     "int8" and "fxp10", C54 and C27 (qBSConv at Cin = 3 and Cin = C), N in
+     {1, 7, 512} and a 13x21 patch, with non-zero biases; the plain quantize
+     and qDSConv on the card also equal to the same plain versions on the
+     CPU (a division by a CPU scalar on the card would not be IEEE);
+  8. each quantized kernel timed at N = 1024 C54 32x32 beside its plain
+     version and its bound, per mode (no single PyTorch call computes any of
+     them: library "none");
+  9. quantized serving: ExecutionPlan(quant=mode) for both modes serves the
+     same three frames; the label must be "cuda-<mode>", the ids equal to
+     the fp32 layer frames', the launches 1 + 1 + 5 + 1 per non-empty conv
+     bucket and nothing else, and each frame equal (torch.equal) to its
+     routed buckets run through the port's integer reference
+     (essr_forward_qref) on the card; PSNR against the fp32 frame is
+     reported (the weights are random); one frame per mode is profiled;
+ 10. the TPU kernel table with each row's port status, the per-kernel JSON
      line, and the result line.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
@@ -41,7 +57,9 @@ when the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -58,6 +76,11 @@ TIMING_N, TIMING_RUNS = 1024, 25
 #: cores, and device-memory bandwidth, by a substring of the card's name.
 PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
          ("H200", 67e12, 4.8e12), ("H100", 67e12, 3.35e12))
+#: Dense int8 tensor-core peak of the same parts (data sheets), by name.
+INT8_PEAKS = (("H100 PCIe", 1513e12), ("H100 NVL", 1671e12), ("H200", 1979e12),
+              ("H100", 1979e12))
+QUANT_MODES = ("int8", "fxp10")
+QKERNELS = ("quantize", "qbsconv", "qsfb", "qdsconv")
 
 #: Every TPU kernel of the JAX package (each function reaching pl.pallas_call).
 TPU_KERNELS = (
@@ -66,10 +89,10 @@ TPU_KERNELS = (
     ("dsconv_fused", "src/repro/kernels/dsconv.py:34", "ported"),
     ("essr_forward_megakernel", "src/repro/kernels/megakernel.py:292", "ported"),
     ("essr_forward_qmegakernel", "src/repro/kernels/megakernel.py:360", "not yet"),
-    ("quantize_fused", "src/repro/kernels/qconv.py:147", "not yet"),
-    ("qbsconv_fused", "src/repro/kernels/qconv.py:175", "not yet"),
-    ("qsfb_fused", "src/repro/kernels/qconv.py:224", "not yet"),
-    ("qdsconv_fused", "src/repro/kernels/qconv.py:270", "not yet"),
+    ("quantize_fused", "src/repro/kernels/qconv.py:147", "ported"),
+    ("qbsconv_fused", "src/repro/kernels/qconv.py:175", "ported"),
+    ("qsfb_fused", "src/repro/kernels/qconv.py:224", "ported"),
+    ("qdsconv_fused", "src/repro/kernels/qconv.py:270", "ported"),
     ("edge_score_fused", "src/repro/kernels/edge.py:33", "not yet"),
 )
 
@@ -97,6 +120,10 @@ def peaks_for(name: str):
         if key in name:
             return flops, bw
     return PEAKS[-1][1:]
+
+
+def int8_peak_for(name: str) -> float:
+    return next((ops for key, ops in INT8_PEAKS if key in name), INT8_PEAKS[-1][1])
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +235,82 @@ def mega_library(x, w, torch):
     return conv1x1(dw3(f, r["dw"], r["dw_b"]), r["pw"], r["pw_b"]).permute(0, 2, 3, 1)
 
 
+def quant_setup(mode: str, g, torch):
+    """An ESSR x4 param tree on the card (He-normal weights from ``g``,
+    non-zero biases), its QuantPack calibrated on the default batch, and the
+    prepared operands at both conv widths."""
+    from repro_torch.api.engine import default_calibration_batch
+    from repro_torch.kernels import qconv as tq
+    from repro_torch.models.essr import ESSRConfig
+    from repro_torch.quant.pams import build_quant_pack
+    tree, _ = mega_operands(54, g, torch)
+    cfg = ESSRConfig(scale=4)
+    pack = build_quant_pack(tree, cfg, mode, default_calibration_batch(32, 4).cuda())
+    return cfg, pack, {w: tq.prepare_qparams(tree, cfg, w, pack, device="cuda")[0]
+                       for w in (54, 27)}
+
+
+def quant_stages(q, x, bits: int, torch):
+    """The chain's stages on input ``x``, each as (kernel, kernel fn, plain
+    fn, its input codes): every stage's input is the plain output of the
+    stage before, so each kernel is held to its plain version alone."""
+    from repro_torch.kernels import qconv as tq
+    from repro_torch.kernels import ref
+    from repro_torch.quant.pams import code_dtype
+    p, r = q["first"], q["recon"]
+    b = (p["pwq"], p["pw_scale"], p["pwb"], p["dw_fq"], p["dwb"], p["qc"])
+    d = (r["dwq"], r["dw_scale"], r["dwb"], r["pw_fq"], r["pwb"], r["qc"])
+    stages = [("quantize", lambda v: tq.quantize_fused(v, q["in_qc"], bits=bits),
+               lambda v: ref.quantize_ref(v, q["in_qc"], code_dtype(bits)), x)]
+    f = stages[0][2](x)
+    stages.append(("qbsconv", lambda v: tq.qbsconv_fused(v, *b, relu=False),
+                   lambda v: ref.qbsconv_ref(v, *b, relu=False), f))
+    f = stages[-1][2](f)
+    for s in q["sfbs"]:
+        stages.append(("qsfb", lambda v, s=s: tq.qsfb_fused(v, s, s["qc"]),
+                       lambda v, s=s: ref.qsfb_ref(v, s, s["qc"]), f))
+        f = stages[-1][2](f)
+    stages.append(("qdsconv", lambda v: tq.qdsconv_fused(v, *d),
+                   lambda v: ref.qdsconv_ref(v, *d), f))
+    # qBSConv at Cin = C: the first SFB's b1 group on its own
+    s0 = q["sfbs"][0]
+    bc = (s0["b1_pwq"], s0["b1_pw_scale"], s0["b1_pwb"], s0["b1_dw_fq"], s0["b1_dwb"],
+          s0["qc"][0:2])
+    stages.append(("qbsconv", lambda v: tq.qbsconv_fused(v, *bc, relu=True),
+                   lambda v: ref.qbsconv_ref(v, *bc, relu=True), stages[2][3]))
+    return stages
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def qwork(kind: str, n: int, c: int, bits: int, cin: int = 3, cout: int = 48):
+    """(bytes each input read once and each output written once, integer
+    ops, fp32 ops) of one quantized kernel on n 32x32 patches; codes take 1
+    (int8) or 4 (fxp10) bytes."""
+    px, cb = n * 32 * 32, 1 if bits <= 8 else 4
+    if kind == "quantize":
+        return px * cin * (4 + cb) + 8, 0, 3 * px * cin
+    if kind == "qbsconv":        # the first layer, cin -> c
+        return (px * (cin + c) * cb + cin * c * cb + 4 * 12 * c + 8,
+                2 * px * cin * c, px * c * 24)
+    if kind == "qsfb":           # b1, b2 and the fuse's two integer dots
+        return (2 * px * c * cb + 3 * c * c * cb + 4 * 27 * c + 24,
+                2 * px * 4 * c * c, px * c * 58)
+    return (px * (c + cout) * cb + 4 * (9 * c + 2 * c + c * cout + cout) + 8,
+            2 * px * 9 * c, px * (2 * c + 2 * c * cout + 4 * cout))
+
+
+def psnr(a, b, torch) -> float:
+    mse = torch.mean((a.clamp(0, 1) - b.clamp(0, 1)).double() ** 2).item()
+    return float("inf") if mse == 0 else -10.0 * math.log10(mse)
+
+
 def median_ms(fn, torch) -> float:
     fn()
     torch.cuda.synchronize()
@@ -293,12 +396,20 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = _build.build(["bsconv", "sfb", "dsconv", "mega"])
+    reports = _build.build(["bsconv", "sfb", "dsconv", "mega", "qconv"])
     say(f"phase build: {time.perf_counter() - t0:.1f} s")
     for lib, rep in reports.items():
         for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                say(f"  ptxas {lib}: {line.split(chr(39))[1][:90]}")
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {lib}: {line.strip()}")
+    smem = _build.load("qconv").qconv_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    say("  qconv dynamic shared memory per block (bytes): " + ", ".join(
+        f"{k} C{c} {m}: {smem(i, 3 if k == 'qbsconv' else c, c if i < 2 else 48, b)}"
+        for i, k in enumerate(("qbsconv", "qsfb", "qdsconv")) for c in (54, 27)
+        for m, b in (("int8", 8), ("fxp10", 10))))
 
     # 3. each kernel against its plain version
     g = torch.Generator().manual_seed(SEED)
@@ -346,6 +457,41 @@ def main() -> None:
                 fail("the megakernel disagrees with its plain version or the layer chain")
             max_err["mega"] = max(max_err["mega"], err)
         del tree, wbuf, x, got, want, layer, mega
+
+    # 7. the quantized kernels against their plain versions, bit for bit
+    quant = {m: quant_setup(m, g, torch) for m in QUANT_MODES}
+    qerr = dict.fromkeys(QKERNELS, 0)     # max |kernel - plain| in codes, over every check
+    for mode in QUANT_MODES:
+        _, pack, qs = quant[mode]
+        for width in (54, 27):
+            for n, h, w in ((1, 32, 32), (7, 32, 32), (512, 32, 32), (3, 13, 21)):
+                x = torch.rand((n, h, w, 3), generator=g).cuda()
+                seen = {}
+                for kind, kern, plain, inp in quant_stages(qs[width], x, pack.bits, torch):
+                    got, want = kern(inp), plain(inp)
+                    torch.cuda.synchronize()
+                    err = (got.long() - want.long()).abs().max().item() if got.numel() else 0
+                    qerr[kind] = max(qerr[kind], err)
+                    if not torch.equal(got, want):
+                        fail(f"{kind} ({mode}, C{width}, N={n} {h}x{w}) differs from its plain "
+                             f"version by up to {err} codes")
+                    if want.abs().max().item() == 0:
+                        fail(f"{kind} ({mode}, C{width}, N={n}): every code is 0, the check "
+                             f"would see nothing")
+                    seen[kind] = seen.get(kind, 0) + 1
+                say(f"phase check q* {mode} C{width} N={n} {h}x{w}: "
+                    + ", ".join(f"{k} x{v}" for k, v in seen.items()) + " torch.equal ok")
+        # the plain versions on the card against the same on the CPU
+        x = torch.rand((7, 32, 32, 3), generator=g).cuda()
+        on_card = quant_stages(qs[54], x, pack.bits, torch)
+        on_cpu = quant_stages(to_cpu(qs[54]), x.cpu(), pack.bits, torch)
+        for i in (0, -2):                      # quantize, qdsconv
+            kind, _, plain, inp = on_card[i]
+            if not torch.equal(plain(inp).cpu(), on_cpu[i][2](inp.cpu())):
+                fail(f"the plain {kind} ({mode}) differs between the card and the CPU")
+        say(f"phase check q* {mode}: the plain quantize and qdsconv on the card equal "
+            f"the same on the CPU")
+    del x, got, want, inp
 
     # 4. times at N = 1024 C54
     timing = {}
@@ -402,6 +548,34 @@ def main() -> None:
         f"sizing {json.dumps(sizing)}, resident clusters "
         f"{mk.resident_clusters(54, 32, cfg.scale, cfg.n_sfb)}")
     del tree, wbuf, wts, x, got, want, yard
+
+    # 8. the quantized kernels' times at N = 1024 C54
+    int8_peak = int8_peak_for(name)
+    qtiming = {m: {} for m in QUANT_MODES}
+    for mode in QUANT_MODES:
+        _, pack, qs = quant[mode]
+        x = torch.rand((TIMING_N, 32, 32, 3), generator=g).cuda()
+        stages = quant_stages(qs[54], x, pack.bits, torch)
+        for kind in QKERNELS:
+            _, kern, plain, inp = next(st for st in stages if st[0] == kind)
+            got, want = kern(inp), plain(inp)
+            qerr[kind] = max(qerr[kind], (got.long() - want.long()).abs().max().item())
+            if not torch.equal(got, want):
+                fail(f"{kind} ({mode}) differs from its plain version at N={TIMING_N}")
+            ms = median_ms(lambda: kern(inp), torch)
+            plain_ms = median_ms(lambda: plain(inp), torch)
+            nbytes, iops, fops = qwork(kind, TIMING_N, 54, pack.bits)
+            int_peak = int8_peak if pack.bits <= 8 else peak_flops
+            t_bytes = nbytes / peak_bw * 1e3
+            t_ops = (iops / int_peak + fops / peak_flops) * 1e3
+            qtiming[mode][kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                       library_ms=None)
+            say(f"phase time q* {kind} {mode} N={TIMING_N} C54: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library none, bound {max(t_bytes, t_ops):.4f} ms by "
+                f"{qtiming[mode][kind]['bound_by']} ({nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G "
+                f"integer ops at {int_peak / 1e12:g} T/s, {fops / 1e9:.2f} GFLOP fp32)")
+        del x, stages, kern, plain, inp, got, want
     torch.cuda.empty_cache()
 
     # 5. the main path
@@ -410,7 +584,7 @@ def main() -> None:
     engine.warmup((1080, 1920))
     say(f"phase warmup: 1920x1080 -> 7680x4320 in {time.perf_counter() - t0:.3f} s")
     frames = [mixed_frame(SEED + i) for i in range(3)]
-    expect = {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0}
+    expect = {k: 0 for k in launch_counts()}
     reset_launch_counts()
     layer_ids, lats = [], []
     for i, f in enumerate(frames):
@@ -453,7 +627,7 @@ def main() -> None:
     t0 = time.perf_counter()
     group.warmup((1080, 1920))
     say(f"phase group warmup: 1920x1080 -> 7680x4320 in {time.perf_counter() - t0:.3f} s")
-    expect = {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0}
+    expect = {k: 0 for k in launch_counts()}
     reset_launch_counts()
     glats = []
     for i, f in enumerate(frames):
@@ -478,9 +652,73 @@ def main() -> None:
         fail("group fusion did not launch the megakernel once per non-empty conv bucket")
     say(f"phase group summary: {json.dumps(group.summary())}")
     profile_frame(group, frames[1], statistics.median(glats), torch)
+
+    # 9. quantized serving, both modes
+    from repro_torch.kernels.qconv import essr_forward_qref
+    from repro_torch.models.layers import bilinear_resize
+    qlaunches = {}
+    for mode in QUANT_MODES:
+        t0 = time.perf_counter()
+        qeng = SREngine(engine.model, plan=ExecutionPlan(quant=mode), device="cuda")
+        say(f"phase quant {mode} calibration: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        qeng.warmup((1080, 1920))
+        say(f"phase quant {mode} warmup: {time.perf_counter() - t0:.3f} s")
+        expect = {k: 0 for k in launch_counts()}
+        reset_launch_counts()
+        qlats, qimgs = [], []
+        for i, f in enumerate(frames):
+            r = qeng.upscale(f)
+            if r.backend != f"cuda-{mode}":
+                fail(f"quant frame {i} served by {r.backend!r}, not cuda-{mode}")
+            if tuple(r.image.shape) != (4320, 7680, 3) or not bool(torch.isfinite(r.image).all()):
+                fail(f"quant frame {i}: image {tuple(r.image.shape)} not a finite 4320x7680x3")
+            buckets = sum(1 for k in (1, 2) if r.counts[k] > 0)
+            for k, per in (("quantize", 1), ("qbsconv", 1), ("qsfb", cfg.n_sfb), ("qdsconv", 1)):
+                expect[k] += per * buckets
+            ids_equal = bool(np.array_equal(r.ids, layer_ids[i]))
+            qlats.append(r.latency_s)
+            qimgs.append(r)
+            say(f"phase quant {mode} frame {i}: latency {r.latency_s * 1e3:.2f} ms (layer "
+                f"frame {lats[i] * 1e3:.2f} ms), counts {r.counts}, ids equal to the fp32 "
+                f"frame's {ids_equal}")
+            if not ids_equal:
+                fail(f"quant frame {i} ({mode}) routed differently from the fp32 frame")
+        qlaunches[mode] = launch_counts()
+        say(f"phase quant {mode} launches over 3 frames: {qlaunches[mode]} (expected {expect})")
+        if qlaunches[mode] != expect or min(qlaunches[mode][k] for k in QKERNELS) == 0:
+            fail(f"quant serving ({mode}) did not launch every quantized kernel as its "
+                 f"routing requires")
+        # every frame equals its routed buckets through the integer reference
+        with torch.inference_mode():
+            for i, (f, r) in enumerate(zip(frames, qimgs)):
+                frame = torch.from_numpy(f).cuda()
+                geom = qeng.plan.geometry(1080, 1920, cfg.scale, "cuda")
+                patches = geom.extract(frame)
+                out = torch.zeros((geom.n, 128, 128, 3), device="cuda")
+                for k, width in enumerate(cfg.subnet_widths()):
+                    idx = torch.from_numpy(np.flatnonzero(r.ids == k)).cuda()
+                    if idx.numel() == 0:
+                        continue
+                    batch = patches.index_select(0, idx)
+                    out[idx] = (bilinear_resize(batch, cfg.scale) if width == 0 else
+                                essr_forward_qref(qeng.params, batch, cfg, width,
+                                                  pack=qeng.qpack))
+                want = geom.fuse_average(out)
+                if not torch.equal(r.image, want):
+                    err = (r.image - want).abs().max().item()
+                    fail(f"quant frame {i} ({mode}) differs from its buckets through "
+                         f"essr_forward_qref by up to {err:.3e}")
+                say(f"phase quant {mode} frame {i}: equal (torch.equal) to its routed buckets "
+                    f"through essr_forward_qref; PSNR against the fp32 'ref' frame "
+                    f"{psnr(r.image, refs[i].image, torch):.2f} dB (reported, random weights)")
+        say(f"phase quant {mode} summary: {json.dumps(qeng.summary())}")
+        profile_frame(qeng, frames[1], statistics.median(qlats), torch)
+        del qeng, qimgs, out, patches
+        torch.cuda.empty_cache()
     del refs
 
-    # 7. tables and the result
+    # 10. tables and the result
     say("tpu_kernels: " + json.dumps([dict(name=n, tpu=loc, status=s)
                                       for n, loc, s in TPU_KERNELS]))
     replaces = {n: loc for n, loc, _ in TPU_KERNELS}
@@ -492,6 +730,14 @@ def main() -> None:
                      replaces=replaces["essr_forward_megakernel"],
                      launches=launches_group["mega"], max_abs_err=max_err["mega"],
                      **timing["mega"]))
+    for k in QKERNELS:               # timed per mode; the row's own keys are int8's
+        row = dict(name=f"{k}_fused", route="cuda", source="src/repro_torch/csrc/qconv.cu",
+                   replaces=replaces[f"{k}_fused"], launches=qlaunches["int8"][k],
+                   max_abs_err=qerr[k], **qtiming["int8"][k])
+        row.update({f"fxp10_{key}": v for key, v in qtiming["fxp10"][k].items()})
+        row["fxp10_launches"] = qlaunches["fxp10"][k]
+        rows.append(row)
+    say(card)                        # the card again, beside the results
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

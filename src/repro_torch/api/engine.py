@@ -13,6 +13,16 @@ One engine owns the supernet weights (an `ESSR` module on one device), the
     label says "cuda-plain";
   * "ref"  — the plain PyTorch model.
 
+With ``plan.quant`` set ("fxp10" | "int8") the engine serves the PAMS
+quantized datapath: per-subnet activation alphas are PTQ-calibrated once, at
+construction (``calibrate=`` batch, or a deterministic synthetic default
+whose alphas are cached as JSON in ``quant_cache``, in the reference's
+format), into a `QuantPack`. "cuda" serves the integer kernels
+(`kernels.qconv`), "ref" the fake-quant emulation; the mode is appended to
+the label ("cuda-int8", "cuda-plain-fxp10", "ref-int8", ...). Routing stays
+fp32. The quantized megakernel (quant under ``fusion="group"`` on "cuda")
+is not ported yet and raises.
+
 The engine runs on the card unless the caller asks for ``device="cpu"``;
 without a card it raises, never falling back to the CPU.
 
@@ -23,6 +33,7 @@ convolution, always the plain model).
 from __future__ import annotations
 
 import collections
+import os
 import time
 import warnings
 from typing import Any, Deque, Dict, Optional, Tuple
@@ -33,11 +44,23 @@ import torch
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.result import FrameResult, summarize_stats
 from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _health_counts,
-                                       _sanitize, _sr_all_patches_result, _sr_whole)
+                                       _sanitize, _sr_all_patches_result, _sr_whole,
+                                       resolve_forward)
 from repro_torch.models.essr import ESSR, ESSRConfig
 from repro_torch.runtime.guard import PoisonFrameError
 
 MODES = ("edge_select", "all_patches", "whole")
+
+
+def default_calibration_batch(patch: int, scale: int, n: int = 16,
+                              seed: int = 1234) -> torch.Tensor:
+    """Deterministic PTQ calibration batch on the CPU: ``n`` synthetic LR
+    patches in [0,1], one per procedural frame (plain / texture / edges, as
+    the router tells apart), each ``degrade(random_image(seed + i, patch *
+    scale, patch * scale), scale)``, as the reference draws them."""
+    from repro_torch.data.synthetic import degrade, random_image
+    return torch.stack([degrade(random_image(seed + i, patch * scale, patch * scale), scale)
+                        for i in range(n)])
 
 
 def _resolve_device(device) -> torch.device:
@@ -52,15 +75,22 @@ class SREngine:
     """Facade over the edge-selective pipeline. See module docstring."""
 
     def __init__(self, model: ESSR, plan: Optional[ExecutionPlan] = None,
-                 backend: str = "cuda", device=None):
+                 backend: str = "cuda", device=None, calibrate=None,
+                 quant_cache: Optional[str] = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
+        self.plan = plan if plan is not None else ExecutionPlan()
+        if self.plan.quant is not None:
+            # fail fast, before calibrating, on what this package cannot serve
+            resolve_forward(backend, self.plan.quant, self.plan.fusion)
         self.device = _resolve_device(device)
         self.model = model.to(self.device).requires_grad_(False)
         self.cfg: ESSRConfig = model.cfg
         self.params = self.model.tree()
-        self.plan = plan if plan is not None else ExecutionPlan()
         self.backend = backend
+        # quantized serving: calibrate the per-subnet alphas once, here; the
+        # pack is engine state, so every frame reuses the same lattice
+        self.qpack = self._resolve_quant_pack(calibrate, quant_cache)
         self.stats: Deque[FrameResult] = collections.deque(maxlen=self.plan.stats_window)
         self._warm: set = set()
 
@@ -69,26 +99,31 @@ class SREngine:
     @classmethod
     def from_config(cls, cfg: Optional[ESSRConfig] = None, *, seed: int = 0,
                     plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
-                    device=None) -> "SREngine":
-        """Fresh engine with He-normal weights drawn from ``seed``."""
+                    device=None, calibrate=None,
+                    quant_cache: Optional[str] = None) -> "SREngine":
+        """Fresh engine with He-normal weights drawn from ``seed``.
+        ``calibrate`` / ``quant_cache``: see `SREngine` (``plan.quant``)."""
         cfg = cfg if cfg is not None else ESSRConfig()
         model = ESSR(cfg, generator=torch.Generator().manual_seed(seed))
-        return cls(model, plan=plan, backend=backend, device=device)
+        return cls(model, plan=plan, backend=backend, device=device, calibrate=calibrate,
+                   quant_cache=quant_cache)
 
     @classmethod
     def from_params(cls, params: Dict[str, Any], cfg: ESSRConfig, *,
                     plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
-                    device=None) -> "SREngine":
+                    device=None, calibrate=None,
+                    quant_cache: Optional[str] = None) -> "SREngine":
         """Engine over a reference param tree with numpy leaves."""
         from repro_torch.models.convert import params_from_numpy
         return cls(params_from_numpy(params, cfg), plan=plan, backend=backend,
-                   device=device)
+                   device=device, calibrate=calibrate, quant_cache=quant_cache)
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, *, cfg: Optional[ESSRConfig] = None,
                         scale: int = 4, prefer: str = "ema", step: Optional[int] = None,
                         plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
-                        device=None) -> "SREngine":
+                        device=None, calibrate=None,
+                        quant_cache: Optional[str] = None) -> "SREngine":
         """Engine over a checkpoint the reference's ``CheckpointManager``
         wrote, holding a ``{"params", "ema"}`` tree (or one of the two);
         ``prefer`` picks the tree that serves."""
@@ -102,17 +137,62 @@ class SREngine:
                                  f"neither {prefer!r} nor 'params'")
             use = "params"
             warnings.warn(f"checkpoint {ckpt_dir} has no {prefer!r} tree; serving 'params'")
-        return cls.from_params(tree[use], cfg, plan=plan, backend=backend, device=device)
+        return cls.from_params(tree[use], cfg, plan=plan, backend=backend, device=device,
+                               calibrate=calibrate, quant_cache=quant_cache)
+
+    # -- quantized serving -----------------------------------------------------
+
+    def _resolve_quant_pack(self, calibrate, quant_cache: Optional[str]):
+        """plan.quant -> a calibrated `QuantPack` (None for fp32 serving).
+
+        ``calibrate``: a (N,h,w,3) LR batch in [0,1]; always calibrated
+        fresh. None takes `default_calibration_batch`, whose alphas are
+        cached in the directory ``quant_cache`` (when given) under the
+        reference's file name, keyed by the weights' fingerprint and the
+        plan's patch size."""
+        from repro_torch.quant.pams import (build_quant_pack, load_quant_pack,
+                                            params_fingerprint, save_quant_pack)
+        mode = self.plan.quant
+        if mode is None:
+            return None
+        if calibrate is not None:
+            sample = calibrate if isinstance(calibrate, torch.Tensor) else \
+                torch.tensor(np.asarray(calibrate, np.float32))
+            return build_quant_pack(self.params, self.cfg, mode,
+                                    sample.to(self.device, torch.float32))
+        cache_path = None
+        if quant_cache:
+            fp = params_fingerprint(self.params)
+            cache_path = os.path.join(
+                quant_cache, f"quant_alphas_{mode}_x{self.cfg.scale}_sfb{self.cfg.n_sfb}"
+                             f"_p{self.plan.patch}_{fp}.json")
+            cached = load_quant_pack(cache_path, fp)
+            if cached is not None:
+                return cached
+        sample = default_calibration_batch(self.plan.patch, self.cfg.scale)
+        pack = build_quant_pack(self.params, self.cfg, mode, sample.to(self.device))
+        if cache_path:
+            try:
+                os.makedirs(quant_cache, exist_ok=True)
+                save_quant_pack(cache_path, pack, fp)
+            except OSError as e:
+                warnings.warn(f"quant alpha cache write failed: {e!r}")
+        return pack
 
     # -- labels and ingest -----------------------------------------------------
 
+    def _backend_label(self, plan: ExecutionPlan) -> str:
+        """What executes: "cuda" on the card, "cuda-plain" when the kernel
+        wrappers ran their plain versions on CPU tensors, "ref"; a quant
+        mode is appended ("cuda-int8", "cuda-plain-fxp10", "ref-int8")."""
+        base = self.backend
+        if self.backend == "cuda" and self.device.type != "cuda":
+            base = "cuda-plain"
+        return base if plan.quant is None else f"{base}-{plan.quant}"
+
     @property
     def backend_label(self) -> str:
-        """What executes: "cuda" on the card, "cuda-plain" when the kernel
-        wrappers ran their plain versions on CPU tensors, "ref"."""
-        if self.backend == "cuda" and self.device.type != "cuda":
-            return "cuda-plain"
-        return self.backend
+        return self._backend_label(self.plan)
 
     def _ingest(self, frame, p: ExecutionPlan) -> torch.Tensor:
         """Host-side dtype gate: integer frames are rejected under "raise",
@@ -168,6 +248,12 @@ class SREngine:
         if mode != "edge_select" and ids_override is not None:
             raise ValueError("ids_override requires mode='edge_select'")
         p = plan if plan is not None else self.plan
+        if p.quant != self.plan.quant:
+            # quant is engine state (the calibrated alphas), like the backend
+            raise ValueError(
+                f"plan.quant is engine-level: engine was built with "
+                f"{self.plan.quant!r}, per-call plan asks for {p.quant!r}; "
+                f"construct a second engine for a different quant mode")
         widths = self.cfg.subnet_widths()
         with torch.inference_mode():
             t0 = time.perf_counter()
@@ -188,7 +274,8 @@ class SREngine:
             geom = p.geometry(hw[0], hw[1], self.cfg.scale, self.device)
             compiled = self._mark_warm(("host", hw, p.patch, p.overlap, p.fusion))
             common = dict(patch=p.patch, overlap=p.overlap, buckets=p.buckets,
-                          backend=self.backend, fusion=p.fusion, geometry=geom)
+                          backend=self.backend, fusion=p.fusion, quant=self.qpack,
+                          geometry=geom)
             result_mode, scored = mode, False
             if mode == "all_patches":
                 if width not in widths:
@@ -206,7 +293,7 @@ class SREngine:
                 res = _edge_selective_sr(self.params, frame, self.cfg, t1=p.t1, t2=p.t2,
                                          ids_override=ids_override, **common)
             self._sync()
-            out = FrameResult(image=res.image, mode=result_mode, backend=self.backend_label,
+            out = FrameResult(image=res.image, mode=result_mode, backend=self._backend_label(p),
                               ids=res.ids, scores=res.scores if scored else None,
                               counts=res.counts, mac_saving=res.mac_saving,
                               latency_s=time.perf_counter() - t0,
@@ -244,6 +331,7 @@ class SREngine:
         """Aggregate over the recorded ``upscale`` frames (the newest
         ``plan.stats_window``), with what served them."""
         out = {"backend": self.backend_label, "device": str(self.device),
-               "fusion": self.plan.fusion, "stats_window": self.plan.stats_window}
+               "fusion": self.plan.fusion, "quant": self.plan.quant,
+               "stats_window": self.plan.stats_window}
         out.update(summarize_stats(self.stats))
         return out

@@ -63,7 +63,6 @@ _CROSS_RULES: Tuple[Tuple[str, Callable, Callable], ...] = (
 #: Valid values this package does not run yet: (field, predicate, ROADMAP item).
 _NOT_PORTED: Tuple[Tuple[str, Callable, str], ...] = (
     ("dispatch", lambda v: v == "fused", "queue 1 item 7 (fused single dispatch)"),
-    ("quant", lambda v: v is not None, "queue 1 item 8 (quantized serving)"),
 )
 
 
@@ -80,7 +79,8 @@ class ExecutionPlan:
     #: "layer": one kernel launch per layer group (BSConv, each SFB, DSConv);
     #: "group": one megakernel launch per routed bucket runs the whole chain
     fusion: str = "layer"
-    #: None = fp32 serving
+    #: None = fp32 serving; "fxp10" | "int8" serve the PAMS lattice (engine
+    #: state: the engine calibrates its alphas once, at construction)
     quant: Optional[str] = None
     #: what serving does about a frame with NaN/Inf/out-of-[0,1] pixels
     on_poison: str = "raise"

@@ -11,11 +11,15 @@ patch tensor. Width-0 patches go through bilinear resize, never a kernel.
 
 ``backend`` picks the per-subnet forward: "cuda" (the fused kernels; on
 CPU tensors their wrappers run their plain versions) or "ref" (the plain
-PyTorch model); ``fusion`` picks the "cuda" backend's kernel granularity.
+PyTorch model); ``fusion`` picks the "cuda" backend's kernel granularity;
+``quant`` (a `QuantPack`, or None for fp32) serves the PAMS lattice: "cuda"
+through the integer kernels, "ref" through the fake-quant emulation.
+Routing stays fp32 either way: the edge scores come from the fp frame.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -76,18 +80,52 @@ def _forward_width_mega(params, patches, cfg: ESSRConfig, width: int) -> torch.T
 BACKENDS = {"cuda": _forward_width_cuda, "ref": _forward_width}
 
 
-def resolve_forward(backend: str, fusion: str = "layer"):
-    """(backend, fusion) -> the per-subnet forward ``(params, patches, cfg,
-    width)``. ``fusion`` (see `FUSION_MODES`) selects the "cuda" backend's
-    kernel granularity; "ref" resolves both values to the plain model. Quant
-    is refused earlier, by `ExecutionPlan`."""
+# ---------------------------------------------------------------------------
+# quantized per-subnet forwards (ExecutionPlan.quant = "fxp10" | "int8")
+# ---------------------------------------------------------------------------
+
+def _forward_width_quant_ref(params, patches, cfg: ESSRConfig, width: int, *, quant):
+    """PAMS fake-quant emulation of the whole forward (W/A quantized at every
+    conv boundary with the pack's PTQ alphas): the "ref" quant backend."""
+    from repro_torch.quant.pams import quantized_essr_forward
+    if width == 0:
+        return bilinear_resize(patches, cfg.scale)
+    scales = {k: torch.tensor(v, dtype=torch.float32, device=patches.device)
+              for k, v in quant.act_scales(width).items()}
+    return quantized_essr_forward(params, scales, patches, cfg, quant.qcfg, width=width)
+
+
+def _forward_width_quant_cuda(params, patches, cfg: ESSRConfig, width: int, *, quant):
+    """The integer kernel chain (`kernels.qconv`): the "cuda" quant backend;
+    width 0 is the bilinear bypass."""
+    from repro_torch.kernels.qconv import essr_forward_qkernels
+    if width == 0:
+        return bilinear_resize(patches, cfg.scale)
+    return essr_forward_qkernels(params, patches, cfg, width=width, pack=quant)
+
+
+QUANT_BACKENDS = {"cuda": _forward_width_quant_cuda, "ref": _forward_width_quant_ref}
+
+
+def resolve_forward(backend: str, quant=None, fusion: str = "layer"):
+    """(backend, QuantPack or None, fusion) -> the per-subnet forward
+    ``(params, patches, cfg, width)``. ``fusion`` (see `FUSION_MODES`)
+    selects the "cuda" backend's kernel granularity; "ref" resolves both
+    values to the same forward. The quantized megakernel (quant under
+    fusion "group" on "cuda") is not ported yet and raises."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
     if fusion not in FUSION_MODES:
         raise ValueError(f"unknown fusion {fusion!r}; choose from {FUSION_MODES}")
     if backend == "cuda" and fusion == "group":
-        return _forward_width_mega
-    return BACKENDS[backend]
+        if quant is None:
+            return _forward_width_mega
+        raise NotImplementedError(
+            "quant with fusion='group' on the 'cuda' backend (the quantized megakernel) "
+            "is not ported yet: ROADMAP queue 2 item 10")
+    if quant is None:
+        return BACKENDS[backend]
+    return functools.partial(QUANT_BACKENDS[backend], quant=quant)
 
 
 def _health_counts(frame: torch.Tensor) -> torch.Tensor:
@@ -118,12 +156,12 @@ def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRCon
                        patch: int = 32, overlap: int = 2,
                        ids_override: Optional[np.ndarray] = None,
                        buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-                       backend: str = "cuda", fusion: str = "layer",
+                       backend: str = "cuda", fusion: str = "layer", quant=None,
                        geometry: Optional[PatchGeometry] = None) -> SRResult:
     """frame: (H,W,3) in [0,1] -> SRResult with the (H*s, W*s, 3) image.
     ``ids_override`` forces the routing and skips the edge scores (reported
-    as zeros)."""
-    forward = resolve_forward(backend, fusion)
+    as zeros). ``quant``: a `QuantPack` for quantized serving."""
+    forward = resolve_forward(backend, quant, fusion)
     s = cfg.scale
     h, w = int(frame.shape[0]), int(frame.shape[1])
     g = geometry if geometry is not None else get_geometry(
@@ -164,7 +202,7 @@ def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRCon
 def _sr_all_patches_result(params, frame: torch.Tensor, cfg: ESSRConfig, width: int, *,
                            patch: int = 32, overlap: int = 2,
                            buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-                           backend: str = "cuda", fusion: str = "layer",
+                           backend: str = "cuda", fusion: str = "layer", quant=None,
                            geometry: Optional[PatchGeometry] = None) -> SRResult:
     """Every patch through one subnet (the non-edge-selective reference)."""
     widths = cfg.subnet_widths()
@@ -176,7 +214,7 @@ def _sr_all_patches_result(params, frame: torch.Tensor, cfg: ESSRConfig, width: 
     ids = np.full((g.n,), widths.index(width), dtype=np.int64)
     return _edge_selective_sr(params, frame, cfg, patch=patch, overlap=overlap,
                               ids_override=ids, buckets=buckets, backend=backend,
-                              fusion=fusion, geometry=g)
+                              fusion=fusion, quant=quant, geometry=g)
 
 
 def _sr_whole(params, frame: torch.Tensor, cfg: ESSRConfig,

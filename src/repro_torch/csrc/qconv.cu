@@ -1,0 +1,565 @@
+// Integer-domain quantized ESSR kernels (PAMS serving path, paper Sec.
+// IV-H): quantize, qBSConv, qSFB and qDSConv, NHWC, with the lattice codes
+// between groups as int8_t ("int8") or int32_t ("fxp10"). Each C entry takes
+// an int `bits`: 8 picks int8_t codes, anything wider int32_t.
+//
+// Replaces the TPU kernels of repro/kernels/qconv.py: quantize_fused
+// (pallas_call at qconv.py:156), qbsconv_fused (:187), qsfb_fused (:241) and
+// qdsconv_fused (:282).
+//
+// Arithmetic contract: bit for bit the plain versions in
+// repro_torch/kernels/ref.py (quantize_ref, qbsconv_ref, qsfb_ref,
+// qdsconv_ref). Codes are integers, so a one-ulp difference in one fp step
+// flips a code that lies on a .5 boundary, and the flip grows down the
+// chain. Every fp multiply, add and divide here is therefore an explicit
+// round-to-nearest intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn), which nvcc
+// never contracts into an FMA, in the plain version's order: dequant
+// (float(acc) * scale) + bias; depthwise 9 taps in (dy, dx) raster order
+// from 0, then + bias; qSFB's combine ((acc_y * sy) + (acc_x * sx)) + b;
+// qDSConv's fp 1x1 an ordered sum over input channels 0..C-1 from 0;
+// requantize clip, then divide, then rintf (half to even, as torch.round).
+// Integer dots are exact in any order: __dp4a over groups of 4 int8
+// channels, int32 multiply-add for fxp10 codes (|sum| <= 511 * 511 * 64 <
+// 2^31; an fp32 FFMA on integer-valued floats would be exact too, below
+// 2^24, but is not needed).
+//
+// What bounds them, at N = 1024 C54 32x32 patches (x4) on an H100 SXM
+// (3.35 TB/s, 67 TFLOP/s fp32, 1,979 TOPS int8 dense); int8 / fxp10 codes
+// move 1 / 4 bytes each:
+//   quantize  the bytes it moves: 15.7 / 25.2 MB, 0.0047 / 0.0075 ms;
+//   qBSConv   (first layer, 3 -> 54) the bytes of its output codes: 0.018 /
+//             0.071 ms;
+//   qSFB      int8: its bytes (0.034 ms; its integer dots would take 0.012
+//             ms on the tensor cores); fxp10: its 24.5 G integer operations
+//             on the CUDA cores, 0.37 ms;
+//   qDSConv   int8: its fp 1x1, 5.44 GFLOP at the fp32 rate, 0.081 ms;
+//             fxp10: its bytes, 0.128 ms.
+// These kernels keep the dots on the CUDA cores (no int8 mma yet).
+//
+// Design, simple and right first (speed is later work): as the fp kernels
+// (sfb.cu), a block works on one 8x8 output tile at a time in a
+// grid-stride loop, with the group's weights staged once per block and the
+// depthwise halo recomputed in shared memory (qSFB: 12x12 -> 10x10 -> 8x8;
+// the codes and fp maps of a tile never leave it). Channels pad to
+// multiples of 4 with zero codes and zero weights. Every pointwise result
+// off the patch is 0, bias included, before a depthwise layer (the SAME
+// padding of the dequantized map); the int32 depthwise of qDSConv reads zero
+// codes off the patch. A thread's integer dot covers 4 output channels of
+// one pixel, with one 16-byte shared-memory load of their weights per step
+// (int8: per 4 input channels, as 4-byte __dp4a words; int32: per input
+// channel). qDSConv's fp 1x1 gives a thread 4 output channels of 4 pixels,
+// 16 independent ordered sums.
+#include <stdint.h>
+
+#include "common.cuh"
+
+using namespace essr;
+
+namespace {
+
+constexpr int R0 = TILE + 4;     // qSFB input tile edge (2-px halo)
+constexpr int R1 = TILE + 2;     // 1-px halo
+
+template <class T>
+__device__ __forceinline__ T requant(float v, float a, float s) {
+  return static_cast<T>(static_cast<int>(rintf(__fdiv_rn(fminf(fmaxf(v, -a), a), s))));
+}
+
+__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
+}
+
+// acc[k] = sum_ci x[ci] * w(ci, co0 + k), k < 4, over cpi (a multiple of 4)
+// input channels; w as staged by stage_codes. One 16-byte load brings the
+// weights of the 4 output channels (co0 is a multiple of 4).
+__device__ __forceinline__ void dot4(const int8_t* x, const int8_t* w, int cpi, int cpo,
+                                     int co0, int acc[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = 0;
+  for (int ci = 0; ci < cpi; ci += 4) {
+    const int xv = *reinterpret_cast<const int*>(x + ci);
+    const int4 wv = *reinterpret_cast<const int4*>(w + 4 * ((ci >> 2) * cpo + co0));
+    acc[0] = __dp4a(xv, wv.x, acc[0]);
+    acc[1] = __dp4a(xv, wv.y, acc[1]);
+    acc[2] = __dp4a(xv, wv.z, acc[2]);
+    acc[3] = __dp4a(xv, wv.w, acc[3]);
+  }
+}
+
+__device__ __forceinline__ void dot4(const int32_t* x, const int32_t* w, int cpi, int cpo,
+                                     int co0, int acc[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = 0;
+  for (int ci = 0; ci < cpi; ++ci) {
+    const int xv = x[ci];
+    const int4 wv = *reinterpret_cast<const int4*>(w + ci * cpo + co0);
+    acc[0] += xv * wv.x;
+    acc[1] += xv * wv.y;
+    acc[2] += xv * wv.z;
+    acc[3] += xv * wv.w;
+  }
+}
+
+// Code weights w (K x Co, row-major) into shared memory, zero-padded to
+// kp x cop: for int8, one 4-byte word per (group of 4 input channels, output
+// channel), word (k / 4) * cop + co holding input channels k..k+3 (the
+// operand of one __dp4a); for int32, as given.
+__device__ __forceinline__ void stage_codes(const int8_t* __restrict__ w, int K, int Co, int kp,
+                                            int cop, int8_t* dst) {
+  for (int i = threadIdx.x; i < kp * cop; i += blockDim.x) {
+    const int j = i & 3, word = i >> 2;
+    const int kg = word / cop, co = word - kg * cop, k = 4 * kg + j;
+    dst[i] = (k < K && co < Co) ? w[(size_t)k * Co + co] : int8_t(0);
+  }
+}
+
+__device__ __forceinline__ void stage_codes(const int32_t* __restrict__ w, int K, int Co,
+                                            int kp, int cop, int32_t* dst) {
+  for (int i = threadIdx.x; i < kp * cop; i += blockDim.x) {
+    const int k = i / cop, co = i - k * cop;
+    dst[i] = (k < K && co < Co) ? __ldg(w + (size_t)k * Co + co) : 0;
+  }
+}
+
+// dst[p * cp + c] = codes of x[n] over the RH x RW region at (oy, ox); zero
+// off the patch and in the padded channels c >= C.
+template <class T>
+__device__ __forceinline__ void load_codes(const T* __restrict__ x, int n, int H, int W, int C,
+                                           int oy, int ox, int RH, int RW, int cp, T* dst) {
+  const T* img = x + (size_t)n * H * W * C;
+  for (int i = threadIdx.x; i < RH * RW * cp; i += blockDim.x) {
+    const int p = i / cp, c = i - p * cp;
+    const int y = oy + p / RW, xx = ox + p % RW;
+    T v = 0;
+    if (c < C && y >= 0 && y < H && xx >= 0 && xx < W) v = img[((size_t)y * W + xx) * C + c];
+    dst[i] = v;
+  }
+}
+
+// P[p * cpo + co] = dequant(X[p] . w(:, co)) over the R x R region r; 0 off
+// the patch (bias included).
+template <int R, class T>
+__device__ __forceinline__ void pointwise_dequant(const T* X, int cpi, const T* Wq, int cpo,
+                                                  const float* scale, const float* bias,
+                                                  Region<R, R> r, int H, int W, float* P) {
+  const int ng = cpo >> 2;
+  for (int item = threadIdx.x; item < R * R * ng; item += blockDim.x) {
+    const int g = item % ng, p = item / ng;
+    float* dst = P + p * cpo + 4 * g;
+    if (!r.inside(p, H, W)) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dst[k] = 0.f;
+      continue;
+    }
+    int acc[4];
+    dot4(X + p * cpi, Wq, cpi, cpo, 4 * g, acc);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dst[k] = dequant(acc[k], scale[4 * g + k], bias[4 * g + k]);
+  }
+}
+
+// 3x3 depthwise of channel c at output (i, j) from an input region RWI
+// pixels wide: taps in (dy, dx) raster order from 0, then + bias.
+template <int RWI>
+__device__ __forceinline__ float depthwise_at(const float* in, const float* w9, int cp, int i,
+                                              int j, int c, float bias) {
+  float d = 0.f;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+      d = __fadd_rn(d, __fmul_rn(in[((i + dy) * RWI + j + dx) * cp + c], w9[(dy * 3 + dx) * cp + c]));
+  return __fadd_rn(d, bias);
+}
+
+// ---------------------------------------------------------------------------
+// quantize: one thread per element, grid-stride
+// ---------------------------------------------------------------------------
+
+template <class T>
+__global__ void __launch_bounds__(256) quantize_kernel(const float* __restrict__ x,
+                                                       const float* __restrict__ qc,
+                                                       T* __restrict__ out, int n) {
+  const float a = qc[0], s = qc[1];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    out[i] = requant<T>(__ldg(x + i), a, s);
+}
+
+// ---------------------------------------------------------------------------
+// qBSConv: integer 1x1 -> dequant + bias -> fp 3x3 depthwise + bias ->
+// optional ReLU -> requantize; 10x10 input tile for an 8x8 output tile
+// ---------------------------------------------------------------------------
+
+template <class T>
+struct QBArgs {
+  const T* x;
+  const T* pwq;
+  const float *pws, *pwb, *dw, *dwb, *qc;
+  T* out;
+  int N, H, W, Cin, Cout, relu;
+};
+
+template <class T>
+size_t qbsconv_smem(int cpi, int cpo) {
+  return sizeof(float) * ((size_t)R1 * R1 * cpo + 12 * cpo) +
+         sizeof(T) * ((size_t)R1 * R1 * cpi + (size_t)cpi * cpo);
+}
+
+template <class T>
+__global__ void __launch_bounds__(256) qbsconv_kernel(QBArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = a.H, W = a.W, Cout = a.Cout;
+  const int cpi = round4(a.Cin), cpo = round4(a.Cout);
+  float* P = reinterpret_cast<float*>(smem);   // R1*R1 x cpo
+  float* Dw = P + R1 * R1 * cpo;               // 9 x cpo
+  float* sc = Dw + 9 * cpo;                    // [pw scale | pw bias | dw bias], cpo each
+  T* X = reinterpret_cast<T*>(sc + 3 * cpo);   // R1*R1 x cpi codes
+  T* Wq = X + R1 * R1 * cpi;                   // cpi x cpo codes
+
+  stage_codes(a.pwq, a.Cin, Cout, cpi, cpo, Wq);
+  stage_matrix(a.dw, 9, Cout, 9, cpo, Dw);
+  stage_matrix(a.pws, 1, Cout, 1, cpo, sc);
+  stage_matrix(a.pwb, 1, Cout, 1, cpo, sc + cpo);
+  stage_matrix(a.dwb, 1, Cout, 1, cpo, sc + 2 * cpo);
+  const float ao = a.qc[0], so = a.qc[1];
+
+  const int ty = (H + TILE - 1) / TILE, tx = (W + TILE - 1) / TILE;
+  const long long tiles = (long long)a.N * ty * tx;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n = (int)(t / (ty * tx));
+    const int r = (int)(t % (ty * tx));
+    const int y0 = (r / tx) * TILE, x0 = (r % tx) * TILE;
+    __syncthreads();
+    load_codes(a.x, n, H, W, a.Cin, y0 - 1, x0 - 1, R1, R1, cpi, X);
+    __syncthreads();
+    pointwise_dequant<R1>(X, cpi, Wq, cpo, sc, sc + cpo, Region<R1, R1>{y0 - 1, x0 - 1}, H, W,
+                          P);
+    __syncthreads();
+    for (int item = threadIdx.x; item < TILE * TILE * Cout; item += blockDim.x) {
+      const int c = item % Cout, q = item / Cout;
+      const int i = q / TILE, j = q % TILE;
+      const int y = y0 + i, xx = x0 + j;
+      if (y >= H || xx >= W) continue;
+      float d = depthwise_at<R1>(P, Dw, cpo, i, j, c, sc[2 * cpo + c]);
+      if (a.relu) d = fmaxf(d, 0.f);
+      a.out[(((size_t)n * H + y) * W + xx) * Cout + c] = requant<T>(d, ao, so);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// qSFB: qBSConv (relu, site b1) -> qBSConv (relu, site b2) -> fuse 1x1 over
+// both lattices -> ReLU -> requantize (site out); 12x12 -> 10x10 -> 8x8
+// ---------------------------------------------------------------------------
+
+template <class T>
+struct QSArgs {
+  const T* x;
+  const T* w1;
+  const float *s1, *pb1, *dw1, *db1;
+  const T* w2;
+  const float *s2, *pb2, *dw2, *db2;
+  const T* wf;
+  const float *fsy, *fsx, *fb, *qc;
+  T* out;
+  int N, H, W, C;
+};
+
+template <class T>
+size_t qsfb_smem(int cp) {
+  return sizeof(float) * ((size_t)R0 * R0 * cp + 27 * cp) +
+         sizeof(T) * ((size_t)R0 * R0 * cp + (size_t)R1 * R1 * cp + 3 * (size_t)cp * cp);
+}
+
+template <class T>
+__global__ void __launch_bounds__(512) qsfb_kernel(QSArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = a.H, W = a.W, C = a.C, cp = round4(a.C);
+  float* P = reinterpret_cast<float*>(smem);   // R0*R0 x cp: pw1, then pw2 (R1 stride)
+  float* D1 = P + R0 * R0 * cp;                // 9 x cp each
+  float* D2 = D1 + 9 * cp;
+  float* v = D2 + 9 * cp;   // [s1 | pb1 | db1 | s2 | pb2 | db2 | fsy | fsx | fb], cp each
+  T* X = reinterpret_cast<T*>(v + 9 * cp);     // R0*R0 x cp input codes (and the shortcut)
+  T* Y = X + R0 * R0 * cp;                     // R1*R1 x cp: b1 codes, then b2 codes (8x8)
+  T* W1 = Y + R1 * R1 * cp;                    // cp x cp code weights each
+  T* W2 = W1 + cp * cp;
+  T* WF = W2 + cp * cp;
+
+  stage_codes(a.w1, C, C, cp, cp, W1);
+  stage_codes(a.w2, C, C, cp, cp, W2);
+  stage_codes(a.wf, C, C, cp, cp, WF);
+  stage_matrix(a.dw1, 9, C, 9, cp, D1);
+  stage_matrix(a.dw2, 9, C, 9, cp, D2);
+  const float* vecs[9] = {a.s1, a.pb1, a.db1, a.s2, a.pb2, a.db2, a.fsy, a.fsx, a.fb};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) stage_matrix(vecs[k], 1, C, 1, cp, v + k * cp);
+  float qc[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) qc[k] = a.qc[k];
+
+  const int ng = cp >> 2;
+  const int ty = (H + TILE - 1) / TILE, tx = (W + TILE - 1) / TILE;
+  const long long tiles = (long long)a.N * ty * tx;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n = (int)(t / (ty * tx));
+    const int r = (int)(t % (ty * tx));
+    const int y0 = (r / tx) * TILE, x0 = (r % tx) * TILE;
+    __syncthreads();
+    load_codes(a.x, n, H, W, C, y0 - 2, x0 - 2, R0, R0, cp, X);
+    __syncthreads();
+    // P = dequant(w1 . X) on 12x12, zero off the patch
+    pointwise_dequant<R0>(X, cp, W1, cp, v, v + cp, Region<R0, R0>{y0 - 2, x0 - 2}, H, W, P);
+    __syncthreads();
+    // Y = requant(relu(dw1(P) + b)) on 10x10 (padded channels come out 0)
+    for (int item = threadIdx.x; item < R1 * R1 * cp; item += blockDim.x) {
+      const int c = item % cp, q = item / cp;
+      const float d = depthwise_at<R0>(P, D1, cp, q / R1, q % R1, c, v[2 * cp + c]);
+      Y[item] = requant<T>(fmaxf(d, 0.f), qc[0], qc[1]);
+    }
+    __syncthreads();
+    // P = dequant(w2 . Y) on 10x10, zero off the patch
+    pointwise_dequant<R1>(Y, cp, W2, cp, v + 3 * cp, v + 4 * cp, Region<R1, R1>{y0 - 1, x0 - 1},
+                          H, W, P);
+    __syncthreads();
+    // Y = requant(relu(dw2(P) + b)) on the 8x8 tile
+    for (int item = threadIdx.x; item < TILE * TILE * cp; item += blockDim.x) {
+      const int c = item % cp, q = item / cp;
+      const float d = depthwise_at<R1>(P, D2, cp, q / TILE, q % TILE, c, v[5 * cp + c]);
+      Y[item] = requant<T>(fmaxf(d, 0.f), qc[2], qc[3]);
+    }
+    __syncthreads();
+    // out = requant(relu(((wf . Y) * sy + (wf . X) * sx) + b))
+    for (int item = threadIdx.x; item < TILE * TILE * ng; item += blockDim.x) {
+      const int g = item % ng, p = item / ng;
+      const int i = p / TILE, j = p % TILE;
+      const int y = y0 + i, xx = x0 + j;
+      if (y >= H || xx >= W) continue;
+      int ay[4], ax[4];
+      dot4(Y + p * cp, WF, cp, cp, 4 * g, ay);
+      dot4(X + ((i + 2) * R0 + j + 2) * cp, WF, cp, cp, 4 * g, ax);
+      T* px = a.out + (((size_t)n * H + y) * W + xx) * C;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int co = 4 * g + k;
+        if (co >= C) break;
+        const float s = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(ay[k]), v[6 * cp + co]),
+                                            __fmul_rn(__int2float_rn(ax[k]), v[7 * cp + co])),
+                                  v[8 * cp + co]);
+        px[co] = requant<T>(fmaxf(s, 0.f), qc[4], qc[5]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// qDSConv: exact int32 3x3 depthwise on the codes -> dequant + bias -> fp
+// 1x1 as an ordered sum over input channels -> + bias -> requantize
+// ---------------------------------------------------------------------------
+
+template <class T>
+struct QDArgs {
+  const T* x;
+  const int32_t* dwq;
+  const float *dws, *dwb, *pw, *pwb, *qc;
+  T* out;
+  int N, H, W, Cin, Cout;
+};
+
+template <class T>
+size_t qdsconv_smem(int cpi, int cpo) {
+  return sizeof(float) * ((size_t)TILE * TILE * cpi + (size_t)cpi * cpo + 2 * cpi + cpo) +
+         sizeof(int32_t) * 9 * cpi + sizeof(T) * (size_t)R1 * R1 * cpi;
+}
+
+template <class T>
+__global__ void __launch_bounds__(256) qdsconv_kernel(QDArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
+  const int cpi = round4(Cin), cpo = round4(Cout);
+  float* D = reinterpret_cast<float*>(smem);   // TILE*TILE x cpi
+  float* Pw = D + TILE * TILE * cpi;           // cpi x cpo
+  float* dws = Pw + cpi * cpo;                 // cpi
+  float* dwb = dws + cpi;                      // cpi
+  float* pwb = dwb + cpi;                      // cpo
+  int32_t* Dq = reinterpret_cast<int32_t*>(pwb + cpo);   // 9 x cpi codes
+  T* X = reinterpret_cast<T*>(Dq + 9 * cpi);   // R1*R1 x cpi codes
+
+  stage_codes(a.dwq, 9, Cin, 9, cpi, Dq);
+  stage_matrix(a.pw, Cin, Cout, cpi, cpo, Pw);
+  stage_matrix(a.dws, 1, Cin, 1, cpi, dws);
+  stage_matrix(a.dwb, 1, Cin, 1, cpi, dwb);
+  stage_matrix(a.pwb, 1, Cout, 1, cpo, pwb);
+  const float ao = a.qc[0], so = a.qc[1];
+
+  const int ty = (H + TILE - 1) / TILE, tx = (W + TILE - 1) / TILE;
+  const long long tiles = (long long)a.N * ty * tx;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n = (int)(t / (ty * tx));
+    const int r = (int)(t % (ty * tx));
+    const int y0 = (r / tx) * TILE, x0 = (r % tx) * TILE;
+    __syncthreads();
+    load_codes(a.x, n, H, W, Cin, y0 - 1, x0 - 1, R1, R1, cpi, X);
+    __syncthreads();
+    for (int item = threadIdx.x; item < TILE * TILE * cpi; item += blockDim.x) {
+      const int c = item % cpi, q = item / cpi;
+      const int i = q / TILE, j = q % TILE;
+      int acc = 0;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          acc += static_cast<int>(X[((i + dy) * R1 + j + dx) * cpi + c]) * Dq[(dy * 3 + dx) * cpi + c];
+      D[item] = dequant(acc, dws[c], dwb[c]);
+    }
+    __syncthreads();
+    // 4 output channels of the 4 pixels p, p + 16, p + 32, p + 48 per thread
+    constexpr int NPG = TILE * TILE / 4;
+    const int ng = cpo >> 2;
+    for (int item = threadIdx.x; item < ng * NPG; item += blockDim.x) {
+      const int g = item % ng, pg = item / ng;
+      float s[4][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[k][j] = 0.f;
+      for (int ci = 0; ci < Cin; ++ci) {
+        const float4 wv = ld4(Pw + ci * cpo + 4 * g);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float d = D[(pg + k * NPG) * cpi + ci];
+          s[k][0] = __fadd_rn(s[k][0], __fmul_rn(d, wv.x));
+          s[k][1] = __fadd_rn(s[k][1], __fmul_rn(d, wv.y));
+          s[k][2] = __fadd_rn(s[k][2], __fmul_rn(d, wv.z));
+          s[k][3] = __fadd_rn(s[k][3], __fmul_rn(d, wv.w));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = pg + k * NPG;
+        const int y = y0 + p / TILE, xx = x0 + p % TILE;
+        if (y >= H || xx >= W) continue;
+        T* px = a.out + (((size_t)n * H + y) * W + xx) * Cout;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int co = 4 * g + j;
+          if (co < Cout) px[co] = requant<T>(__fadd_rn(s[k][j], pwb[co]), ao, so);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+template <class K, class A>
+int launch(K kernel, int threads, size_t smem, long long work, const A& args, void* stream) {
+  int grid = 0;
+  cudaError_t e = resident_grid(kernel, threads, smem, work, &grid);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  return (int)cudaGetLastError();
+}
+
+long long tiles_of(int N, int H, int W) {
+  return (long long)N * ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+}
+
+template <class T>
+int quantize_launch(const float* x, const float* qc, T* out, int n, void* stream) {
+  int grid = 0;
+  cudaError_t e = resident_grid(quantize_kernel<T>, 256, 0, (n + 255) / 256, &grid);
+  if (e != cudaSuccess) return (int)e;
+  quantize_kernel<T><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, qc, out, n);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int qbsconv_launch(const QBArgs<T>& a, void* stream) {
+  return launch(qbsconv_kernel<T>, 256, qbsconv_smem<T>(round4(a.Cin), round4(a.Cout)),
+                tiles_of(a.N, a.H, a.W), a, stream);
+}
+
+template <class T>
+int qsfb_launch(const QSArgs<T>& a, void* stream) {
+  return launch(qsfb_kernel<T>, 512, qsfb_smem<T>(round4(a.C)), tiles_of(a.N, a.H, a.W), a,
+                stream);
+}
+
+template <class T>
+int qdsconv_launch(const QDArgs<T>& a, void* stream) {
+  return launch(qdsconv_kernel<T>, 256, qdsconv_smem<T>(round4(a.Cin), round4(a.Cout)),
+                tiles_of(a.N, a.H, a.W), a, stream);
+}
+
+}  // namespace
+
+// Dynamic shared memory of one block, in bytes: kernel 0 qBSConv (cin ->
+// cout), 1 qSFB (cin = cout = C), 2 qDSConv (cin -> cout).
+extern "C" long long qconv_smem_bytes(int kernel, int cin, int cout, int bits) {
+  const int cpi = round4(cin), cpo = round4(cout);
+  const bool b8 = bits <= 8;
+  switch (kernel) {
+    case 0: return (long long)(b8 ? qbsconv_smem<int8_t>(cpi, cpo) : qbsconv_smem<int32_t>(cpi, cpo));
+    case 1: return (long long)(b8 ? qsfb_smem<int8_t>(cpo) : qsfb_smem<int32_t>(cpo));
+    case 2: return (long long)(b8 ? qdsconv_smem<int8_t>(cpi, cpo) : qdsconv_smem<int32_t>(cpi, cpo));
+    default: return -1;
+  }
+}
+
+extern "C" int quantize_forward(const float* x, const float* qc, void* out, int n, int bits,
+                                void* stream) {
+  if (bits <= 8) return quantize_launch(x, qc, static_cast<int8_t*>(out), n, stream);
+  return quantize_launch(x, qc, static_cast<int32_t*>(out), n, stream);
+}
+
+extern "C" int qbsconv_forward(const void* x, const void* pwq, const float* pws,
+                               const float* pwb, const float* dw, const float* dwb,
+                               const float* qc, void* out, int N, int H, int W, int Cin,
+                               int Cout, int relu, int bits, void* stream) {
+  if (bits <= 8)
+    return qbsconv_launch(QBArgs<int8_t>{static_cast<const int8_t*>(x),
+                                         static_cast<const int8_t*>(pwq), pws, pwb, dw, dwb, qc,
+                                         static_cast<int8_t*>(out), N, H, W, Cin, Cout, relu},
+                          stream);
+  return qbsconv_launch(QBArgs<int32_t>{static_cast<const int32_t*>(x),
+                                        static_cast<const int32_t*>(pwq), pws, pwb, dw, dwb, qc,
+                                        static_cast<int32_t*>(out), N, H, W, Cin, Cout, relu},
+                        stream);
+}
+
+extern "C" int qsfb_forward(const void* x, const void* b1pwq, const float* b1s,
+                            const float* b1pwb, const float* b1dw, const float* b1dwb,
+                            const void* b2pwq, const float* b2s, const float* b2pwb,
+                            const float* b2dw, const float* b2dwb, const void* fuseq,
+                            const float* fsy, const float* fsx, const float* fuseb,
+                            const float* qc, void* out, int N, int H, int W, int C, int bits,
+                            void* stream) {
+  if (bits <= 8)
+    return qsfb_launch(
+        QSArgs<int8_t>{static_cast<const int8_t*>(x), static_cast<const int8_t*>(b1pwq), b1s,
+                       b1pwb, b1dw, b1dwb, static_cast<const int8_t*>(b2pwq), b2s, b2pwb, b2dw,
+                       b2dwb, static_cast<const int8_t*>(fuseq), fsy, fsx, fuseb, qc,
+                       static_cast<int8_t*>(out), N, H, W, C},
+        stream);
+  return qsfb_launch(
+      QSArgs<int32_t>{static_cast<const int32_t*>(x), static_cast<const int32_t*>(b1pwq), b1s,
+                      b1pwb, b1dw, b1dwb, static_cast<const int32_t*>(b2pwq), b2s, b2pwb, b2dw,
+                      b2dwb, static_cast<const int32_t*>(fuseq), fsy, fsx, fuseb, qc,
+                      static_cast<int32_t*>(out), N, H, W, C},
+      stream);
+}
+
+extern "C" int qdsconv_forward(const void* x, const int32_t* dwq, const float* dws,
+                               const float* dwb, const float* pw, const float* pwb,
+                               const float* qc, void* out, int N, int H, int W, int Cin,
+                               int Cout, int bits, void* stream) {
+  if (bits <= 8)
+    return qdsconv_launch(QDArgs<int8_t>{static_cast<const int8_t*>(x), dwq, dws, dwb, pw, pwb,
+                                         qc, static_cast<int8_t*>(out), N, H, W, Cin, Cout},
+                          stream);
+  return qdsconv_launch(QDArgs<int32_t>{static_cast<const int32_t*>(x), dwq, dws, dwb, pw, pwb,
+                                        qc, static_cast<int32_t*>(out), N, H, W, Cin, Cout},
+                        stream);
+}

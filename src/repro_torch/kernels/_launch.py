@@ -7,25 +7,38 @@ CUDA activation launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
 #: Widest channel count the kernels' shared-memory layout is sized for.
 MAX_CHANNELS = 64
+#: Dtypes of the integer lattice codes the quantized kernels take.
+CODE_DTYPES = (torch.int8, torch.int32)
+
+_Dtypes = Union[torch.dtype, Tuple[torch.dtype, ...]]
 
 
-def check_operands(what: str, x: torch.Tensor,
-                   operands: Dict[str, Tuple[torch.Tensor, Tuple[int, ...]]]) -> None:
-    """``x``: the (N,H,W,C) activation; ``operands``: name -> (tensor,
-    expected shape). Raises ValueError/TypeError on any mismatch."""
+def _names(dtypes: Tuple[torch.dtype, ...]) -> str:
+    return " or ".join(str(d).replace("torch.", "") for d in dtypes)
+
+
+def check_operands(what: str, x: torch.Tensor, operands: Dict[str, tuple],
+                   dtype: _Dtypes = torch.float32) -> None:
+    """``x``: the (N,H,W,C) activation, of ``dtype`` (one or a tuple of
+    allowed dtypes); ``operands``: name -> (tensor, expected shape) for a
+    float32 operand, or (tensor, expected shape, dtype). Raises
+    ValueError/TypeError on any mismatch."""
     if x.ndim != 4:
         raise ValueError(f"{what}: x must be (N,H,W,C), got shape {tuple(x.shape)}")
-    for name, (t, shape) in {"x": (x, tuple(x.shape)), **operands}.items():
+    spec = {"x": (x, tuple(x.shape), dtype)}
+    spec.update({k: v if len(v) == 3 else (*v, torch.float32) for k, v in operands.items()})
+    for name, (t, shape, want) in spec.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a tensor, got {type(t).__name__}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        want = want if isinstance(want, tuple) else (want,)
+        if t.dtype not in want:
+            raise TypeError(f"{what}: {name} must be {_names(want)}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{what}: {name} on {t.device}, x on {x.device}")
         if tuple(t.shape) != tuple(shape):

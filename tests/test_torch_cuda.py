@@ -1,13 +1,15 @@
 """The port's CUDA kernels on the card: each against its plain version, and
-the serving path's "cuda" frames (layer and group fusion) against its "ref"
-frame. Marked ``cuda``;
+the serving path's "cuda" frames (layer and group fusion, and quantized)
+against its "ref" frame or its integer reference. Marked ``cuda``;
 skipped where no CUDA device is visible. Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: one kernel rtol 1e-4 / atol 1e-5 (fp32 FFMA against fp32
 PyTorch with TF32 off); the megakernel's whole chain and whole frames
-rtol 1e-3 / atol 1e-3 (12 fp32 layers sum in different orders).
+rtol 1e-3 / atol 1e-3 (12 fp32 layers sum in different orders). The
+quantized kernels put out integer codes and are held to their plain
+versions with ``torch.equal``.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 from repro_torch.api import ExecutionPlan, SREngine
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import qconv as tq
 from repro_torch.kernels.bsconv import bsconv_fused
 from repro_torch.kernels.dsconv import dsconv_fused
 from repro_torch.kernels.sfb import SFB_KEYS, sfb_fused
@@ -121,7 +124,73 @@ def test_engine_group_frame_on_card_matches_ref(cuda):
     counts = ops.launch_counts()
     buckets = sum(1 for k in (1, 2) if got.counts[k] > 0)
     assert got.backend == "cuda" and buckets > 0
-    assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": buckets}
+    assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": buckets,
+                      "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0}
     want = SREngine(eng.model, backend="ref").upscale(frame)
     np.testing.assert_array_equal(got.ids, want.ids)
     torch.testing.assert_close(got.image, want.image, **CHAIN_TOL)
+
+
+def _quant_setup(mode, width, seed):
+    """An x2 supernet on the card with non-zero biases, its calibrated pack
+    and the prepared operands at ``width``."""
+    from repro_torch.api.engine import default_calibration_batch
+    from repro_torch.quant.pams import build_quant_pack
+    cfg = ESSRConfig(scale=2)
+    g = torch.Generator().manual_seed(seed)
+    tree = ESSR(cfg, generator=g).to("cuda").requires_grad_(False).tree()
+    for leaf in mk._leaves(tree):
+        if leaf.ndim == 1:
+            leaf.copy_(0.1 * torch.randn(leaf.shape, generator=g).cuda())
+    pack = build_quant_pack(tree, cfg, mode, default_calibration_batch(32, 2, n=8).cuda())
+    q, _ = tq.prepare_qparams(tree, cfg, width, pack, device="cuda")
+    return cfg, tree, pack, q
+
+
+@pytest.mark.parametrize("mode", ["int8", "fxp10"])
+@pytest.mark.parametrize("n,h,w,width", [(1, 32, 32, 54), (7, 32, 32, 27), (3, 13, 21, 54),
+                                         (0, 32, 32, 54)])
+def test_quantized_kernels_equal_plain(cuda, mode, n, h, w, width):
+    cfg, _, pack, q = _quant_setup(mode, width, seed=n + width)
+    x = torch.rand((n, h, w, 3), generator=torch.Generator().manual_seed(n)).cuda()
+    before = {k: v.launches for k, v in ops.KERNELS.items()}
+    f = tq.quantize_fused(x, q["in_qc"], bits=pack.bits)
+    want = ref.quantize_ref(x, q["in_qc"], f.dtype)
+    assert torch.equal(f, want)
+    p = q["first"]
+    args = (p["pwq"], p["pw_scale"], p["pwb"], p["dw_fq"], p["dwb"], p["qc"])
+    got, want = tq.qbsconv_fused(f, *args, relu=False), ref.qbsconv_ref(f, *args, relu=False)
+    assert torch.equal(got, want)
+    f = want
+    for sfb in q["sfbs"]:
+        got, want = tq.qsfb_fused(f, sfb, sfb["qc"]), ref.qsfb_ref(f, sfb, sfb["qc"])
+        assert torch.equal(got, want)
+        f = want
+    r = q["recon"]
+    args = (r["dwq"], r["dw_scale"], r["dwb"], r["pw_fq"], r["pwb"], r["qc"])
+    got, want = tq.qdsconv_fused(f, *args), ref.qdsconv_ref(f, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and tuple(got.shape) == (n, h, w, cfg.out_channels)
+    assert (got.abs().max().item() if n else 1) > 0          # not all-zero codes
+    after = {k: v.launches for k, v in ops.KERNELS.items()}
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert launched == ({} if n == 0 else
+                        {"quantize": 1, "qbsconv": 1, "qsfb": cfg.n_sfb, "qdsconv": 1})
+
+
+def test_engine_int8_frame_on_card(cuda):
+    r = np.random.default_rng(2)
+    frame = np.clip(np.linspace(0, 1, 96 * 160 * 3, dtype=np.float32).reshape(96, 160, 3)
+                    + (np.arange(160) > 80)[None, :, None] * (r.random((96, 160, 3)) - 0.5),
+                    0, 1).astype(np.float32)
+    eng = SREngine.from_config(ESSRConfig(scale=2), seed=3, plan=ExecutionPlan(quant="int8"))
+    ops.reset_launch_counts()
+    got = eng.upscale(frame)
+    counts = ops.launch_counts()
+    buckets = sum(1 for k in (1, 2) if got.counts[k] > 0)
+    assert got.backend == "cuda-int8" and buckets > 0
+    assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0, "quantize": buckets,
+                      "qbsconv": buckets, "qsfb": 5 * buckets, "qdsconv": buckets}
+    fp = SREngine(eng.model).upscale(frame)
+    np.testing.assert_array_equal(got.ids, fp.ids)
+    assert bool(torch.isfinite(got.image).all())

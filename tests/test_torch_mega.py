@@ -102,16 +102,17 @@ def test_group_engine_golden_frame_matches_reference():
 
 
 def test_resolve_forward_fusion():
-    assert pipeline.resolve_forward("cuda", "group") is pipeline._forward_width_mega
+    # (backend, quant, fusion): the reference's argument order
+    assert pipeline.resolve_forward("cuda", fusion="group") is pipeline._forward_width_mega
     assert pipeline.resolve_forward("cuda") is pipeline._forward_width_cuda
-    assert pipeline.resolve_forward("ref", "group") is pipeline._forward_width
+    assert pipeline.resolve_forward("ref", None, "group") is pipeline._forward_width
     with pytest.raises(ValueError) as mine:
-        pipeline.resolve_forward("cuda", "tile")
+        pipeline.resolve_forward("cuda", fusion="tile")
     with pytest.raises(ValueError) as theirs:
         jpipe.resolve_forward("pallas", fusion="tile")
     assert str(mine.value) == str(theirs.value)
     with pytest.raises(ValueError, match="unknown backend"):
-        pipeline.resolve_forward("pallas", "group")
+        pipeline.resolve_forward("pallas", fusion="group")
 
 
 @pytest.mark.parametrize("width", [27, 54])
@@ -201,7 +202,8 @@ def test_mega_wrapper_checks_and_launches_nothing_on_cpu():
             mk.essr_forward_megakernel(tree, x, T_X4, width=0)
         with pytest.raises(ValueError, match="outside 1..54"):
             mk.essr_forward_megakernel(tree, x, T_X4, width=60)
-    assert ops.launch_counts() == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0}
+    assert ops.launch_counts() == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0,
+                                   "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0}
 
 
 def test_build_key_of_the_megakernel():

@@ -136,13 +136,20 @@ def test_plan_validation_text_matches_reference():
         with pytest.raises(ValueError) as theirs:
             JPlan(**kw)
         assert str(mine.value) == str(theirs.value)
-    for kw, item in [(dict(dispatch="fused"), "queue 1 item 7"),
-                     (dict(quant="int8"), "queue 1 item 8"),
-                     (dict(quant="int8", fusion="group"), "queue 1 item 8")]:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ExecutionPlan(**kw)
-    for kw in [dict(), dict(fusion="group")]:        # constructs, as in the reference
-        assert ExecutionPlan(**kw).fusion == JPlan(**kw).fusion
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+        ExecutionPlan(dispatch="fused")
+    for kw in [dict(), dict(fusion="group"), dict(quant="int8"), dict(quant="fxp10"),
+               dict(quant="int8", fusion="group")]:   # constructs, as in the reference
+        mine, theirs = ExecutionPlan(**kw), JPlan(**kw)
+        assert (mine.fusion, mine.quant) == (theirs.fusion, theirs.quant)
+    # the quantized megakernel is not ported: the "cuda" engine refuses quant
+    # under fusion="group", the "ref" engine (which ignores fusion) serves it
+    plan = ExecutionPlan(quant="int8", fusion="group")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 10"):
+        SREngine.from_config(CFG, plan=plan, device="cpu")
+    frame = _golden_frame(64)[:32, :32]
+    r = SREngine.from_config(CFG, plan=plan, backend="ref", device="cpu").upscale(frame)
+    assert r.backend == "ref-int8" and tuple(r.image.shape) == (64, 64, 3)
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch):
