@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, one line or more each (7 and 8 run right after 3 and 4, before the
-frames); any failure exits non-zero before the last line:
+Phases, one line or more each, run in this order: 1, 2, 3, 7, 11, 4, 8, 12,
+5, 6, 9 with 13 after each mode, 14, 10; any failure exits non-zero before
+the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -49,7 +50,26 @@ frames); any failure exits non-zero before the last line:
      (essr_forward_qref) on the card; PSNR against the fp32 frame is
      reported (the weights are random); one frame per mode is profiled;
  10. the TPU kernel table with each row's port status, the per-kernel JSON
-     line, and the result line.
+     line, and the result line;
+ 11. the quantized megakernel (csrc/qmega.cu) against its plain version
+     (recon codes), and its images against the qconv kernel chain and the
+     integer reference essr_forward_qref on the card, all with torch.equal,
+     for "int8" and "fxp10", C54 and C27, N in {1, 7, 512, 1024} and a 13x21
+     patch, with non-zero biases;
+ 12. the quantized megakernel timed at N = 1024 C54 32x32 beside its plain
+     version, the qconv chain's summed time from phase 8 and its bound (at
+     the data sheet's rates, and at the CUDA-core rates its dots run at),
+     with its resident clusters and shared memory per block;
+ 13. quantized group serving: ExecutionPlan(quant=mode, fusion="group")
+     serves the same three frames on the same weights and pack; the label
+     must be "cuda-<mode>", the launches one qmega per non-empty conv bucket
+     and nothing else, the ids equal to the fp32 frames' and each image
+     torch.equal to the quant layer frame's; one frame is profiled;
+ 14. the edge-score kernel (csrc/edge.cu) through its own entry point on the
+     patches of the three frames: scores within rtol 1e-4 / atol 1e-3 of the
+     plain edge_score, the routing ids from them equal to the plain scores'
+     (a difference is allowed only within 1e-3 of t1 or t2, and counted);
+     then timed beside its plain version and its bound by bytes.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -88,12 +108,12 @@ TPU_KERNELS = (
     ("sfb_fused", "src/repro/kernels/sfb.py:42", "ported"),
     ("dsconv_fused", "src/repro/kernels/dsconv.py:34", "ported"),
     ("essr_forward_megakernel", "src/repro/kernels/megakernel.py:292", "ported"),
-    ("essr_forward_qmegakernel", "src/repro/kernels/megakernel.py:360", "not yet"),
+    ("essr_forward_qmegakernel", "src/repro/kernels/megakernel.py:360", "ported"),
     ("quantize_fused", "src/repro/kernels/qconv.py:147", "ported"),
     ("qbsconv_fused", "src/repro/kernels/qconv.py:175", "ported"),
     ("qsfb_fused", "src/repro/kernels/qconv.py:224", "ported"),
     ("qdsconv_fused", "src/repro/kernels/qconv.py:270", "ported"),
-    ("edge_score_fused", "src/repro/kernels/edge.py:33", "not yet"),
+    ("edge_score_fused", "src/repro/kernels/edge.py:33", "ported"),
 )
 
 
@@ -237,8 +257,8 @@ def mega_library(x, w, torch):
 
 def quant_setup(mode: str, g, torch):
     """An ESSR x4 param tree on the card (He-normal weights from ``g``,
-    non-zero biases), its QuantPack calibrated on the default batch, and the
-    prepared operands at both conv widths."""
+    non-zero biases), its QuantPack calibrated on the default batch, the
+    prepared operands at both conv widths, and the tree."""
     from repro_torch.api.engine import default_calibration_batch
     from repro_torch.kernels import qconv as tq
     from repro_torch.models.essr import ESSRConfig
@@ -247,7 +267,7 @@ def quant_setup(mode: str, g, torch):
     cfg = ESSRConfig(scale=4)
     pack = build_quant_pack(tree, cfg, mode, default_calibration_batch(32, 4).cuda())
     return cfg, pack, {w: tq.prepare_qparams(tree, cfg, w, pack, device="cuda")[0]
-                       for w in (54, 27)}
+                       for w in (54, 27)}, tree
 
 
 def quant_stages(q, x, bits: int, torch):
@@ -396,7 +416,7 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = _build.build(["bsconv", "sfb", "dsconv", "mega", "qconv"])
+    reports = _build.build(["bsconv", "sfb", "dsconv", "mega", "qconv", "qmega", "edge"])
     say(f"phase build: {time.perf_counter() - t0:.1f} s")
     for lib, rep in reports.items():
         for line in rep.splitlines():
@@ -410,6 +430,17 @@ def main() -> None:
         f"{k} C{c} {m}: {smem(i, 3 if k == 'qbsconv' else c, c if i < 2 else 48, b)}"
         for i, k in enumerate(("qbsconv", "qsfb", "qdsconv")) for c in (54, 27)
         for m, b in (("int8", 8), ("fxp10", 10))))
+    qsmem = _build.load("qmega").qmega_smem_bytes
+    qsmem.argtypes, qsmem.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    for c in (54, 27):
+        for m, b in (("int8", 8), ("fxp10", 10)):
+            qrep = mk.qgroup_report(c, 32, 4, 5, b)
+            got = qsmem(32, 3, c, 48, 5, qrep["rows_per_cta"], b)
+            say(f"  qmega C{c} {m}: {got} B of dynamic shared memory per block "
+                f"(qgroup_report {qrep['smem_bytes']} B, {qrep['rows_per_cta']} rows, "
+                f"{qrep['threads']} threads)")
+            if got != qrep["smem_bytes"]:
+                fail("qgroup_report disagrees with the kernel's shared-memory size")
 
     # 3. each kernel against its plain version
     g = torch.Generator().manual_seed(SEED)
@@ -462,7 +493,7 @@ def main() -> None:
     quant = {m: quant_setup(m, g, torch) for m in QUANT_MODES}
     qerr = dict.fromkeys(QKERNELS, 0)     # max |kernel - plain| in codes, over every check
     for mode in QUANT_MODES:
-        _, pack, qs = quant[mode]
+        _, pack, qs, _ = quant[mode]
         for width in (54, 27):
             for n, h, w in ((1, 32, 32), (7, 32, 32), (512, 32, 32), (3, 13, 21)):
                 x = torch.rand((n, h, w, 3), generator=g).cuda()
@@ -492,6 +523,43 @@ def main() -> None:
         say(f"phase check q* {mode}: the plain quantize and qdsconv on the card equal "
             f"the same on the CPU")
     del x, got, want, inp
+
+    # 11. the quantized megakernel: its codes against its plain version, its
+    # images against the qconv kernel chain and the integer reference
+    from repro_torch.kernels.qconv import essr_forward_qkernels, essr_forward_qref
+    from repro_torch.kernels.ref import qmega_ref
+    qerr["qmega"] = 0
+    for mode in QUANT_MODES:
+        qcfg, pack, qs, qtree = quant[mode]
+        for width in (54, 27):
+            q = qs[width]
+            wbuf = mk.pack_qweights(q, pack.bits)
+            lay = mk.QWeightLayout(3, width, qcfg.out_channels, qcfg.n_sfb,
+                                   1 if pack.bits <= 8 else 4)
+            plain_w = mk.unpack_qweights(wbuf, lay)
+            for n, h, w in ((1, 32, 32), (7, 32, 32), (512, 32, 32), (1024, 32, 32),
+                            (3, 13, 21)):
+                x = torch.rand((n, h, w, 3), generator=g).cuda()
+                codes = mk.qmega_fused(x, wbuf, q["consts"], width=width, n_sfb=qcfg.n_sfb,
+                                       out_channels=qcfg.out_channels, bits=pack.bits)
+                torch.cuda.synchronize()
+                want = qmega_ref(x, plain_w, q["consts"], codes.dtype)
+                err = (codes.long() - want.long()).abs().max().item()
+                qerr["qmega"] = max(qerr["qmega"], err)
+                img = mk.essr_forward_qmegakernel(qtree, x, qcfg, width, pack=pack)
+                torch.cuda.synchronize()
+                chain = essr_forward_qkernels(qtree, x, qcfg, width, pack=pack)
+                qref = essr_forward_qref(qtree, x, qcfg, width, pack=pack)
+                eq = (torch.equal(codes, want), torch.equal(img, chain), torch.equal(img, qref))
+                say(f"phase check qmega {mode} C{width} N={n} {h}x{w}: recon codes torch.equal "
+                    f"to the plain version {eq[0]} (max {err} codes apart), image torch.equal "
+                    f"to the qconv kernel chain {eq[1]} and to essr_forward_qref {eq[2]}")
+                if not all(eq):
+                    fail(f"the quantized megakernel ({mode}, C{width}, N={n} {h}x{w}) differs")
+                if want.abs().max().item() == 0:
+                    fail(f"qmega ({mode}, C{width}, N={n}): every code is 0, the check would "
+                         f"see nothing")
+    del x, codes, want, img, chain, qref, wbuf, plain_w
 
     # 4. times at N = 1024 C54
     timing = {}
@@ -553,7 +621,7 @@ def main() -> None:
     int8_peak = int8_peak_for(name)
     qtiming = {m: {} for m in QUANT_MODES}
     for mode in QUANT_MODES:
-        _, pack, qs = quant[mode]
+        _, pack, qs, _ = quant[mode]
         x = torch.rand((TIMING_N, 32, 32, 3), generator=g).cuda()
         stages = quant_stages(qs[54], x, pack.bits, torch)
         for kind in QKERNELS:
@@ -576,6 +644,57 @@ def main() -> None:
                 f"{qtiming[mode][kind]['bound_by']} ({nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G "
                 f"integer ops at {int_peak / 1e12:g} T/s, {fops / 1e9:.2f} GFLOP fp32)")
         del x, stages, kern, plain, inp, got, want
+    torch.cuda.empty_cache()
+
+    # 12. the quantized megakernel's time at N = 1024 C54, beside the chain
+    qmega_timing = {}
+    for mode in QUANT_MODES:
+        qcfg, pack, qs, _ = quant[mode]
+        q = qs[54]
+        wbuf = mk.pack_qweights(q, pack.bits)
+        plain_w = mk.unpack_qweights(wbuf, mk.QWeightLayout(3, 54, qcfg.out_channels, qcfg.n_sfb,
+                                                            1 if pack.bits <= 8 else 4))
+        x = torch.rand((TIMING_N, 32, 32, 3), generator=g).cuda()
+
+        def kern():
+            return mk.qmega_fused(x, wbuf, q["consts"], width=54, n_sfb=qcfg.n_sfb,
+                                  out_channels=qcfg.out_channels, bits=pack.bits)
+
+        got = kern()
+        want = qmega_ref(x, plain_w, q["consts"], got.dtype)
+        if not torch.equal(got, want):
+            fail(f"qmega ({mode}) differs from its plain version at N={TIMING_N}")
+        ms = median_ms(kern, torch)
+        plain_ms = median_ms(lambda: qmega_ref(x, plain_w, q["consts"], got.dtype), torch)
+        qrep = mk.qgroup_report(54, 32, qcfg.scale, qcfg.n_sfb, pack.bits)
+        iops, fops = TIMING_N * qrep["int_ops_per_patch"], TIMING_N * qrep["fp_ops_per_patch"]
+        nbytes = TIMING_N * qrep["bytes_per_patch"] + qrep["weight_bytes"]
+        int_peak = int8_peak if pack.bits <= 8 else peak_flops
+        # the dots run on the CUDA cores: __dp4a does 4 int8 MACs per lane
+        # instruction and issues no faster than an FFMA, int32 multiply-add
+        # no faster than an FFMA, so these rates bound the kernel's own
+        # arithmetic from above
+        core_peak = 4 * peak_flops if pack.bits <= 8 else peak_flops
+        t_bytes = nbytes / peak_bw * 1e3
+        t_ops = (iops / int_peak + fops / peak_flops) * 1e3
+        t_core = (iops / core_peak + fops / peak_flops) * 1e3
+        chain_ms = sum(qtiming[mode][k]["ms"] * (qcfg.n_sfb if k == "qsfb" else 1)
+                       for k in QKERNELS)
+        clusters = mk.qresident_clusters(54, 32, qcfg.scale, qcfg.n_sfb, pack.bits)
+        qmega_timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                                  bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                  library_ms=None, cuda_core_bound_ms=max(t_bytes, t_core),
+                                  layer_chain_ms=chain_ms)
+        say(f"phase time qmega {mode} N={TIMING_N} C54: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, qconv chain {chain_ms:.4f} ms (quantize + qbsconv + "
+            f"{qcfg.n_sfb} x qsfb + qdsconv, phase 8 of this run), library none, bound "
+            f"{max(t_bytes, t_ops):.4f} ms by {qmega_timing[mode]['bound_by']} ("
+            f"{nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G integer ops at {int_peak / 1e12:g} T/s, "
+            f"{fops / 1e9:.2f} GFLOP fp32); at the CUDA-core rates its dots use (integer ops "
+            f"at {core_peak / 1e12:g} T/s) {max(t_bytes, t_core):.4f} ms; resident clusters "
+            f"{clusters}, {qrep['smem_bytes']} B of shared memory per block, "
+            f"{qrep['threads']} threads")
+        del x, got, want, wbuf, plain_w
     torch.cuda.empty_cache()
 
     # 5. the main path
@@ -656,7 +775,7 @@ def main() -> None:
     # 9. quantized serving, both modes
     from repro_torch.kernels.qconv import essr_forward_qref
     from repro_torch.models.layers import bilinear_resize
-    qlaunches = {}
+    qlaunches, qglaunches = {}, {}
     for mode in QUANT_MODES:
         t0 = time.perf_counter()
         qeng = SREngine(engine.model, plan=ExecutionPlan(quant=mode), device="cuda")
@@ -714,9 +833,91 @@ def main() -> None:
                     f"{psnr(r.image, refs[i].image, torch):.2f} dB (reported, random weights)")
         say(f"phase quant {mode} summary: {json.dumps(qeng.summary())}")
         profile_frame(qeng, frames[1], statistics.median(qlats), torch)
-        del qeng, qimgs, out, patches
+
+        # 13. the same frames under quant x group fusion: the quantized megakernel
+        geng = SREngine(engine.model, plan=ExecutionPlan(quant=mode, fusion="group"),
+                        device="cuda")
+        if geng.qpack != qeng.qpack:
+            fail(f"the quant {mode} group engine calibrated another pack than the layer engine")
+        t0 = time.perf_counter()
+        geng.warmup((1080, 1920))
+        say(f"phase quant {mode} group warmup: {time.perf_counter() - t0:.3f} s")
+        expect = {k: 0 for k in launch_counts()}
+        reset_launch_counts()
+        qglats = []
+        for i, f in enumerate(frames):
+            r = geng.upscale(f)
+            if r.backend != f"cuda-{mode}":
+                fail(f"quant group frame {i} served by {r.backend!r}, not cuda-{mode}")
+            if tuple(r.image.shape) != (4320, 7680, 3) or not bool(torch.isfinite(r.image).all()):
+                fail(f"quant group frame {i}: image {tuple(r.image.shape)} not a finite "
+                     f"4320x7680x3")
+            expect["qmega"] += sum(1 for k in (1, 2) if r.counts[k] > 0)
+            ids_equal = bool(np.array_equal(r.ids, layer_ids[i]))
+            same = torch.equal(r.image, qimgs[i].image)
+            say(f"phase quant {mode} group frame {i}: latency {r.latency_s * 1e3:.2f} ms (quant "
+                f"layer frame {qlats[i] * 1e3:.2f} ms), counts {r.counts}, ids equal to the fp32 "
+                f"frame's {ids_equal}, image torch.equal to the quant layer frame's {same}")
+            if not (ids_equal and same):
+                fail(f"quant group frame {i} ({mode}) disagrees with the fp32 routing or the "
+                     f"quant layer frame")
+            qglats.append(r.latency_s)
+        qglaunches[mode] = launch_counts()
+        say(f"phase quant {mode} group launches over 3 frames: {qglaunches[mode]} "
+            f"(expected {expect})")
+        if qglaunches[mode] != expect or qglaunches[mode]["qmega"] == 0:
+            fail(f"quant group serving ({mode}) did not launch the quantized megakernel once "
+                 f"per non-empty conv bucket and nothing else")
+        say(f"phase quant {mode} group summary: {json.dumps(geng.summary())}")
+        profile_frame(geng, frames[1], statistics.median(qglats), torch)
+        del qeng, geng, qimgs, out, patches
         torch.cuda.empty_cache()
     del refs
+
+    # 14. the edge-score kernel through its own entry point, on the frames' patches
+    from repro_torch.core import subnet_policy as sp
+    from repro_torch.core.edge_score import edge_score
+    from repro_torch.kernels.edge import edge_score_fused
+    geom = engine.plan.geometry(1080, 1920, cfg.scale, "cuda")
+    t1, t2 = engine.plan.t1, engine.plan.t2
+    with torch.inference_mode():
+        patches = [geom.extract(torch.from_numpy(f).cuda()) for f in frames]
+        reset_launch_counts()
+        scores = [edge_score_fused(p) for p in patches]
+        torch.cuda.synchronize()
+        edge_launches = launch_counts()["edge"]
+        if edge_launches != len(frames):
+            fail(f"the edge kernel launched {edge_launches} times for {len(frames)} calls")
+        edge_err = 0.0
+        for i, (p, s) in enumerate(zip(patches, scores)):
+            want = edge_score(p)
+            err = (s - want).abs().max().item()
+            edge_err = max(edge_err, err)
+            close = torch.allclose(s, want, rtol=1e-4, atol=1e-3)
+            plain = want.cpu().numpy()
+            differ = np.flatnonzero(sp.decide(s.cpu().numpy(), t1, t2) != sp.decide(plain, t1, t2))
+            noise = bool(np.all(np.minimum(np.abs(plain[differ] - t1),
+                                           np.abs(plain[differ] - t2)) <= 1e-3))
+            say(f"phase check edge frame {i}: {p.shape[0]} patches {p.shape[1]}x{p.shape[2]}, "
+                f"max_abs vs plain {err:.3e} (rtol 1e-4 atol 1e-3) {'ok' if close else 'MISMATCH'}; "
+                f"routing ids from the kernel's scores differ from the plain scores' on "
+                f"{differ.size} patches (expected 0; any within 1e-3 of t1/t2: {noise})")
+            if not (close and noise):
+                fail("the edge kernel disagrees with its plain version or moves the routing")
+        p = patches[0]
+        ms = median_ms(lambda: edge_score_fused(p), torch)
+        plain_ms = median_ms(lambda: edge_score(p), torch)
+        n_p, h_p, w_p = p.shape[0], p.shape[1], p.shape[2]
+        nbytes = 4 * (p.numel() + n_p)
+        flops = n_p * (6 * h_p * w_p + 8 * (h_p - 2) * (w_p - 2))
+        t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_flops * 1e3
+        edge_timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_flops),
+                           bound_by="bytes" if t_bytes >= t_flops else "operations",
+                           library_ms=None)
+        say(f"phase time edge N={n_p} {h_p}x{w_p}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library none, bound {edge_timing['bound_ms']:.4f} ms by {edge_timing['bound_by']} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        del patches, scores, p
 
     # 10. tables and the result
     say("tpu_kernels: " + json.dumps([dict(name=n, tpu=loc, status=s)
@@ -737,6 +938,16 @@ def main() -> None:
         row.update({f"fxp10_{key}": v for key, v in qtiming["fxp10"][k].items()})
         row["fxp10_launches"] = qlaunches["fxp10"][k]
         rows.append(row)
+    row = dict(name="essr_forward_qmegakernel", route="cuda",
+               source="src/repro_torch/csrc/qmega.cu",
+               replaces=replaces["essr_forward_qmegakernel"], launches=qglaunches["int8"]["qmega"],
+               max_abs_err=qerr["qmega"], **qmega_timing["int8"])
+    row.update({f"fxp10_{key}": v for key, v in qmega_timing["fxp10"].items()})
+    row["fxp10_launches"] = qglaunches["fxp10"]["qmega"]
+    rows.append(row)
+    rows.append(dict(name="edge_score_fused", route="cuda", source="src/repro_torch/csrc/edge.cu",
+                     replaces=replaces["edge_score_fused"], launches=edge_launches,
+                     max_abs_err=edge_err, **edge_timing))
     say(card)                        # the card again, beside the results
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -19,9 +19,9 @@ construction (``calibrate=`` batch, or a deterministic synthetic default
 whose alphas are cached as JSON in ``quant_cache``, in the reference's
 format), into a `QuantPack`. "cuda" serves the integer kernels
 (`kernels.qconv`), "ref" the fake-quant emulation; the mode is appended to
-the label ("cuda-int8", "cuda-plain-fxp10", "ref-int8", ...). Routing stays
-fp32. The quantized megakernel (quant under ``fusion="group"`` on "cuda")
-is not ported yet and raises.
+the label ("cuda-int8", "cuda-plain-fxp10", "ref-int8", ...). Under
+``fusion="group"`` "cuda" serves the quantized megakernel, one launch per
+routed bucket (the label does not name the fusion). Routing stays fp32.
 
 The engine runs on the card unless the caller asks for ``device="cpu"``;
 without a card it raises, never falling back to the CPU.
@@ -44,8 +44,7 @@ import torch
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.result import FrameResult, summarize_stats
 from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _health_counts,
-                                       _sanitize, _sr_all_patches_result, _sr_whole,
-                                       resolve_forward)
+                                       _sanitize, _sr_all_patches_result, _sr_whole)
 from repro_torch.models.essr import ESSR, ESSRConfig
 from repro_torch.runtime.guard import PoisonFrameError
 
@@ -80,9 +79,6 @@ class SREngine:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
         self.plan = plan if plan is not None else ExecutionPlan()
-        if self.plan.quant is not None:
-            # fail fast, before calibrating, on what this package cannot serve
-            resolve_forward(backend, self.plan.quant, self.plan.fusion)
         self.device = _resolve_device(device)
         self.model = model.to(self.device).requires_grad_(False)
         self.cfg: ESSRConfig = model.cfg

@@ -43,7 +43,8 @@ HEALTH_POLICIES = ("off", "raise", "sanitize", "bilinear")
 #: "layer" — one launch per layer group (BSConv, each SFB, DSConv), the
 #:           feature map round-trips device memory between them;
 #: "group" — one megakernel launch per routed bucket runs the whole chain with
-#:           each patch's feature in shared memory (`kernels.megakernel`).
+#:           each patch's feature (or, under ``quant``, its codes) in shared
+#:           memory (`kernels.megakernel`).
 #: The "ref" backend has no kernels to fuse and runs both identically.
 FUSION_MODES = ("layer", "group")
 
@@ -104,15 +105,24 @@ def _forward_width_quant_cuda(params, patches, cfg: ESSRConfig, width: int, *, q
     return essr_forward_qkernels(params, patches, cfg, width=width, pack=quant)
 
 
+def _forward_width_quant_mega(params, patches, cfg: ESSRConfig, width: int, *, quant):
+    """The quantized megakernel (`kernels.megakernel.essr_forward_qmegakernel`):
+    the "cuda" quant backend under fusion "group", one launch per bucket;
+    width 0 is the bilinear bypass."""
+    from repro_torch.kernels.megakernel import essr_forward_qmegakernel
+    if width == 0:
+        return bilinear_resize(patches, cfg.scale)
+    return essr_forward_qmegakernel(params, patches, cfg, width=width, pack=quant)
+
+
 QUANT_BACKENDS = {"cuda": _forward_width_quant_cuda, "ref": _forward_width_quant_ref}
 
 
 def resolve_forward(backend: str, quant=None, fusion: str = "layer"):
     """(backend, QuantPack or None, fusion) -> the per-subnet forward
     ``(params, patches, cfg, width)``. ``fusion`` (see `FUSION_MODES`)
-    selects the "cuda" backend's kernel granularity; "ref" resolves both
-    values to the same forward. The quantized megakernel (quant under
-    fusion "group" on "cuda") is not ported yet and raises."""
+    selects the "cuda" backend's kernel granularity, fp32 or quantized;
+    "ref" resolves both values to the same forward."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
     if fusion not in FUSION_MODES:
@@ -120,9 +130,7 @@ def resolve_forward(backend: str, quant=None, fusion: str = "layer"):
     if backend == "cuda" and fusion == "group":
         if quant is None:
             return _forward_width_mega
-        raise NotImplementedError(
-            "quant with fusion='group' on the 'cuda' backend (the quantized megakernel) "
-            "is not ported yet: ROADMAP queue 2 item 10")
+        return functools.partial(_forward_width_quant_mega, quant=quant)
     if quant is None:
         return BACKENDS[backend]
     return functools.partial(QUANT_BACKENDS[backend], quant=quant)

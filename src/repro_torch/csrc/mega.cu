@@ -24,10 +24,11 @@
 //   Wt      the weights of the current layer group, copied from device
 //           memory at the start of the group
 // Before each of the 2*n_sfb + 2 depthwise layers the block fills its halo
-// rows from its neighbours' strips over distributed shared memory (zero at
-// the patch border, and on rows past H). The depthwise's SAME padding applies
-// to the pointwise OUTPUT, bias included, so pointwise results on rows past H
-// are stored as 0. The depthwise layers alternate between A0 and A1: a
+// rows from its neighbours' strips over distributed shared memory
+// (cluster.cuh's exchange, shared with qmega.cu; zero at the patch border,
+// and on rows past H). The depthwise's SAME padding applies to the
+// pointwise OUTPUT, bias included, so pointwise results on rows past H are
+// stored as 0. The depthwise layers alternate between A0 and A1: a
 // neighbour reads my A[k] between cluster barriers L and L+1, and I write
 // A[k] again only after barrier L+1, so one cluster barrier per layer is
 // enough. The whole patch is resident, so nothing is recomputed (the per-op
@@ -43,11 +44,9 @@
 // that are multiples of 4 (kernels/megakernel.py::pack_weights), so staging a
 // layer group is one contiguous float4 copy. Arithmetic is fp32 FFMA on the
 // CUDA cores (no TF32).
-#include <cooperative_groups.h>
-
+#include "cluster.cuh"
 #include "common.cuh"
 
-namespace cg = cooperative_groups;
 using namespace essr;
 
 namespace {
@@ -88,39 +87,6 @@ __device__ __forceinline__ void copy4(const float* __restrict__ src, int n, floa
   const float4* s = reinterpret_cast<const float4*>(src);
   float4* d = reinterpret_cast<float4*>(dst);
   for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d[i] = __ldg(s + i);
-}
-
-// Fill the halo rows of A (row 0 and row rows+1) from the neighbours' strips:
-// the row above is the last interior row of the block of rank - 1, the row
-// below the first interior row of the block of rank + 1; zero at the patch
-// border and past H. The cluster barrier first makes every block's interior
-// rows visible.
-__device__ __forceinline__ void exchange(cg::cluster_group& cl, float* A, int rank, int cs,
-                                         int r0, int rows, int H, int W, int cp,
-                                         bool active) {
-  cl.sync();
-  if (!active) return;
-  const int row4 = W * cp / 4;
-  const bool has_top = rank > 0 && r0 - 1 < H;
-  const bool has_bot = rank + 1 < cs && r0 + rows < H;
-  const float4* top_src =
-      has_top ? reinterpret_cast<const float4*>(cl.map_shared_rank(A, rank - 1) +
-                                                (size_t)rows * W * cp)
-              : nullptr;
-  const float4* bot_src =
-      has_bot ? reinterpret_cast<const float4*>(cl.map_shared_rank(A, rank + 1) +
-                                                (size_t)W * cp)
-              : nullptr;
-  float4* top = reinterpret_cast<float4*>(A);
-  float4* bot = reinterpret_cast<float4*>(A + (size_t)(rows + 1) * W * cp);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = threadIdx.x; i < 2 * row4; i += blockDim.x) {
-    if (i < row4)
-      top[i] = has_top ? top_src[i] : zero;
-    else
-      bot[i - row4] = has_bot ? bot_src[i - row4] : zero;
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ void fma4(float4& acc, float4 v, float4 w) {
@@ -185,6 +151,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mega_kernel(Args a) {
   const int valid = imax(0, H - r0 < rows ? H - r0 : rows) * W;   // strip pixels inside
   const bool active = valid > 0;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int frow = W * cp * (int)sizeof(float);   // bytes of one row of A
 
   float* F = sm;                                     // pp x cp
   float* A[2] = {F + pp * cp, F + pp * cp + (rows + 2) * W * cp};
@@ -214,7 +181,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mega_kernel(Args a) {
       __syncthreads();
       pointwise(B, cpi, Wt, cp, pp, to_interior(A[k], Wt + cpi * cp));
     }
-    exchange(cl, A[k], rank, cs, r0, rows, H, W, cp, active);
+    exchange(cl, reinterpret_cast<unsigned char*>(A[k]), rank, cs, r0, rows, H, frow, active);
     if (active) {
       const float* dwb = Wt + cpi * cp + 10 * cp;
       depthwise_strip(A[k], Wt + cpi * cp + cp, cp, W, rows, [&](int q, int co, float4 v) {
@@ -241,7 +208,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mega_kernel(Args a) {
         __syncthreads();
         pointwise(F, cp, W1, cp, pp, to_interior(A[k], b1));
       }
-      exchange(cl, A[k], rank, cs, r0, rows, H, W, cp, active);
+      exchange(cl, reinterpret_cast<unsigned char*>(A[k]), rank, cs, r0, rows, H, frow, active);
       if (active) {
         depthwise_strip(A[k], D1, cp, W, rows, [&](int q, int co, float4 v) {
           st4(B + q * cp + co, relu4(add4(v, ld4(d1 + co))));
@@ -250,7 +217,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mega_kernel(Args a) {
       }
       k ^= 1;
       if (active) pointwise(B, cp, W2, cp, pp, to_interior(A[k], b2));
-      exchange(cl, A[k], rank, cs, r0, rows, H, W, cp, active);
+      exchange(cl, reinterpret_cast<unsigned char*>(A[k]), rank, cs, r0, rows, H, frow, active);
       if (active) {
         depthwise_strip(A[k], D2, cp, W, rows, [&](int q, int co, float4 v) {
           st4(B + q * cp + co, add4(relu4(add4(v, ld4(d2 + co))), ld4(F + q * cp + co)));
@@ -276,7 +243,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mega_kernel(Args a) {
       for (int i = threadIdx.x; i < P * cp / 4; i += blockDim.x)
         Ai[i] = (4 * i) / cp < valid ? F4[i] : zero;
     }
-    exchange(cl, A[k], rank, cs, r0, rows, H, W, cp, active);
+    exchange(cl, reinterpret_cast<unsigned char*>(A[k]), rank, cs, r0, rows, H, frow, active);
     if (active) {
       depthwise_strip(A[k], RD, cp, W, rows, [&](int q, int co, float4 v) {
         st4(B + q * cp + co, add4(v, ld4(rdb + co)));
@@ -299,34 +266,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) mega_kernel(Args a) {
   cl.sync();   // no block leaves while a neighbour may still read its shared memory
 }
 
-// Launch configuration of mega_kernel: clusters of `cluster` blocks along x.
-// Built in place (cfg points at attr).
-struct ClusterLaunch {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  ClusterLaunch(const Layout& l, int W, int n_sfb, int rows, int cluster, int threads,
-                cudaStream_t stream)
-      : cfg{} {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(cluster);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem_floats(l, rows, W, n_sfb) * sizeof(float);
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  // Clusters resident on the card at once (0: none fits).
-  cudaError_t max_clusters(int* n) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cfg.dynamicSmemBytes);
-    if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveClusters(n, (const void*)mega_kernel, &cfg);
-  }
-};
-
 }  // namespace
 
 // Runs the chain on `stream` as a persistent grid of as many clusters as the
@@ -336,23 +275,18 @@ extern "C" int mega_forward(const float* x, const float* w, float* out, int N, i
                             int Cin, int C, int Cout, int n_sfb, int rows, int cluster,
                             int threads, void* stream) {
   const Args a{x, w, out, N, H, W, Cin, C, Cout, n_sfb, rows};
-  ClusterLaunch launch(Layout(Cin, C, Cout), W, n_sfb, rows, cluster, threads,
-                       static_cast<cudaStream_t>(stream));
-  int clusters = 0;
-  cudaError_t e = launch.max_clusters(&clusters);
-  if (e != cudaSuccess) return (int)e;
-  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-  launch.cfg.gridDim = dim3((N < clusters ? N : clusters) * cluster);
-  e = cudaLaunchKernelEx(&launch.cfg, mega_kernel, a);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  ClusterLaunch<Args> launch(mega_kernel,
+                             smem_floats(Layout(Cin, C, Cout), rows, W, n_sfb) * sizeof(float),
+                             cluster, threads, static_cast<cudaStream_t>(stream));
+  return launch.launch(a, N);
 }
 
 // The clusters mega_forward keeps resident for this shape (0 when none fits
 // or the query fails), for the sizing report.
 extern "C" int mega_resident_clusters(int W, int Cin, int C, int Cout, int n_sfb, int rows,
                                       int cluster, int threads) {
-  ClusterLaunch launch(Layout(Cin, C, Cout), W, n_sfb, rows, cluster, threads, nullptr);
-  int n = 0;
-  return launch.max_clusters(&n) == cudaSuccess ? n : 0;
+  ClusterLaunch<Args> launch(mega_kernel,
+                             smem_floats(Layout(Cin, C, Cout), rows, W, n_sfb) * sizeof(float),
+                             cluster, threads, nullptr);
+  return launch.resident();
 }

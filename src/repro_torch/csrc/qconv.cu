@@ -9,19 +9,9 @@
 //
 // Arithmetic contract: bit for bit the plain versions in
 // repro_torch/kernels/ref.py (quantize_ref, qbsconv_ref, qsfb_ref,
-// qdsconv_ref). Codes are integers, so a one-ulp difference in one fp step
-// flips a code that lies on a .5 boundary, and the flip grows down the
-// chain. Every fp multiply, add and divide here is therefore an explicit
-// round-to-nearest intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn), which nvcc
-// never contracts into an FMA, in the plain version's order: dequant
-// (float(acc) * scale) + bias; depthwise 9 taps in (dy, dx) raster order
-// from 0, then + bias; qSFB's combine ((acc_y * sy) + (acc_x * sx)) + b;
-// qDSConv's fp 1x1 an ordered sum over input channels 0..C-1 from 0;
-// requantize clip, then divide, then rintf (half to even, as torch.round).
-// Integer dots are exact in any order: __dp4a over groups of 4 int8
-// channels, int32 multiply-add for fxp10 codes (|sum| <= 511 * 511 * 64 <
-// 2^31; an fp32 FFMA on integer-valued floats would be exact too, below
-// 2^24, but is not needed).
+// qdsconv_ref). Every rounded fp step, the integer dots and the staged
+// layout of the code weights live in qmath.cuh, shared with the quantized
+// megakernel (qmega.cu); see there for the order of every fp op.
 //
 // What bounds them, at N = 1024 C54 32x32 patches (x4) on an H100 SXM
 // (3.35 TB/s, 67 TFLOP/s fp32, 1,979 TOPS int8 dense); int8 / fxp10 codes
@@ -52,6 +42,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "qmath.cuh"
 
 using namespace essr;
 
@@ -59,67 +50,6 @@ namespace {
 
 constexpr int R0 = TILE + 4;     // qSFB input tile edge (2-px halo)
 constexpr int R1 = TILE + 2;     // 1-px halo
-
-template <class T>
-__device__ __forceinline__ T requant(float v, float a, float s) {
-  return static_cast<T>(static_cast<int>(rintf(__fdiv_rn(fminf(fmaxf(v, -a), a), s))));
-}
-
-__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
-}
-
-// acc[k] = sum_ci x[ci] * w(ci, co0 + k), k < 4, over cpi (a multiple of 4)
-// input channels; w as staged by stage_codes. One 16-byte load brings the
-// weights of the 4 output channels (co0 is a multiple of 4).
-__device__ __forceinline__ void dot4(const int8_t* x, const int8_t* w, int cpi, int cpo,
-                                     int co0, int acc[4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) acc[k] = 0;
-  for (int ci = 0; ci < cpi; ci += 4) {
-    const int xv = *reinterpret_cast<const int*>(x + ci);
-    const int4 wv = *reinterpret_cast<const int4*>(w + 4 * ((ci >> 2) * cpo + co0));
-    acc[0] = __dp4a(xv, wv.x, acc[0]);
-    acc[1] = __dp4a(xv, wv.y, acc[1]);
-    acc[2] = __dp4a(xv, wv.z, acc[2]);
-    acc[3] = __dp4a(xv, wv.w, acc[3]);
-  }
-}
-
-__device__ __forceinline__ void dot4(const int32_t* x, const int32_t* w, int cpi, int cpo,
-                                     int co0, int acc[4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) acc[k] = 0;
-  for (int ci = 0; ci < cpi; ++ci) {
-    const int xv = x[ci];
-    const int4 wv = *reinterpret_cast<const int4*>(w + ci * cpo + co0);
-    acc[0] += xv * wv.x;
-    acc[1] += xv * wv.y;
-    acc[2] += xv * wv.z;
-    acc[3] += xv * wv.w;
-  }
-}
-
-// Code weights w (K x Co, row-major) into shared memory, zero-padded to
-// kp x cop: for int8, one 4-byte word per (group of 4 input channels, output
-// channel), word (k / 4) * cop + co holding input channels k..k+3 (the
-// operand of one __dp4a); for int32, as given.
-__device__ __forceinline__ void stage_codes(const int8_t* __restrict__ w, int K, int Co, int kp,
-                                            int cop, int8_t* dst) {
-  for (int i = threadIdx.x; i < kp * cop; i += blockDim.x) {
-    const int j = i & 3, word = i >> 2;
-    const int kg = word / cop, co = word - kg * cop, k = 4 * kg + j;
-    dst[i] = (k < K && co < Co) ? w[(size_t)k * Co + co] : int8_t(0);
-  }
-}
-
-__device__ __forceinline__ void stage_codes(const int32_t* __restrict__ w, int K, int Co,
-                                            int kp, int cop, int32_t* dst) {
-  for (int i = threadIdx.x; i < kp * cop; i += blockDim.x) {
-    const int k = i / cop, co = i - k * cop;
-    dst[i] = (k < K && co < Co) ? __ldg(w + (size_t)k * Co + co) : 0;
-  }
-}
 
 // dst[p * cp + c] = codes of x[n] over the RH x RW region at (oy, ox); zero
 // off the patch and in the padded channels c >= C.
@@ -168,7 +98,7 @@ __device__ __forceinline__ float depthwise_at(const float* in, const float* w9, 
   for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx)
-      d = __fadd_rn(d, __fmul_rn(in[((i + dy) * RWI + j + dx) * cp + c], w9[(dy * 3 + dx) * cp + c]));
+      d = mul_add_rn(d, in[((i + dy) * RWI + j + dx) * cp + c], w9[(dy * 3 + dx) * cp + c]);
   return __fadd_rn(d, bias);
 }
 
@@ -342,9 +272,7 @@ __global__ void __launch_bounds__(512) qsfb_kernel(QSArgs<T> a) {
       for (int k = 0; k < 4; ++k) {
         const int co = 4 * g + k;
         if (co >= C) break;
-        const float s = __fadd_rn(__fadd_rn(__fmul_rn(__int2float_rn(ay[k]), v[6 * cp + co]),
-                                            __fmul_rn(__int2float_rn(ax[k]), v[7 * cp + co])),
-                                  v[8 * cp + co]);
+        const float s = fuse_combine(ay[k], ax[k], v[6 * cp + co], v[7 * cp + co], v[8 * cp + co]);
         px[co] = requant<T>(fmaxf(s, 0.f), qc[4], qc[5]);
       }
     }
@@ -427,10 +355,10 @@ __global__ void __launch_bounds__(256) qdsconv_kernel(QDArgs<T> a) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float d = D[(pg + k * NPG) * cpi + ci];
-          s[k][0] = __fadd_rn(s[k][0], __fmul_rn(d, wv.x));
-          s[k][1] = __fadd_rn(s[k][1], __fmul_rn(d, wv.y));
-          s[k][2] = __fadd_rn(s[k][2], __fmul_rn(d, wv.z));
-          s[k][3] = __fadd_rn(s[k][3], __fmul_rn(d, wv.w));
+          s[k][0] = mul_add_rn(s[k][0], d, wv.x);
+          s[k][1] = mul_add_rn(s[k][1], d, wv.y);
+          s[k][2] = mul_add_rn(s[k][2], d, wv.z);
+          s[k][3] = mul_add_rn(s[k][3], d, wv.w);
         }
       }
 #pragma unroll

@@ -12,6 +12,13 @@ cluster, one strip of rows per block, sized by :func:`group_report` from the
 shared-memory limit of a block. The weights of one (param tree, width) are
 packed once into a single zero-padded buffer (:func:`pack_weights`, cached).
 ``mega_fused.launches`` counts launches.
+
+The quantized twin (``essr_forward_qmegakernel``, ``csrc/qmega.cu``) serves
+``ExecutionPlan(quant=..., fusion="group")``: quantize once, the whole
+integer chain with the codes in shared memory, the recon codes out; one
+launch per routed bucket, ``qmega_fused.launches``. It keeps the same
+cluster layout, sized by :func:`qgroup_report`, with the prepared integer
+operands packed once into one byte buffer (:func:`pack_qweights`, cached).
 """
 from __future__ import annotations
 
@@ -24,9 +31,10 @@ import torch
 from repro_torch.core.caching import BoundedCache
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_channels, check_operands, stream_of
-from repro_torch.kernels.ref import mega_ref
+from repro_torch.kernels.ref import mega_ref, qmega_ref
 from repro_torch.models.essr import ESSRConfig, slice_width
 from repro_torch.models.layers import pixel_shuffle
+from repro_torch.quant.pams import QuantPack, code_dtype
 
 #: Blocks of one cluster, each owning a strip of a patch's rows (the portable
 #: maximum cluster size).
@@ -37,6 +45,8 @@ SMEM_LIMIT = 232_448
 MAX_THREADS = 512
 #: H100 SXM data sheet: fp32 outside the tensor cores, and device memory.
 H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
+#: H100 SXM data sheet: dense int8 on the tensor cores.
+H100_INT8_OPS = 1979e12
 
 
 def _round4(c: int) -> int:
@@ -299,3 +309,268 @@ def essr_forward_megakernel(params: Dict[str, Any], x: torch.Tensor, cfg: ESSRCo
     wbuf = packed_weights(_TreeKey(params), w)
     up = mega_fused(x, wbuf, width=w, n_sfb=cfg.n_sfb, out_channels=cfg.out_channels)
     return pixel_shuffle(up, cfg.scale)
+
+
+# ---------------------------------------------------------------------------
+# the quantized megakernel (quant x group fusion): csrc/qmega.cu
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class QWeightLayout:
+    """Byte sizes of the packed integer weight buffer's three groups (the
+    same sums as ``QLayout`` in csrc/qmega.cu). Channels pad to multiples of
+    4; a code takes ``code_bytes`` (1 for int8, 4 for fxp10); every operand
+    is a multiple of 16 bytes."""
+    cin: int
+    width: int
+    cout: int
+    n_sfb: int
+    code_bytes: int
+
+    @property
+    def padded(self) -> Tuple[int, int, int]:
+        return _round4(self.cin), _round4(self.width), _round4(self.cout)
+
+    @property
+    def first(self) -> int:          # pwq (cpi, cp) codes, pw_scale, pwb, dw_fq (9, cp), dwb
+        cpi, cp, _ = self.padded
+        return cpi * cp * self.code_bytes + 48 * cp
+
+    @property
+    def sfb(self) -> int:            # b1, b2 as first; fuseq (cp, cp) codes, fsy, fsx, fb
+        _, cp, _ = self.padded
+        return 3 * cp * cp * self.code_bytes + 108 * cp
+
+    @property
+    def recon(self) -> int:          # dwq (9, cp) int32, dw_scale, dwb, pw_fq (cp, cpo), pwb
+        _, cp, cpo = self.padded
+        return 44 * cp + 4 * cp * cpo + 4 * cpo
+
+    @property
+    def size(self) -> int:
+        return self.first + self.n_sfb * self.sfb + self.recon
+
+    @property
+    def stage(self) -> int:
+        """Bytes of the largest layer group a block stages at once."""
+        return max(self.first, self.recon, self.sfb if self.n_sfb else 0)
+
+
+def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
+             bits: int) -> Dict[str, Any]:
+    """The quantized megakernel's launch shape and work for one patch;
+    raises ValueError when a block's share does not fit in shared memory."""
+    if min(width, h, w, cin, cout) < 1 or n_sfb < 0:
+        raise ValueError(f"qgroup_report: width {width}, patch {h}x{w}, cin {cin}, "
+                         f"cout {cout}, n_sfb {n_sfb}: every size must be positive")
+    cb = 1 if bits <= 8 else 4
+    lay = QWeightLayout(cin, width, cout, n_sfb, cb)
+    cpi, cp, _ = lay.padded
+    rows = -(-h // CLUSTER)
+    pp = _round4(rows * w)
+    a_pixels = max((rows + 2) * w, pp)
+    smem = 2 * 4 * a_pixels * cp + lay.stage + cb * pp * (2 * cp + max(cp, cpi))
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"qgroup_report: width {width}, patch {h}x{w}, {bits}-bit codes: a block of the "
+            f"{CLUSTER}-block cluster ({rows} rows) needs {smem} B of shared memory, over the "
+            f"H100's {SMEM_LIMIT} B per block")
+    # one thread per (pixel, 4 output channels) of an integer 1x1
+    threads = min(MAX_THREADS, max(64, 32 * -(-(cp // 4) * pp // 32)))
+    int_ops = 2 * (cin * width + n_sfb * 4 * width * width + 9 * width) * h * w
+    fp_ops = (3 * cin + 24 * width + n_sfb * 58 * width + 2 * width + 2 * width * cout
+              + 4 * cout) * h * w
+    nbytes = h * w * (4 * cin + cb * cout)
+    int_rate = H100_INT8_OPS if bits <= 8 else H100_FP32_FLOPS
+    t_ops = int_ops / int_rate + fp_ops / H100_FP32_FLOPS
+    return {"cluster": CLUSTER, "rows_per_cta": rows, "threads": threads,
+            "smem_bytes": smem, "smem_limit": SMEM_LIMIT, "code_bytes": cb,
+            "weight_bytes": lay.size + 4 * (6 + 6 * n_sfb),
+            "int_ops_per_patch": int_ops, "fp_ops_per_patch": fp_ops,
+            "bytes_per_patch": nbytes,
+            "bound": "operations" if t_ops >= nbytes / H100_HBM_BYTES else "bytes"}
+
+
+def qgroup_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
+                  n_sfb: int = 5, bits: int = 8, *, in_channels: int = 3) -> Dict[str, Any]:
+    """Static sizing of the quantized megakernel on the H100 at one (width,
+    patch, code width) point, the twin of :func:`group_report`: cluster size,
+    rows per block (CTA), threads, shared-memory bytes per block against the
+    232,448 B limit (two fp32 halo buffers, one layer group's packed
+    weights, three code buffers), the packed weights' bytes, and per patch
+    the integer and fp32 operations and the device-memory bytes (fp32 input
+    read once, recon codes written once), with which of the two bounds the
+    launch at the data sheet's rates (int8 at 1,979 TOPS, fxp10's int32 at
+    the fp32 rate of 67 TFLOP/s; 3.35 TB/s). ``bits``: 8 for int8 codes,
+    anything wider int32. Raises ValueError for a strip that does not fit."""
+    h, w = (patch, patch) if isinstance(patch, int) else (int(patch[0]), int(patch[1]))
+    return _qsizing(width, h, w, in_channels, in_channels * scale * scale, n_sfb, bits)
+
+
+def _padded_codes(t: torch.Tensor, kp: int, cop: int, bits: int) -> torch.Tensor:
+    """Code weights (K, Co) -> bytes of the (kp, cop) zero-padded matrix in
+    the staged layout of csrc/qmath.cuh: int8 as 4-byte words, word
+    (k / 4) * cop + co holding input channels k..k+3; int32 row-major."""
+    m = t.new_zeros((kp, cop))
+    m[: t.shape[0], : t.shape[1]] = t
+    if bits <= 8:
+        m = m.reshape(kp // 4, 4, cop).transpose(1, 2)
+    return m.contiguous().view(torch.uint8).reshape(-1)
+
+
+def _padded_fp(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    m = torch.zeros((rows, cols), dtype=torch.float32, device=t.device)
+    m[: t.shape[0], : t.shape[1]] = t
+    return m.view(torch.uint8).reshape(-1)
+
+
+def pack_qweights(q: Dict[str, Any], bits: int) -> torch.Tensor:
+    """Prepared integer operands (`kernels.qconv.prepare_qparams`) -> one
+    contiguous uint8 buffer on their device, in the TPU kernel's operand
+    order (``_flat_q_operands``): per qBSConv group the code weights, the
+    folded scale, the bias, the fake-quant depthwise (9, C) and its bias;
+    per qSFB two such groups, the fuse's code weights, its two scales and
+    bias; the recon's int32 depthwise codes, scale, bias, fp 1x1 and bias."""
+    first, recon = q["first"], q["recon"]
+    cin, c = first["pwq"].shape
+    cout = recon["pw_fq"].shape[-1]
+    cpi, cp, cpo = _round4(cin), _round4(c), _round4(cout)
+
+    def vec(v, n=cp):
+        return _padded_fp(v.reshape(1, -1), 1, n)
+
+    def bs(pwq, scale, pwb, dw, dwb, kp):
+        return [_padded_codes(pwq, kp, cp, bits), vec(scale), vec(pwb),
+                _padded_fp(dw.reshape(9, c), 9, cp), vec(dwb)]
+
+    parts = bs(first["pwq"], first["pw_scale"], first["pwb"], first["dw_fq"], first["dwb"], cpi)
+    for s in q["sfbs"]:
+        for b in ("b1", "b2"):
+            parts += bs(s[f"{b}_pwq"], s[f"{b}_pw_scale"], s[f"{b}_pwb"], s[f"{b}_dw_fq"],
+                        s[f"{b}_dwb"], cp)
+        parts += [_padded_codes(s["fuseq"], cp, cp, bits), vec(s["fuse_scale_y"]),
+                  vec(s["fuse_scale_x"]), vec(s["fuseb"])]
+    dwq = recon["dwq"].reshape(9, c)
+    m = dwq.new_zeros((9, cp))
+    m[:, :c] = dwq
+    parts += [m.view(torch.uint8).reshape(-1), vec(recon["dw_scale"]), vec(recon["dwb"]),
+              _padded_fp(recon["pw_fq"], cp, cpo), vec(recon["pwb"], cpo)]
+    return torch.cat(parts).contiguous()
+
+
+def unpack_qweights(wbuf: torch.Tensor, lay: QWeightLayout) -> Dict[str, Any]:
+    """A packed buffer -> the operands at the real channel counts, in the
+    form `prepare_qparams` gives them (what `kernels.ref.qmega_ref` takes)."""
+    cpi, cp, cpo = lay.padded
+    c, off = lay.width, 0
+    cdt = torch.int8 if lay.code_bytes == 1 else torch.int32
+
+    def take(rows, cols, dtype, r, k):
+        nonlocal off
+        n = rows * cols * dtype.itemsize
+        v = wbuf[off: off + n].view(dtype)
+        off += n
+        if dtype == torch.int8:      # the __dp4a word layout back to (rows, cols)
+            v = v.reshape(rows // 4, cols, 4).transpose(1, 2)
+        return v.reshape(rows, cols)[:r, :k]
+
+    def vec(n=cp, k=c):
+        return take(1, n, torch.float32, 1, k)[0]
+
+    def bs(kp, cin, prefix=""):
+        return {f"{prefix}pwq": take(kp, cp, cdt, cin, c), f"{prefix}pw_scale": vec(),
+                f"{prefix}pwb": vec(), f"{prefix}dw_fq": take(9, cp, torch.float32, 9, c)
+                .reshape(3, 3, c), f"{prefix}dwb": vec()}
+
+    first = bs(cpi, lay.cin)
+    sfbs = []
+    for _ in range(lay.n_sfb):
+        s = {**bs(cp, c, "b1_"), **bs(cp, c, "b2_")}
+        s.update(fuseq=take(cp, cp, cdt, c, c), fuse_scale_y=vec(), fuse_scale_x=vec(),
+                 fuseb=vec())
+        sfbs.append(s)
+    recon = {"dwq": take(9, cp, torch.int32, 9, c).reshape(3, 3, c), "dw_scale": vec(),
+             "dwb": vec(), "pw_fq": take(cp, cpo, torch.float32, c, lay.cout),
+             "pwb": vec(cpo, lay.cout)}
+    return {"first": first, "sfbs": sfbs, "recon": recon}
+
+
+def _packed_q(key: _TreeKey, cfg: ESSRConfig, width: int, pack: QuantPack, device: str):
+    from repro_torch.kernels.qconv import prepared_qparams
+    q, _ = prepared_qparams(key, cfg, width, pack, device)
+    return pack_qweights(q, pack.bits)
+
+
+#: Packed integer buffers by (param tree, cfg, width, pack, device).
+packed_qweights = BoundedCache(_packed_q, maxsize=16)
+
+
+def qmega_fused(x: torch.Tensor, wbuf: torch.Tensor, qc: torch.Tensor, *, width: int,
+                n_sfb: int, out_channels: int, bits: int) -> torch.Tensor:
+    """x: (N,H,W,Cin) fp32 in [0,1]; ``wbuf``: the `pack_qweights` buffer of
+    that (Cin, width, out_channels, n_sfb, bits); ``qc``: the (clip, step)
+    pairs of every site (`prepare_qparams`' ``consts``) -> the recon site's
+    (N,H,W,out_channels) codes, int8 for ``bits`` <= 8 else int32.
+
+    CPU tensors take the plain version (`kernels.ref.qmega_ref` on the
+    unpacked operands); CUDA tensors launch the kernel or raise. N = 0
+    returns an empty output, no launch. A patch whose strip does not fit a
+    block's shared memory raises ValueError on either device."""
+    check_operands("qmega_fused", x, {})
+    n, h, w, cin = x.shape
+    check_channels("qmega_fused", Cin=cin, C=width, Cout=out_channels)
+    rep = _qsizing(width, h, w, cin, out_channels, n_sfb, bits)
+    lay = QWeightLayout(cin, width, out_channels, n_sfb, rep["code_bytes"])
+    check_operands("qmega_fused", x, {"wbuf": (wbuf, (lay.size,), torch.uint8),
+                                      "qc": (qc, (6 + 6 * n_sfb,))})
+    dtype = code_dtype(bits)
+    if x.device.type == "cpu":
+        return qmega_ref(x, unpack_qweights(wbuf, lay), qc, dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"qmega_fused: no kernel for device {x.device}")
+    if wbuf.data_ptr() % 16:
+        raise ValueError("qmega_fused: wbuf must be 16-byte aligned (the kernel copies 16 B)")
+    out = torch.empty((n, h, w, out_channels), dtype=dtype, device=x.device)
+    if n == 0:
+        return out
+    launch = _build.entry("qmega", "qmega_forward", 4, 11)
+    launch(x.data_ptr(), wbuf.data_ptr(), qc.data_ptr(), out.data_ptr(), n, h, w, cin, width,
+           out_channels, n_sfb, rep["rows_per_cta"], rep["cluster"], rep["threads"],
+           8 if bits <= 8 else 32, stream_of(x))
+    qmega_fused.launches += 1
+    return out
+
+
+qmega_fused.launches = 0
+
+
+def qresident_clusters(width: int, patch: Union[int, Tuple[int, int]], scale: int,
+                       n_sfb: int = 5, bits: int = 8, *, in_channels: int = 3) -> int:
+    """Clusters the card keeps resident at once for this shape (the card's
+    occupancy query; builds the kernel). 0 when none fits."""
+    rep = qgroup_report(width, patch, scale, n_sfb, bits, in_channels=in_channels)
+    w = patch if isinstance(patch, int) else int(patch[1])
+    fn = _build.load("qmega").qmega_resident_clusters
+    fn.argtypes, fn.restype = [ctypes.c_int] * 9, ctypes.c_int
+    return int(fn(w, in_channels, width, in_channels * scale * scale, n_sfb,
+                  rep["rows_per_cta"], rep["cluster"], rep["threads"], 8 if bits <= 8 else 32))
+
+
+def essr_forward_qmegakernel(params: Dict[str, Any], x: torch.Tensor, cfg: ESSRConfig,
+                             width: Optional[int] = None, *, pack: QuantPack) -> torch.Tensor:
+    """x: (N,p,p,3) fp in [0,1] -> (N,p*s,p*s,3) through one quantized
+    megakernel launch: the contract of `kernels.qconv.essr_forward_qkernels`
+    (quantize once, the integer chain, one dequant ``codes * s_recon``, then
+    pixel shuffle), equal to it bit for bit. Bilinear patches (width 0) never
+    reach the kernel. The packed operands are cached by the tree's tensors,
+    the width, the pack and the device."""
+    from repro_torch.kernels.qconv import _prepared
+    q, _ = _prepared(params, cfg, width, pack, x)
+    w = width if width is not None else cfg.channels
+    if x.shape[0] == 0:
+        s = cfg.scale
+        return x.new_zeros((0, x.shape[1] * s, x.shape[2] * s, cfg.in_channels))
+    wbuf = packed_qweights(_TreeKey(params), cfg, w, pack, str(x.device))
+    r = qmega_fused(x, wbuf, q["consts"], width=w, n_sfb=cfg.n_sfb,
+                    out_channels=cfg.out_channels, bits=pack.bits)
+    return pixel_shuffle(r.to(torch.float32) * q["recon"]["qc"][1], cfg.scale)

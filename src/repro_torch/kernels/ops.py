@@ -5,9 +5,11 @@
 
 and the registry of every kernel wrapper with its launch count; the
 subnet-group megakernel (``essr_forward_megakernel``, one launch for the
-whole chain) is re-exported from `kernels.megakernel`, and the quantized
-chain (``essr_forward_qkernels``: quantize -> qBSConv -> n_sfb x qSFB ->
-qDSConv) from `kernels.qconv`.
+whole chain) and its quantized twin (``essr_forward_qmegakernel``) are
+re-exported from `kernels.megakernel`, the quantized chain
+(``essr_forward_qkernels``: quantize -> qBSConv -> n_sfb x qSFB -> qDSConv)
+from `kernels.qconv`, and the edge-score kernel (``edge_score_fused``) from
+`kernels.edge`.
 
 The CUDA kernels take any batch size, so the TPU grid's block padding
 (``pad_batch`` / ``resolve_block`` / ``block_patches``) and its
@@ -21,7 +23,9 @@ import torch
 
 from repro_torch.kernels.bsconv import bsconv_fused
 from repro_torch.kernels.dsconv import dsconv_fused
-from repro_torch.kernels.megakernel import essr_forward_megakernel, mega_fused
+from repro_torch.kernels.edge import edge_score_fused
+from repro_torch.kernels.megakernel import (essr_forward_megakernel, essr_forward_qmegakernel,
+                                            mega_fused, qmega_fused)
 from repro_torch.kernels.qconv import (essr_forward_qkernels, qbsconv_fused, qdsconv_fused,
                                        qsfb_fused, quantize_fused)
 from repro_torch.kernels.sfb import sfb_fused
@@ -31,10 +35,12 @@ from repro_torch.models.layers import pixel_shuffle
 #: Every kernel wrapper of this package; each carries a ``launches`` count.
 KERNELS = {"bsconv": bsconv_fused, "sfb": sfb_fused, "dsconv": dsconv_fused,
            "mega": mega_fused, "quantize": quantize_fused, "qbsconv": qbsconv_fused,
-           "qsfb": qsfb_fused, "qdsconv": qdsconv_fused}
+           "qsfb": qsfb_fused, "qdsconv": qdsconv_fused, "qmega": qmega_fused,
+           "edge": edge_score_fused}
 
-__all__ = ["KERNELS", "essr_forward_kernels", "essr_forward_megakernel",
-           "essr_forward_qkernels", "flat_sfb", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "edge_score_fused", "essr_forward_kernels", "essr_forward_megakernel",
+           "essr_forward_qkernels", "essr_forward_qmegakernel", "flat_sfb", "launch_counts",
+           "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

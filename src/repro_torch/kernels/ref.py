@@ -6,8 +6,8 @@ The wrappers take these on CPU tensors; on the card they are what each
 kernel is held against.
 
 The quantized versions (twins of ``repro.kernels.qconv``'s ``_*_math``) are
-the arithmetic contract of ``csrc/qconv.cu``, which must equal them bit for
-bit: every fp step is its own rounded op (no multiply-add contraction), the
+the arithmetic contract of ``csrc/qconv.cu`` and ``csrc/qmega.cu``, which
+must equal them bit for bit: every fp step is its own rounded op (no multiply-add contraction), the
 depthwise sums its 9 taps in (dy, dx) raster order from 0 before the bias,
 and the site constants ``qc`` (clip, step pairs) are 0-d tensors on the
 codes' device, so a division by the step is IEEE division on the card too
@@ -19,7 +19,14 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core.edge_score import edge_score
 from repro_torch.models import layers as L
+
+
+def edge_score_ref(patches: torch.Tensor) -> torch.Tensor:
+    """(N,h,w,3) RGB in [0,1] -> (N,) edge scores: `core.edge_score.edge_score`,
+    the plain version of ``csrc/edge.cu``."""
+    return edge_score(patches)
 
 
 def bsconv_ref(x, pw, pw_b, dw, dw_b, *, relu: bool = False) -> torch.Tensor:
@@ -113,3 +120,19 @@ def qdsconv_ref(xq, dwq, dw_scale, dw_b, pw_fq, pw_b, qc) -> torch.Tensor:
     for ci in range(y.shape[-1]):
         out = out + y[..., ci:ci + 1] * pw_fq[ci]
     return quantize_ref(out + pw_b, qc, xq.dtype)
+
+
+def qmega_ref(x: torch.Tensor, q: Dict[str, Any], qc: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The whole integer chain of one subnet, fp patches in, recon codes out:
+    quantize (site ``qc[0:2]``) -> qBSConv (``qc[2:4]``) -> n x qSFB
+    (``qc[4 + 6i: 10 + 6i]``) -> qDSConv (``qc[-2:]``), codes of ``dtype``
+    between them. ``q``: the operands of `kernels.qconv.prepare_qparams`
+    ("first", "sfbs", "recon"); ``qc``: its site-constant buffer."""
+    p, r = q["first"], q["recon"]
+    f = quantize_ref(x, qc[0:2], dtype)
+    f = qbsconv_ref(f, p["pwq"], p["pw_scale"], p["pwb"], p["dw_fq"], p["dwb"], qc[2:4],
+                    relu=False)
+    for i, s in enumerate(q["sfbs"]):
+        f = qsfb_ref(f, s, qc[4 + 6 * i: 10 + 6 * i])
+    return qdsconv_ref(f, r["dwq"], r["dw_scale"], r["dwb"], r["pw_fq"], r["pwb"], qc[-2:])

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version, and
-the serving path's "cuda" frames (layer and group fusion, and quantized)
-against its "ref" frame or its integer reference. Marked ``cuda``;
+the serving path's "cuda" frames (layer and group fusion, and quantized
+under both) against its "ref" frame, its integer reference or its layer
+chain. Marked ``cuda``;
 skipped where no CUDA device is visible. Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -8,8 +9,9 @@ skipped where no CUDA device is visible. Run on a machine with a card:
 Tolerances: one kernel rtol 1e-4 / atol 1e-5 (fp32 FFMA against fp32
 PyTorch with TF32 off); the megakernel's whole chain and whole frames
 rtol 1e-3 / atol 1e-3 (12 fp32 layers sum in different orders). The
-quantized kernels put out integer codes and are held to their plain
-versions with ``torch.equal``.
+quantized kernels (the quantized megakernel too) put out integer codes and
+are held to their plain versions with ``torch.equal``; the edge kernel sums
+each patch's mean in another order, rtol 1e-4 / atol 1e-3.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import qconv as tq
 from repro_torch.kernels.bsconv import bsconv_fused
 from repro_torch.kernels.dsconv import dsconv_fused
+from repro_torch.kernels.edge import edge_score_fused
 from repro_torch.kernels.sfb import SFB_KEYS, sfb_fused
 from repro_torch.models.essr import ESSR, ESSRConfig
 
@@ -125,7 +128,8 @@ def test_engine_group_frame_on_card_matches_ref(cuda):
     buckets = sum(1 for k in (1, 2) if got.counts[k] > 0)
     assert got.backend == "cuda" and buckets > 0
     assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": buckets,
-                      "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0}
+                      "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0,
+                      "qmega": 0, "edge": 0}
     want = SREngine(eng.model, backend="ref").upscale(frame)
     np.testing.assert_array_equal(got.ids, want.ids)
     torch.testing.assert_close(got.image, want.image, **CHAIN_TOL)
@@ -190,7 +194,60 @@ def test_engine_int8_frame_on_card(cuda):
     buckets = sum(1 for k in (1, 2) if got.counts[k] > 0)
     assert got.backend == "cuda-int8" and buckets > 0
     assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0, "quantize": buckets,
-                      "qbsconv": buckets, "qsfb": 5 * buckets, "qdsconv": buckets}
+                      "qbsconv": buckets, "qsfb": 5 * buckets, "qdsconv": buckets,
+                      "qmega": 0, "edge": 0}
     fp = SREngine(eng.model).upscale(frame)
     np.testing.assert_array_equal(got.ids, fp.ids)
     assert bool(torch.isfinite(got.image).all())
+
+
+@pytest.mark.parametrize("mode", ["int8", "fxp10"])
+@pytest.mark.parametrize("n,width", [(1, 54), (7, 54), (1, 27), (7, 27), (0, 54)])
+def test_quantized_megakernel_equals_chain_and_reference(cuda, mode, n, width):
+    cfg, tree, pack, q = _quant_setup(mode, width, seed=n + width + 1)
+    x = torch.rand((n, 32, 32, 3), generator=torch.Generator().manual_seed(n)).cuda()
+    before = mk.qmega_fused.launches
+    got = mk.essr_forward_qmegakernel(tree, x, cfg, width, pack=pack)
+    torch.cuda.synchronize()
+    assert mk.qmega_fused.launches == before + (n > 0)
+    assert torch.equal(got, tq.essr_forward_qkernels(tree, x, cfg, width, pack=pack))
+    assert torch.equal(got, tq.essr_forward_qref(tree, x, cfg, width, pack=pack))
+    wbuf = mk.pack_qweights(q, pack.bits)
+    lay = mk.QWeightLayout(3, width, cfg.out_channels, cfg.n_sfb, 1 if pack.bits <= 8 else 4)
+    codes = mk.qmega_fused(x, wbuf, q["consts"], width=width, n_sfb=cfg.n_sfb,
+                           out_channels=cfg.out_channels, bits=pack.bits)
+    plain = ref.qmega_ref(x, mk.unpack_qweights(wbuf, lay), q["consts"], codes.dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, plain) and (codes.abs().max().item() if n else 1) > 0
+
+
+def test_engine_quant_group_frame_on_card(cuda):
+    r = np.random.default_rng(3)
+    frame = np.clip(np.linspace(0, 1, 96 * 160 * 3, dtype=np.float32).reshape(96, 160, 3)
+                    + (np.arange(160) > 80)[None, :, None] * (r.random((96, 160, 3)) - 0.5),
+                    0, 1).astype(np.float32)
+    layer = SREngine.from_config(ESSRConfig(scale=2), seed=3, plan=ExecutionPlan(quant="fxp10"))
+    group = SREngine(layer.model, plan=ExecutionPlan(quant="fxp10", fusion="group"))
+    assert group.qpack == layer.qpack
+    want = layer.upscale(frame)
+    ops.reset_launch_counts()
+    got = group.upscale(frame)
+    counts = ops.launch_counts()
+    buckets = sum(1 for k in (1, 2) if got.counts[k] > 0)
+    assert got.backend == "cuda-fxp10" and buckets > 0
+    assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0, "quantize": 0,
+                      "qbsconv": 0, "qsfb": 0, "qdsconv": 0, "qmega": buckets, "edge": 0}
+    np.testing.assert_array_equal(got.ids, want.ids)
+    assert torch.equal(got.image, want.image)
+
+
+@pytest.mark.parametrize("n,h,w", [(0, 32, 32), (1, 32, 32), (300, 32, 32), (5, 34, 34),
+                                   (3, 8, 13)])
+def test_edge_kernel_matches_plain(cuda, n, h, w):
+    x = torch.rand((n, h, w, 3), generator=torch.Generator().manual_seed(n + h)).cuda()
+    before = edge_score_fused.launches
+    got = edge_score_fused(x)
+    torch.cuda.synchronize()
+    assert edge_score_fused.launches == before + (n > 0)
+    assert tuple(got.shape) == (n,)
+    torch.testing.assert_close(got, ref.edge_score_ref(x), rtol=1e-4, atol=1e-3)

@@ -97,7 +97,8 @@ def test_empty_bucket_and_cpu_path_launch_nothing():
         assert tuple(bsconv_fused(_t(x), *map(_t, ws)).shape) == (0, 8, 8, 18)
         ops.essr_forward_kernels(params, torch.rand((2, 8, 8, 3)), T_X4, width=27)
     assert ops.launch_counts() == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0,
-                                   "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0}
+                                   "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0,
+                                   "qmega": 0, "edge": 0}
     with pytest.raises(ValueError, match="bilinear"):
         ops.essr_forward_kernels(params, torch.rand((2, 8, 8, 3)), T_X4, width=0)
 

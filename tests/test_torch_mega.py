@@ -203,7 +203,8 @@ def test_mega_wrapper_checks_and_launches_nothing_on_cpu():
         with pytest.raises(ValueError, match="outside 1..54"):
             mk.essr_forward_megakernel(tree, x, T_X4, width=60)
     assert ops.launch_counts() == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0,
-                                   "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0}
+                                   "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0,
+                                   "qmega": 0, "edge": 0}
 
 
 def test_build_key_of_the_megakernel():
@@ -212,4 +213,7 @@ def test_build_key_of_the_megakernel():
     assert len(key) == 16 and _build.library_path("mega").name == f"mega-{key}.so"
     assert key not in {_build.source_key(n) for n in ("bsconv", "sfb", "dsconv")}
     src = (_build.CSRC / "mega.cu").read_text()
-    assert 'extern "C" int mega_forward(' in src and "cudaLaunchAttributeClusterDimension" in src
+    # the cluster launch and halo exchange live in the header shared with qmega.cu
+    cluster = (_build.CSRC / "cluster.cuh").read_text()
+    assert 'extern "C" int mega_forward(' in src and '#include "cluster.cuh"' in src
+    assert "cudaLaunchAttributeClusterDimension" in cluster

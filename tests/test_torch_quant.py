@@ -310,7 +310,8 @@ def test_chain_empty_bucket_and_width_checks(toy):
             tq.essr_forward_qref(params, torch.from_numpy(x), TOY, 16, pack=pack)
     counts = ops.launch_counts()
     assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0,
-                      "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0}
+                      "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0,
+                      "qmega": 0, "edge": 0}
 
 
 def test_prepared_operands_are_cached_by_tree_version(toy):
@@ -361,7 +362,10 @@ def test_build_key_of_the_quantized_kernels():
     src = (_build.CSRC / "qconv.cu").read_text()
     for entry in ("quantize_forward", "qbsconv_forward", "qsfb_forward", "qdsconv_forward"):
         assert f'extern "C" int {entry}(' in src
-    assert "__fmul_rn" in src and "__fdiv_rn" in src and "__dp4a" in src
+    # the rounded fp steps and the integer dots live in the shared header
+    math = (_build.CSRC / "qmath.cuh").read_text()
+    assert '#include "qmath.cuh"' in src
+    assert "__fmul_rn" in math and "__fdiv_rn" in math and "__dp4a" in math
 
 
 # ---------------------------------------------------------------------------
@@ -416,10 +420,10 @@ def test_engine_labels_and_plan_rules(golden):
     with pytest.raises(ValueError, match="engine-level"):
         SREngine.from_params(tree, X2, device="cpu").upscale(frame, plan=ExecutionPlan(
             quant="int8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 10"):
-        _port(tree, "int8", fusion="group")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 10"):
-        pipeline.resolve_forward("cuda", eng.qpack, "group")
+    # quant under fusion="group" serves through the quantized megakernel
+    assert _port(tree, "int8", fusion="group").backend_label == "cuda-plain-int8"
+    assert pipeline.resolve_forward("cuda", eng.qpack, "group").func is \
+        pipeline._forward_width_quant_mega
     grp = _port(tree, "int8", "ref", fusion="group")     # "ref" ignores fusion
     r = grp.upscale(frame)
     assert r.backend == "ref-int8" and r.counts == GOLDEN_COUNTS

@@ -142,12 +142,12 @@ def test_plan_validation_text_matches_reference():
                dict(quant="int8", fusion="group")]:   # constructs, as in the reference
         mine, theirs = ExecutionPlan(**kw), JPlan(**kw)
         assert (mine.fusion, mine.quant) == (theirs.fusion, theirs.quant)
-    # the quantized megakernel is not ported: the "cuda" engine refuses quant
-    # under fusion="group", the "ref" engine (which ignores fusion) serves it
+    # quant under fusion="group": the "cuda" engine serves the quantized
+    # megakernel, the "ref" engine (which ignores fusion) the fake-quant model
     plan = ExecutionPlan(quant="int8", fusion="group")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 10"):
-        SREngine.from_config(CFG, plan=plan, device="cpu")
     frame = _golden_frame(64)[:32, :32]
+    r = SREngine.from_config(CFG, plan=plan, device="cpu").upscale(frame)
+    assert r.backend == "cuda-plain-int8" and tuple(r.image.shape) == (64, 64, 3)
     r = SREngine.from_config(CFG, plan=plan, backend="ref", device="cpu").upscale(frame)
     assert r.backend == "ref-int8" and tuple(r.image.shape) == (64, 64, 3)
 
