@@ -9,12 +9,17 @@ the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
+     The SFB kernel's dynamic shared memory must equal sfb_report's at the
+     main path's 32x32 patches and at the phase-3 shapes;
   3. hold each kernel against its plain PyTorch version on the card, at C54
      and C27 (bsconv also at Cin = 3) and N in {1, 7, 512}, rtol 1e-4 /
-     atol 1e-5 (TF32 off for the plain versions); the subnet-group
-     megakernel (the whole 12-layer chain) against its plain version and
-     against the layer chain of kernels at C54 and C27, N in {1, 7, 512}
-     and at an odd 13x21 patch, rtol 1e-3 / atol 1e-3;
+     atol 1e-5 (TF32 off for the plain versions); SFB also at shapes that cut
+     a patch into column bands or end on a ragged step (2x40x72 C54,
+     3x13x21 C27, 1x33x32 C54); the subnet-group megakernel (the whole
+     12-layer chain) against its plain version and against the layer chain
+     of kernels at C54 and C27, N in {1, 7, 512} and at an odd 13x21 patch,
+     rtol 1e-3 / atol 1e-3, and torch.equal to the layer chain at N = 7
+     (both sum every output in the same order);
   4. time each kernel at N = 1024 C54 32x32 patches (CUDA events, median of
      25 launches) beside its plain version, a cuDNN composition of the same
      function (a yardstick only: the port never calls it) and its bound;
@@ -100,6 +105,9 @@ PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
 INT8_PEAKS = (("H100 PCIe", 1513e12), ("H100 NVL", 1671e12), ("H200", 1979e12),
               ("H100", 1979e12))
 QUANT_MODES = ("int8", "fxp10")
+#: SFB checks beyond the main path's 32x32 (N, H, W, C): column bands with a
+#: recomputed halo (72 wide), ragged last steps (13 and 33 rows).
+SFB_SHAPES = ((2, 40, 72, 54), (3, 13, 21, 27), (1, 33, 32, 54))
 QKERNELS = ("quantize", "qbsconv", "qsfb", "qdsconv")
 
 #: Every TPU kernel of the JAX package (each function reaching pl.pallas_call).
@@ -150,9 +158,10 @@ def int8_peak_for(name: str) -> float:
 # operands, plain versions, cuDNN yardsticks, work counts
 # ---------------------------------------------------------------------------
 
-def operands(kind: str, n: int, c: int, g, torch, cin: int = 3, cout: int = 48):
-    """Random activations and He-normal weights with non-zero biases (a halo
-    pixel reading pw(0) + b instead of 0 would show)."""
+def operands(kind: str, n: int, c: int, g, torch, cin: int = 3, cout: int = 48,
+             hw: tuple = (32, 32)):
+    """Random (n, *hw) activations and He-normal weights with non-zero biases
+    (a halo pixel reading pw(0) + b instead of 0 would show)."""
     def he(shape, fan):
         return (torch.randn(shape, generator=g) * (2.0 / fan) ** 0.5).cuda()
 
@@ -160,9 +169,9 @@ def operands(kind: str, n: int, c: int, g, torch, cin: int = 3, cout: int = 48):
         return (0.1 * torch.randn(k, generator=g)).cuda()
 
     if kind == "bsconv":
-        x = torch.rand((n, 32, 32, cin), generator=g).cuda()
+        x = torch.rand((n, *hw, cin), generator=g).cuda()
         return x, dict(pw=he((cin, c), cin), pw_b=bias(c), dw=he((3, 3, c), 9), dw_b=bias(c))
-    x = torch.rand((n, 32, 32, c), generator=g).cuda()
+    x = torch.rand((n, *hw, c), generator=g).cuda()
     if kind == "dsconv":
         return x, dict(dw=he((3, 3, c), 9), dw_b=bias(c), pw=he((c, cout), c), pw_b=bias(cout))
     p = {}
@@ -399,10 +408,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     import numpy as np
     from repro_torch.api import ExecutionPlan, SREngine
+    from repro_torch.api.result import summarize_stats
     from repro_torch.kernels import _build
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels.ops import essr_forward_kernels, launch_counts, reset_launch_counts
     from repro_torch.kernels.ref import mega_ref
+    from repro_torch.kernels.sfb import sfb_report
     from repro_torch.models.essr import ESSRConfig
 
     # 1. the card
@@ -441,28 +452,46 @@ def main() -> None:
                 f"{qrep['threads']} threads)")
             if got != qrep["smem_bytes"]:
                 fail("qgroup_report disagrees with the kernel's shared-memory size")
+    sfb_lib = _build.load("sfb")
+    sfb_lib.sfb_smem_bytes.argtypes, sfb_lib.sfb_smem_bytes.restype = [ctypes.c_int] * 3, \
+        ctypes.c_longlong
+    sfb_lib.sfb_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+    for c, h, w in ((54, 32, 32), (27, 32, 32)) + tuple((c, h, w) for _, h, w, c in SFB_SHAPES):
+        rep = sfb_report(c, h, w)
+        got = sfb_lib.sfb_smem_bytes(w, c, rep["rows_per_step"])
+        say(f"  sfb C{c} {h}x{w}: {got} B of dynamic shared memory per block (sfb_report "
+            f"{rep['smem_bytes']} B: {rep['bands']} band(s) of {rep['band_width']} px, "
+            f"{rep['rows_per_step']} rows a step, {rep['threads']} threads, "
+            f"{rep['pointwise_px_per_output_px']:.4f} pointwise px per output px, pointwise "
+            f"busy {rep['pointwise_busy']:.3f}, depthwise busy {rep['depthwise_busy']:.3f}); "
+            f"{sfb_lib.sfb_blocks_per_sm(w, c, rep['rows_per_step'], rep['threads'])} "
+            f"block(s) per SM")
+        if got != rep["smem_bytes"]:
+            fail("sfb_report disagrees with the SFB kernel's shared-memory size")
 
     # 3. each kernel against its plain version
     g = torch.Generator().manual_seed(SEED)
     cases = [("bsconv", 54, 3), ("bsconv", 27, 3), ("bsconv", 54, 54), ("bsconv", 27, 27),
              ("sfb", 54, None), ("sfb", 27, None), ("dsconv", 54, None), ("dsconv", 27, None)]
+    runs = [(kind, c, cin, n, (32, 32)) for kind, c, cin in cases for n in (1, 7, 512)]
+    runs += [("sfb", c, None, n, (h, w)) for n, h, w, c in SFB_SHAPES]
     max_err = {"bsconv": 0.0, "sfb": 0.0, "dsconv": 0.0, "mega": 0.0}
-    for kind, c, cin in cases:
+    for kind, c, cin, n, hw in runs:
         kern, plain, _ = runners(kind, torch)
-        for n in (1, 7, 512):
-            x, w = operands(kind, n, c, g, torch, cin=cin or 3)
-            got = kern(x, w)
-            torch.cuda.synchronize()
-            want = plain(x, w)
-            err = (got - want).abs().max().item()
-            rel = ((got - want).abs() / want.abs().clamp_min(1e-6)).max().item()
-            ok = torch.allclose(got, want, **TOL)
-            say(f"phase check {kind} C={c}{'' if cin is None else f' Cin={cin}'} N={n}: "
-                f"max_abs {err:.3e} max_rel {rel:.3e} "
-                f"(rtol {TOL['rtol']:g} atol {TOL['atol']:g}) {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                fail(f"{kind} disagrees with its plain version")
-            max_err[kind] = max(max_err[kind], err)
+        x, w = operands(kind, n, c, g, torch, cin=cin or 3, hw=hw)
+        got = kern(x, w)
+        torch.cuda.synchronize()
+        want = plain(x, w)
+        err = (got - want).abs().max().item()
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-6)).max().item()
+        ok = torch.allclose(got, want, **TOL)
+        say(f"phase check {kind} C={c}{'' if cin is None else f' Cin={cin}'} N={n} "
+            f"{hw[0]}x{hw[1]}: "
+            f"max_abs {err:.3e} max_rel {rel:.3e} "
+            f"(rtol {TOL['rtol']:g} atol {TOL['atol']:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{kind} disagrees with its plain version")
+        max_err[kind] = max(max_err[kind], err)
 
     cfg = ESSRConfig(scale=4)
     for width in (54, 27):
@@ -481,9 +510,12 @@ def main() -> None:
             torch.cuda.synchronize()
             err_layer = (mega - layer).abs().max().item()
             ok_layer = torch.allclose(mega, layer, **CHAIN_TOL)
+            if n == 7:               # the same order of every sum: bit for bit
+                ok_layer = ok_layer and torch.equal(mega, layer)
             say(f"phase check mega C={width} N={n} {h}x{w}: max_abs vs plain {err:.3e}, "
                 f"vs layer chain {err_layer:.3e} (rtol {CHAIN_TOL['rtol']:g} "
-                f"atol {CHAIN_TOL['atol']:g}) {'ok' if ok and ok_layer else 'MISMATCH'}")
+                f"atol {CHAIN_TOL['atol']:g}{', torch.equal' if n == 7 else ''}) "
+                f"{'ok' if ok and ok_layer else 'MISMATCH'}")
             if not (ok and ok_layer):
                 fail("the megakernel disagrees with its plain version or the layer chain")
             max_err["mega"] = max(max_err["mega"], err)
@@ -705,9 +737,10 @@ def main() -> None:
     frames = [mixed_frame(SEED + i) for i in range(3)]
     expect = {k: 0 for k in launch_counts()}
     reset_launch_counts()
-    layer_ids, lats = [], []
+    layer_ids, lats, served = [], [], []
     for i, f in enumerate(frames):
         r = engine.upscale(f)
+        served.append(r)
         if r.backend != "cuda":
             fail(f"frame {i} served by {r.backend!r}, not the kernels")
         if tuple(r.image.shape) != (4320, 7680, 3) or not bool(torch.isfinite(r.image).all()):
@@ -726,7 +759,7 @@ def main() -> None:
     say(f"phase launches over 3 frames: {launches} (expected {expect})")
     if launches != expect or min(launches[k] for k in ("bsconv", "sfb", "dsconv")) == 0:
         fail("the main path did not launch every kernel as its routing requires")
-    say(f"phase summary: {json.dumps(engine.summary())}")
+    say(f"phase summary: {json.dumps(summarize_stats(served))}")
     profile_frame(engine, frames[1], statistics.median(lats), torch)
     ref_engine = SREngine(engine.model, backend="ref", device="cuda")
     refs = [ref_engine.upscale(f) for f in frames]
@@ -748,9 +781,10 @@ def main() -> None:
     say(f"phase group warmup: 1920x1080 -> 7680x4320 in {time.perf_counter() - t0:.3f} s")
     expect = {k: 0 for k in launch_counts()}
     reset_launch_counts()
-    glats = []
+    glats, served = [], []
     for i, f in enumerate(frames):
         r = group.upscale(f)
+        served.append(r)
         if r.backend != "cuda":
             fail(f"group frame {i} served by {r.backend!r}, not the kernels")
         if tuple(r.image.shape) != (4320, 7680, 3) or not bool(torch.isfinite(r.image).all()):
@@ -769,7 +803,7 @@ def main() -> None:
     say(f"phase group launches over 3 frames: {launches_group} (expected {expect})")
     if launches_group != expect or launches_group["mega"] == 0:
         fail("group fusion did not launch the megakernel once per non-empty conv bucket")
-    say(f"phase group summary: {json.dumps(group.summary())}")
+    say(f"phase group summary: {json.dumps(summarize_stats(served))}")
     profile_frame(group, frames[1], statistics.median(glats), torch)
 
     # 9. quantized serving, both modes
@@ -831,7 +865,7 @@ def main() -> None:
                 say(f"phase quant {mode} frame {i}: equal (torch.equal) to its routed buckets "
                     f"through essr_forward_qref; PSNR against the fp32 'ref' frame "
                     f"{psnr(r.image, refs[i].image, torch):.2f} dB (reported, random weights)")
-        say(f"phase quant {mode} summary: {json.dumps(qeng.summary())}")
+        say(f"phase quant {mode} summary: {json.dumps(summarize_stats(qimgs))}")
         profile_frame(qeng, frames[1], statistics.median(qlats), torch)
 
         # 13. the same frames under quant x group fusion: the quantized megakernel
@@ -844,9 +878,10 @@ def main() -> None:
         say(f"phase quant {mode} group warmup: {time.perf_counter() - t0:.3f} s")
         expect = {k: 0 for k in launch_counts()}
         reset_launch_counts()
-        qglats = []
+        qglats, served = [], []
         for i, f in enumerate(frames):
             r = geng.upscale(f)
+            served.append(r)
             if r.backend != f"cuda-{mode}":
                 fail(f"quant group frame {i} served by {r.backend!r}, not cuda-{mode}")
             if tuple(r.image.shape) != (4320, 7680, 3) or not bool(torch.isfinite(r.image).all()):
@@ -868,7 +903,7 @@ def main() -> None:
         if qglaunches[mode] != expect or qglaunches[mode]["qmega"] == 0:
             fail(f"quant group serving ({mode}) did not launch the quantized megakernel once "
                  f"per non-empty conv bucket and nothing else")
-        say(f"phase quant {mode} group summary: {json.dumps(geng.summary())}")
+        say(f"phase quant {mode} group summary: {json.dumps(summarize_stats(served))}")
         profile_frame(geng, frames[1], statistics.median(qglats), torch)
         del qeng, geng, qimgs, out, patches
         torch.cuda.empty_cache()

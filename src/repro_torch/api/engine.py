@@ -191,15 +191,20 @@ class SREngine:
         return self._backend_label(self.plan)
 
     def _ingest(self, frame, p: ExecutionPlan) -> torch.Tensor:
-        """Host-side dtype gate: integer frames are rejected under "raise",
-        otherwise normalised by their dtype's range (uint8 -> /255)."""
+        """Host-side dtype gate: non-float frames are rejected under "raise",
+        otherwise normalised by their dtype's range (uint8 -> /255); a dtype
+        without integer limits (bool) takes a span of 1, as in the reference."""
         t = frame if isinstance(frame, torch.Tensor) else torch.tensor(np.asarray(frame))
         if t.is_floating_point():
             return t.to(device=self.device, dtype=torch.float32)
         if p.on_poison == "raise":
             raise PoisonFrameError(f"frame dtype {t.dtype} is not floating point "
                                    f"(plan.on_poison='raise')")
-        return t.to(device=self.device, dtype=torch.float32) / float(torch.iinfo(t.dtype).max)
+        try:
+            span = float(torch.iinfo(t.dtype).max)
+        except TypeError:
+            span = 1.0
+        return t.to(device=self.device, dtype=torch.float32) / max(span, 1.0)
 
     def _host_health(self, frame: torch.Tensor, p: ExecutionPlan):
         """(frame, health or None, route-to-bilinear) under ``p.on_poison``."""
@@ -232,10 +237,8 @@ class SREngine:
         ``mode``: "edge_select" (the plan's routing, or ``ids_override``),
         "all_patches" (every patch through the subnet of ``width``) or
         "whole" (whole-image convolution; ``width`` optional). ``plan``
-        overrides the engine's plan for this call."""
-        return self._upscale(frame, mode, width, ids_override, plan, record=True)
-
-    def _upscale(self, frame, mode, width, ids_override, plan, record: bool) -> FrameResult:
+        overrides the engine's plan for this call. Like the reference's, it
+        records nothing in ``stats``."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
         if mode == "edge_select" and width is not None:
@@ -295,11 +298,6 @@ class SREngine:
                               latency_s=time.perf_counter() - t0,
                               thresholds=p.thresholds if scored else (0.0, 0.0),
                               compiled=compiled, health=health)
-        if record:
-            self.stats.append(FrameResult(
-                image=None, mode=out.mode, backend=out.backend, counts=out.counts,
-                mac_saving=out.mac_saving, latency_s=out.latency_s,
-                thresholds=out.thresholds, compiled=out.compiled, health=out.health))
         return out
 
     def reference(self, frame, width: Optional[int] = None) -> FrameResult:
@@ -309,8 +307,7 @@ class SREngine:
     def warmup(self, shape: Tuple[int, int]) -> FrameResult:
         """Pay an ``(h, w)`` frame shape's one-off set-up (index maps, kernel
         builds) on a synthetic frame — thirds of smooth gradient, mild
-        texture and checkerboard, so every subnet runs — without recording
-        it in ``stats``."""
+        texture and checkerboard, so every subnet runs."""
         h, w = int(shape[0]), int(shape[1])
         yy, xx = torch.meshgrid(torch.linspace(0.0, 1.0, h), torch.linspace(0.0, 1.0, w),
                                 indexing="ij")
@@ -320,14 +317,15 @@ class SREngine:
                             torch.where((xx < 2 / 3)[..., None],
                                         smooth + 0.03 * checker[..., None],
                                         checker[..., None] * torch.ones(3)))
-        return self._upscale(torch.clamp(frame, 0.0, 1.0), "edge_select", None, None,
-                             None, record=False)
+        return self.upscale(torch.clamp(frame, 0.0, 1.0))
 
     def summary(self) -> Dict[str, Any]:
-        """Aggregate over the recorded ``upscale`` frames (the newest
-        ``plan.stats_window``), with what served them."""
-        out = {"backend": self.backend_label, "device": str(self.device),
-               "fusion": self.plan.fusion, "quant": self.plan.quant,
-               "stats_window": self.plan.stats_window}
-        out.update(summarize_stats(self.stats))
+        """Aggregate over the recorded frames in ``stats`` (the newest
+        ``plan.stats_window``), with what served them; ``{}`` while nothing
+        is recorded, as in the reference, whose ``upscale`` records nothing."""
+        out = summarize_stats(self.stats)
+        if out:
+            out.update(backend=self.backend_label, device=str(self.device),
+                       fusion=self.plan.fusion, quant=self.plan.quant,
+                       stats_window=self.plan.stats_window)
         return out

@@ -59,14 +59,18 @@ def test_bsconv_kernel_matches_plain(cuda, n, h, w, cin, cout):
     torch.testing.assert_close(got, ref.bsconv_ref(x, *ws, relu=True), **TOL)
 
 
-@pytest.mark.parametrize("n,h,w,c", [(1, 32, 32, 54), (5, 32, 32, 27), (2, 17, 9, 54)])
+@pytest.mark.parametrize("n,h,w,c", [(1, 32, 32, 54), (5, 32, 32, 27), (2, 17, 9, 54),
+                                     (2, 40, 72, 54), (3, 13, 21, 27), (1, 33, 32, 54)])
 def test_sfb_kernel_matches_plain(cuda, n, h, w, c):
+    # 40x72: column bands with a recomputed halo; 13 and 33 rows: a ragged last step
     g = torch.Generator().manual_seed(n + c)
     x = torch.rand((n, h, w, c), generator=g).cuda()
     p = {k: _w(g, c, c) if k in ("b1_pw", "b2_pw", "fuse") else
          _w(g, 3, 3, c) if k.endswith("_dw") else _w(g, c) for k in SFB_KEYS}
+    before = sfb_fused.launches
     got = sfb_fused(x, p)
     torch.cuda.synchronize()
+    assert sfb_fused.launches == before + 1
     torch.testing.assert_close(got, ref.sfb_ref(x, p), **TOL)
 
 

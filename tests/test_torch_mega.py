@@ -93,7 +93,7 @@ def test_group_engine_golden_frame_matches_reference():
     frame = _golden_frame()
     rj, rp = ref.upscale(frame), eng.upscale(frame)
     assert rp.counts == rj.counts == GOLDEN_COUNTS
-    assert rp.backend == "cuda-plain" and eng.summary()["fusion"] == "group"
+    assert rp.backend == "cuda-plain" and eng.plan.fusion == "group" and eng.summary() == {}
     np.testing.assert_array_equal(rp.ids, np.asarray(rj.ids))
     np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **CHAIN_TOL)
     # the warm-up key carries the fusion: the layer plan's first frame pays again

@@ -178,7 +178,7 @@ def test_group_engine_golden_frame_equals_layer_engine(golden, mode):  # noqa: F
     assert b.backend == f"cuda-plain-{mode}" and b.counts == GOLDEN_COUNTS
     np.testing.assert_array_equal(b.ids, fp.ids)
     assert torch.equal(a.image, b.image)
-    assert group.summary()["fusion"] == "group" and group.summary()["quant"] == mode
+    assert group.plan.fusion == "group" and group.plan.quant == mode and group.summary() == {}
 
 
 def test_resolve_forward_serves_quant_group():

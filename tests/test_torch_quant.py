@@ -414,7 +414,8 @@ def test_engine_labels_and_plan_rules(golden):
     assert eng.upscale(frame[:64, :64]).backend == "cuda-plain-int8"
     assert eng.reference(frame[:32, :32]).backend == "ref"
     assert _port(tree, "fxp10", "ref").upscale(frame[:64, :64]).backend == "ref-fxp10"
-    assert eng.summary()["quant"] == "int8" and eng.summary()["backend"] == "cuda-plain-int8"
+    assert eng.plan.quant == "int8" and eng.backend_label == "cuda-plain-int8"
+    assert eng.summary() == {}
     with pytest.raises(ValueError, match="engine-level"):
         eng.upscale(frame, plan=eng.plan.replace(quant="fxp10"))
     with pytest.raises(ValueError, match="engine-level"):
@@ -492,7 +493,7 @@ def test_alpha_cache_round_trip_and_warmup(golden, tmp_path):
     assert b.qpack == a.qpack
     before = b.qpack
     w = b.warmup((64, 96))
-    assert w.backend == "cuda-plain-int8" and b.qpack is before and "frames" not in b.summary()
+    assert w.backend == "cuda-plain-int8" and b.qpack is before and b.summary() == {}
     sample = default_calibration_batch(32, 2, n=3)
     c = SREngine.from_params(tree, X2, plan=ExecutionPlan(quant="int8"), device="cpu",
                              calibrate=sample.numpy())

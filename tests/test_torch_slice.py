@@ -27,6 +27,7 @@ from repro.api import SREngine as JEngine
 from repro.data.synthetic import degrade, random_image
 from repro.models.essr import ESSRConfig as JCfg
 from repro_torch.api import ExecutionPlan, SREngine
+from repro_torch.api.result import summarize_stats
 from repro_torch.models.essr import ESSRConfig
 from repro_torch.runtime.guard import PoisonFrameError
 
@@ -163,17 +164,31 @@ def test_engine_runs_on_the_card_unless_asked(monkeypatch):
 
 
 def test_warmup_and_summary(engines):
-    _, tree = engines
+    ref, tree = engines
     e = _port(tree)
     w = e.warmup((64, 96))
     assert w.compiled is False and all(c > 0 for c in w.counts)
-    assert e.summary()["backend"] == "cuda-plain" and "frames" not in e.summary()
-    r = e.upscale(_golden_frame(64)[:, :64].copy())
-    assert r.compiled is False
-    r = e.upscale(_golden_frame(64))
-    assert r.compiled is True
-    s = e.summary()
+    assert e.summary() == {} and e.backend_label == "cuda-plain"
+    a = e.upscale(_golden_frame(64)[:, :64].copy())
+    assert a.compiled is False
+    b = e.upscale(_golden_frame(64))
+    assert b.compiled is True
+    # upscale records nothing, as in the reference: summary() stays {}
+    ref.upscale(_golden_frame(64))
+    assert e.summary() == ref.summary() == {} and not e.stats
+    s = summarize_stats([a, b])
     assert s["frames"] == 2 and s["warmup_frames_excluded"] == 1
+
+
+def test_bool_frame_served_as_reference():
+    frame = np.random.default_rng(0).random((64, 64, 3)) > 0.5
+    ref = JEngine.from_config(JCFG, seed=0, plan=JPlan(on_poison="sanitize"))
+    tree = jax.tree_util.tree_map(np.asarray, ref.params)
+    rj = ref.upscale(frame)
+    rp = _port(tree, plan=ExecutionPlan(on_poison="sanitize")).upscale(frame)
+    assert rp.counts == rj.counts == (0, 0, 9)
+    assert tuple(rp.image.shape) == (128, 128, 3)
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **IMG_TOL)
 
 
 def test_checkpoint_written_by_reference_reads_back(engines, tmp_path):
