@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-Phases, one line or more each, run in this order: 1, 2, 3, 7, 11, 4, 8, 12,
-5, 6, 9 with 13 after each mode, 14, 10; any failure exits non-zero before
-the last line:
+Phases, one line or more each, run in this order: 1, 2, 3, 7, 15, 11, 4, 8,
+12, 5, 6, 9 with 13 after each mode, 14, 10; any failure exits non-zero
+before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
      The SFB kernel's dynamic shared memory must equal sfb_report's at the
-     main path's 32x32 patches and at the phase-3 shapes;
+     main path's 32x32 patches and at the phase-3 shapes, and the qSFB
+     kernel's (csrc/qsfb.cu) qsfb_report's at 32x32 and the phase-15 shapes,
+     both modes;
   3. hold each kernel against its plain PyTorch version on the card, at C54
      and C27 (bsconv also at Cin = 3) and N in {1, 7, 512}, rtol 1e-4 /
      atol 1e-5 (TF32 off for the plain versions); SFB also at shapes that cut
@@ -46,7 +48,8 @@ the last line:
      CPU (a division by a CPU scalar on the card would not be IEEE);
   8. each quantized kernel timed at N = 1024 C54 32x32 beside its plain
      version and its bound, per mode (no single PyTorch call computes any of
-     them: library "none");
+     them: library "none"); integer operations priced at the int8 tensor-core
+     rate for "int8" and at the TF32 rate for "fxp10", where they are exact;
   9. quantized serving: ExecutionPlan(quant=mode) for both modes serves the
      same three frames; the label must be "cuda-<mode>", the ids equal to
      the fp32 layer frames', the launches 1 + 1 + 5 + 1 per non-empty conv
@@ -74,7 +77,13 @@ the last line:
      patches of the three frames: scores within rtol 1e-4 / atol 1e-3 of the
      plain edge_score, the routing ids from them equal to the plain scores'
      (a difference is allowed only within 1e-3 of t1 or t2, and counted);
-     then timed beside its plain version and its bound by bytes.
+     then timed beside its plain version and its bound by bytes;
+ 15. the qSFB kernel (csrc/qsfb.cu, the band walker with its 1x1 dots on the
+     tensor cores) torch.equal to its plain version at the shapes that cut a
+     patch into column bands or end on a ragged step (QSFB_SHAPES), on the
+     calibrated model's operands at C54 and C27 and on synthetic extreme
+     operands at C64 (every code and weight at +-qmax, so fxp10 sums reach
+     511^2 * 64), for "int8" and "fxp10".
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -104,11 +113,18 @@ PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
 #: Dense int8 tensor-core peak of the same parts (data sheets), by name.
 INT8_PEAKS = (("H100 PCIe", 1513e12), ("H100 NVL", 1671e12), ("H200", 1979e12),
               ("H100", 1979e12))
+#: Dense TF32 tensor-core peak of the same parts (data sheets), by name: the
+#: rate of the fxp10 integer dots, exact there (csrc/qsfb.cu).
+TF32_PEAKS = (("H100 PCIe", 378e12), ("H100 NVL", 418e12), ("H200", 495e12),
+              ("H100", 495e12))
 QUANT_MODES = ("int8", "fxp10")
 #: SFB checks beyond the main path's 32x32 (N, H, W, C): column bands with a
 #: recomputed halo (72 wide), ragged last steps (13 and 33 rows).
 SFB_SHAPES = ((2, 40, 72, 54), (3, 13, 21, 27), (1, 33, 32, 54))
 QKERNELS = ("quantize", "qbsconv", "qsfb", "qdsconv")
+#: qSFB checks beyond the main path's 32x32 (N, H, W): column bands with a
+#: recomputed halo (72 wide), ragged last steps (13, 17 and 33 rows), odd widths.
+QSFB_SHAPES = ((2, 40, 72), (3, 13, 21), (1, 33, 32), (2, 17, 9))
 
 #: Every TPU kernel of the JAX package (each function reaching pl.pallas_call).
 TPU_KERNELS = (
@@ -152,6 +168,17 @@ def peaks_for(name: str):
 
 def int8_peak_for(name: str) -> float:
     return next((ops for key, ops in INT8_PEAKS if key in name), INT8_PEAKS[-1][1])
+
+
+def tf32_peak_for(name: str) -> float:
+    return next((ops for key, ops in TF32_PEAKS if key in name), TF32_PEAKS[-1][1])
+
+
+def int_peak_for(name: str, bits: int) -> float:
+    """The rate of a quantized kernel's integer operations: the int8 tensor
+    cores for int8 codes, the TF32 tensor cores for fxp10 codes (integers up
+    to 2^11 are exact in TF32, and the sums stay below 2^24)."""
+    return int8_peak_for(name) if bits <= 8 else tf32_peak_for(name)
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +337,38 @@ def quant_stages(q, x, bits: int, torch):
     return stages
 
 
+def qsfb_extreme_operands(n: int, h: int, w: int, c: int, bits: int, g, torch):
+    """Synthetic qSFB operands (codes, operands, site constants) on the card
+    at the lattice's extremes: every input code and weight code at +-qmax
+    (random signs), a third of the patches all +qmax, the weights of every
+    third output channel all +qmax and of the next all -qmax; scales that
+    keep the sites' codes spread (the b1 and b2 codes saturate at +qmax on
+    the all-positive channels), so the integer sums reach qmax^2 * c."""
+    qmax = 127 if bits <= 8 else 511
+    dtype = torch.int8 if bits <= 8 else torch.int32
+
+    def signs(*shape):
+        return torch.randint(0, 2, shape, generator=g) * 2 - 1
+
+    def scale():
+        return (torch.rand(c, generator=g) + 0.5) / (qmax * qmax * c ** 0.5)
+
+    xq = signs(n, h, w, c) * qmax
+    xq[: max(1, n // 3)] = qmax
+    q = {}
+    for k in ("b1_pwq", "b2_pwq", "fuseq"):
+        wq = signs(c, c) * qmax
+        wq[:, 0::3], wq[:, 1::3] = qmax, -qmax
+        q[k] = wq.to(dtype)
+    for b in ("b1", "b2"):
+        q.update({f"{b}_pw_scale": scale(), f"{b}_pwb": 0.1 * torch.randn(c, generator=g),
+                  f"{b}_dw_fq": torch.rand((3, 3, c), generator=g) * 0.4 - 0.1,
+                  f"{b}_dwb": 0.1 * torch.randn(c, generator=g)})
+    q.update(fuse_scale_y=scale(), fuse_scale_x=scale(), fuseb=0.1 * torch.randn(c, generator=g))
+    qc = torch.tensor([2.0, 2.0 / qmax] * 3, dtype=torch.float32)
+    return (xq.to(dtype).cuda(), {k: v.contiguous().cuda() for k, v in q.items()}, qc.cuda())
+
+
 def to_cpu(tree):
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
@@ -413,6 +472,7 @@ def main() -> None:
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels.ops import essr_forward_kernels, launch_counts, reset_launch_counts
     from repro_torch.kernels.ref import mega_ref
+    from repro_torch.kernels.qconv import qsfb_report
     from repro_torch.kernels.sfb import sfb_report
     from repro_torch.models.essr import ESSRConfig
 
@@ -427,7 +487,7 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = _build.build(["bsconv", "sfb", "dsconv", "mega", "qconv", "qmega", "edge"])
+    reports = _build.build(["bsconv", "sfb", "dsconv", "mega", "qconv", "qsfb", "qmega", "edge"])
     say(f"phase build: {time.perf_counter() - t0:.1f} s")
     for lib, rep in reports.items():
         for line in rep.splitlines():
@@ -439,8 +499,27 @@ def main() -> None:
     smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
     say("  qconv dynamic shared memory per block (bytes): " + ", ".join(
         f"{k} C{c} {m}: {smem(i, 3 if k == 'qbsconv' else c, c if i < 2 else 48, b)}"
-        for i, k in enumerate(("qbsconv", "qsfb", "qdsconv")) for c in (54, 27)
+        for i, k in ((0, "qbsconv"), (2, "qdsconv")) for c in (54, 27)
         for m, b in (("int8", 8), ("fxp10", 10))))
+    qsfb_lib = _build.load("qsfb")
+    qsfb_lib.qsfb_smem_bytes.argtypes = [ctypes.c_int] * 4
+    qsfb_lib.qsfb_smem_bytes.restype = ctypes.c_longlong
+    qsfb_lib.qsfb_blocks_per_sm.argtypes = [ctypes.c_int] * 5
+    for m, b in (("int8", 8), ("fxp10", 10)):
+        for c, h, w in ((54, 32, 32), (27, 32, 32), (64, 32, 32)) + tuple(
+                (c, h, w) for _, h, w in QSFB_SHAPES for c in (54, 27, 64)):
+            rep = qsfb_report(c, h, w, b)
+            got = qsfb_lib.qsfb_smem_bytes(w, c, b, rep["rows_per_step"])
+            say(f"  qsfb {m} C{c} {h}x{w}: {got} B of dynamic shared memory per block "
+                f"(qsfb_report {rep['smem_bytes']} B: {rep['bands']} band(s) of "
+                f"{rep['band_width']} px, {rep['rows_per_step']} rows a step, {rep['threads']} "
+                f"threads, {rep['pixel_dots_per_output_px']:.4f} pixel-dots per output px, dot "
+                f"busy {rep['dot_busy']:.3f}, depthwise busy {rep['depthwise_busy']:.3f}); "
+                f"{qsfb_lib.qsfb_blocks_per_sm(w, c, b, rep['rows_per_step'], rep['threads'])} "
+                f"block(s) per SM (report, by shared memory and threads: "
+                f"{rep['blocks_per_sm']})")
+            if got != rep["smem_bytes"]:
+                fail("qsfb_report disagrees with the qSFB kernel's shared-memory size")
     qsmem = _build.load("qmega").qmega_smem_bytes
     qsmem.argtypes, qsmem.restype = [ctypes.c_int] * 7, ctypes.c_longlong
     for c in (54, 27):
@@ -556,6 +635,35 @@ def main() -> None:
             f"the same on the CPU")
     del x, got, want, inp
 
+    # 15. the qSFB kernel at banded and ragged shapes and at extreme codes
+    from repro_torch.kernels import qconv as tq
+    from repro_torch.kernels.ref import qsfb_ref
+    for mode in QUANT_MODES:
+        _, pack, qs, _ = quant[mode]
+        cases = []
+        for width in (54, 27):
+            for n, h, w in QSFB_SHAPES:
+                x = torch.rand((n, h, w, 3), generator=g).cuda()
+                sfb = qs[width]["sfbs"][0]
+                cases.append((f"model C{width}", quant_stages(qs[width], x, pack.bits, torch)[2][3],
+                              sfb, sfb["qc"]))
+        for n, h, w in ((7, 32, 32),) + QSFB_SHAPES:
+            cases.append(("extreme C64", *qsfb_extreme_operands(n, h, w, 64, pack.bits, g, torch)))
+        for label, xq, q, qc in cases:
+            got, want = tq.qsfb_fused(xq, q, qc), qsfb_ref(xq, q, qc)
+            torch.cuda.synchronize()
+            err = (got.long() - want.long()).abs().max().item()
+            qerr["qsfb"] = max(qerr["qsfb"], err)
+            n, h, w, _ = xq.shape
+            say(f"phase check qsfb {mode} {label} N={n} {h}x{w}: torch.equal to qsfb_ref "
+                f"{torch.equal(got, want)} (max {err} codes apart; nonzero share "
+                f"{(want != 0).float().mean().item():.3f})")
+            if not torch.equal(got, want):
+                fail(f"qsfb ({mode}, {label}, N={n} {h}x{w}) differs from its plain version")
+            if want.abs().max().item() == 0:
+                fail(f"qsfb ({mode}, {label}): every code is 0, the check would see nothing")
+    del cases, xq, q, qc, got, want
+
     # 11. the quantized megakernel: its codes against its plain version, its
     # images against the qconv kernel chain and the integer reference
     from repro_torch.kernels.qconv import essr_forward_qkernels, essr_forward_qref
@@ -650,7 +758,6 @@ def main() -> None:
     del tree, wbuf, wts, x, got, want, yard
 
     # 8. the quantized kernels' times at N = 1024 C54
-    int8_peak = int8_peak_for(name)
     qtiming = {m: {} for m in QUANT_MODES}
     for mode in QUANT_MODES:
         _, pack, qs, _ = quant[mode]
@@ -665,7 +772,7 @@ def main() -> None:
             ms = median_ms(lambda: kern(inp), torch)
             plain_ms = median_ms(lambda: plain(inp), torch)
             nbytes, iops, fops = qwork(kind, TIMING_N, 54, pack.bits)
-            int_peak = int8_peak if pack.bits <= 8 else peak_flops
+            int_peak = int_peak_for(name, pack.bits)
             t_bytes = nbytes / peak_bw * 1e3
             t_ops = (iops / int_peak + fops / peak_flops) * 1e3
             qtiming[mode][kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
@@ -701,7 +808,7 @@ def main() -> None:
         qrep = mk.qgroup_report(54, 32, qcfg.scale, qcfg.n_sfb, pack.bits)
         iops, fops = TIMING_N * qrep["int_ops_per_patch"], TIMING_N * qrep["fp_ops_per_patch"]
         nbytes = TIMING_N * qrep["bytes_per_patch"] + qrep["weight_bytes"]
-        int_peak = int8_peak if pack.bits <= 8 else peak_flops
+        int_peak = int_peak_for(name, pack.bits)
         # the dots run on the CUDA cores: __dp4a does 4 int8 MACs per lane
         # instruction and issues no faster than an FFMA, int32 multiply-add
         # no faster than an FFMA, so these rates bound the kernel's own
@@ -967,7 +1074,8 @@ def main() -> None:
                      launches=launches_group["mega"], max_abs_err=max_err["mega"],
                      **timing["mega"]))
     for k in QKERNELS:               # timed per mode; the row's own keys are int8's
-        row = dict(name=f"{k}_fused", route="cuda", source="src/repro_torch/csrc/qconv.cu",
+        row = dict(name=f"{k}_fused", route="cuda",
+                   source=f"src/repro_torch/csrc/{'qsfb' if k == 'qsfb' else 'qconv'}.cu",
                    replaces=replaces[f"{k}_fused"], launches=qlaunches["int8"][k],
                    max_abs_err=qerr[k], **qtiming["int8"][k])
         row.update({f"fxp10_{key}": v for key, v in qtiming["fxp10"][k].items()})

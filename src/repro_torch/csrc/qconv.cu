@@ -1,17 +1,18 @@
 // Integer-domain quantized ESSR kernels (PAMS serving path, paper Sec.
-// IV-H): quantize, qBSConv, qSFB and qDSConv, NHWC, with the lattice codes
-// between groups as int8_t ("int8") or int32_t ("fxp10"). Each C entry takes
-// an int `bits`: 8 picks int8_t codes, anything wider int32_t.
+// IV-H): quantize, qBSConv and qDSConv, NHWC, with the lattice codes between
+// groups as int8_t ("int8") or int32_t ("fxp10"). Each C entry takes an int
+// `bits`: 8 picks int8_t codes, anything wider int32_t. The fourth kernel of
+// the chain, qSFB, is a band walker of its own in qsfb.cu.
 //
 // Replaces the TPU kernels of repro/kernels/qconv.py: quantize_fused
-// (pallas_call at qconv.py:156), qbsconv_fused (:187), qsfb_fused (:241) and
-// qdsconv_fused (:282).
+// (pallas_call at qconv.py:156), qbsconv_fused (:187) and qdsconv_fused
+// (:282).
 //
 // Arithmetic contract: bit for bit the plain versions in
-// repro_torch/kernels/ref.py (quantize_ref, qbsconv_ref, qsfb_ref,
-// qdsconv_ref). Every rounded fp step, the integer dots and the staged
-// layout of the code weights live in qmath.cuh, shared with the quantized
-// megakernel (qmega.cu); see there for the order of every fp op.
+// repro_torch/kernels/ref.py (quantize_ref, qbsconv_ref, qdsconv_ref). Every
+// rounded fp step, the integer dots and the staged layout of the code
+// weights live in qmath.cuh, shared with the quantized megakernel
+// (qmega.cu); see there for the order of every fp op.
 //
 // What bounds them, at N = 1024 C54 32x32 patches (x4) on an H100 SXM
 // (3.35 TB/s, 67 TFLOP/s fp32, 1,979 TOPS int8 dense); int8 / fxp10 codes
@@ -19,26 +20,23 @@
 //   quantize  the bytes it moves: 15.7 / 25.2 MB, 0.0047 / 0.0075 ms;
 //   qBSConv   (first layer, 3 -> 54) the bytes of its output codes: 0.018 /
 //             0.071 ms;
-//   qSFB      int8: its bytes (0.034 ms; its integer dots would take 0.012
-//             ms on the tensor cores); fxp10: its 24.5 G integer operations
-//             on the CUDA cores, 0.37 ms;
 //   qDSConv   int8: its fp 1x1, 5.44 GFLOP at the fp32 rate, 0.081 ms;
 //             fxp10: its bytes, 0.128 ms.
 // These kernels keep the dots on the CUDA cores (no int8 mma yet).
 //
 // Design, simple and right first (speed is later work): as the fp kernels
-// (sfb.cu), a block works on one 8x8 output tile at a time in a
+// (bsconv.cu), a block works on one 8x8 output tile at a time in a
 // grid-stride loop, with the group's weights staged once per block and the
-// depthwise halo recomputed in shared memory (qSFB: 12x12 -> 10x10 -> 8x8;
-// the codes and fp maps of a tile never leave it). Channels pad to
-// multiples of 4 with zero codes and zero weights. Every pointwise result
-// off the patch is 0, bias included, before a depthwise layer (the SAME
-// padding of the dequantized map); the int32 depthwise of qDSConv reads zero
-// codes off the patch. A thread's integer dot covers 4 output channels of
-// one pixel, with one 16-byte shared-memory load of their weights per step
-// (int8: per 4 input channels, as 4-byte __dp4a words; int32: per input
-// channel). qDSConv's fp 1x1 gives a thread 4 output channels of 4 pixels,
-// 16 independent ordered sums.
+// depthwise halo recomputed in shared memory (10x10 -> 8x8; the codes and fp
+// maps of a tile never leave it). Channels pad to multiples of 4 with zero
+// codes and zero weights. Every pointwise result off the patch is 0, bias
+// included, before a depthwise layer (the SAME padding of the dequantized
+// map); the int32 depthwise of qDSConv reads zero codes off the patch. A
+// thread's integer dot covers 4 output channels of one pixel, with one
+// 16-byte shared-memory load of their weights per step (int8: per 4 input
+// channels, as 4-byte __dp4a words; int32: per input channel). qDSConv's fp
+// 1x1 gives a thread 4 output channels of 4 pixels, 16 independent ordered
+// sums.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -48,7 +46,6 @@ using namespace essr;
 
 namespace {
 
-constexpr int R0 = TILE + 4;     // qSFB input tile edge (2-px halo)
 constexpr int R1 = TILE + 2;     // 1-px halo
 
 // dst[p * cp + c] = codes of x[n] over the RH x RW region at (oy, ox); zero
@@ -173,108 +170,6 @@ __global__ void __launch_bounds__(256) qbsconv_kernel(QBArgs<T> a) {
       float d = depthwise_at<R1>(P, Dw, cpo, i, j, c, sc[2 * cpo + c]);
       if (a.relu) d = fmaxf(d, 0.f);
       a.out[(((size_t)n * H + y) * W + xx) * Cout + c] = requant<T>(d, ao, so);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// qSFB: qBSConv (relu, site b1) -> qBSConv (relu, site b2) -> fuse 1x1 over
-// both lattices -> ReLU -> requantize (site out); 12x12 -> 10x10 -> 8x8
-// ---------------------------------------------------------------------------
-
-template <class T>
-struct QSArgs {
-  const T* x;
-  const T* w1;
-  const float *s1, *pb1, *dw1, *db1;
-  const T* w2;
-  const float *s2, *pb2, *dw2, *db2;
-  const T* wf;
-  const float *fsy, *fsx, *fb, *qc;
-  T* out;
-  int N, H, W, C;
-};
-
-template <class T>
-size_t qsfb_smem(int cp) {
-  return sizeof(float) * ((size_t)R0 * R0 * cp + 27 * cp) +
-         sizeof(T) * ((size_t)R0 * R0 * cp + (size_t)R1 * R1 * cp + 3 * (size_t)cp * cp);
-}
-
-template <class T>
-__global__ void __launch_bounds__(512) qsfb_kernel(QSArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = a.H, W = a.W, C = a.C, cp = round4(a.C);
-  float* P = reinterpret_cast<float*>(smem);   // R0*R0 x cp: pw1, then pw2 (R1 stride)
-  float* D1 = P + R0 * R0 * cp;                // 9 x cp each
-  float* D2 = D1 + 9 * cp;
-  float* v = D2 + 9 * cp;   // [s1 | pb1 | db1 | s2 | pb2 | db2 | fsy | fsx | fb], cp each
-  T* X = reinterpret_cast<T*>(v + 9 * cp);     // R0*R0 x cp input codes (and the shortcut)
-  T* Y = X + R0 * R0 * cp;                     // R1*R1 x cp: b1 codes, then b2 codes (8x8)
-  T* W1 = Y + R1 * R1 * cp;                    // cp x cp code weights each
-  T* W2 = W1 + cp * cp;
-  T* WF = W2 + cp * cp;
-
-  stage_codes(a.w1, C, C, cp, cp, W1);
-  stage_codes(a.w2, C, C, cp, cp, W2);
-  stage_codes(a.wf, C, C, cp, cp, WF);
-  stage_matrix(a.dw1, 9, C, 9, cp, D1);
-  stage_matrix(a.dw2, 9, C, 9, cp, D2);
-  const float* vecs[9] = {a.s1, a.pb1, a.db1, a.s2, a.pb2, a.db2, a.fsy, a.fsx, a.fb};
-#pragma unroll
-  for (int k = 0; k < 9; ++k) stage_matrix(vecs[k], 1, C, 1, cp, v + k * cp);
-  float qc[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) qc[k] = a.qc[k];
-
-  const int ng = cp >> 2;
-  const int ty = (H + TILE - 1) / TILE, tx = (W + TILE - 1) / TILE;
-  const long long tiles = (long long)a.N * ty * tx;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int n = (int)(t / (ty * tx));
-    const int r = (int)(t % (ty * tx));
-    const int y0 = (r / tx) * TILE, x0 = (r % tx) * TILE;
-    __syncthreads();
-    load_codes(a.x, n, H, W, C, y0 - 2, x0 - 2, R0, R0, cp, X);
-    __syncthreads();
-    // P = dequant(w1 . X) on 12x12, zero off the patch
-    pointwise_dequant<R0>(X, cp, W1, cp, v, v + cp, Region<R0, R0>{y0 - 2, x0 - 2}, H, W, P);
-    __syncthreads();
-    // Y = requant(relu(dw1(P) + b)) on 10x10 (padded channels come out 0)
-    for (int item = threadIdx.x; item < R1 * R1 * cp; item += blockDim.x) {
-      const int c = item % cp, q = item / cp;
-      const float d = depthwise_at<R0>(P, D1, cp, q / R1, q % R1, c, v[2 * cp + c]);
-      Y[item] = requant<T>(fmaxf(d, 0.f), qc[0], qc[1]);
-    }
-    __syncthreads();
-    // P = dequant(w2 . Y) on 10x10, zero off the patch
-    pointwise_dequant<R1>(Y, cp, W2, cp, v + 3 * cp, v + 4 * cp, Region<R1, R1>{y0 - 1, x0 - 1},
-                          H, W, P);
-    __syncthreads();
-    // Y = requant(relu(dw2(P) + b)) on the 8x8 tile
-    for (int item = threadIdx.x; item < TILE * TILE * cp; item += blockDim.x) {
-      const int c = item % cp, q = item / cp;
-      const float d = depthwise_at<R1>(P, D2, cp, q / TILE, q % TILE, c, v[5 * cp + c]);
-      Y[item] = requant<T>(fmaxf(d, 0.f), qc[2], qc[3]);
-    }
-    __syncthreads();
-    // out = requant(relu(((wf . Y) * sy + (wf . X) * sx) + b))
-    for (int item = threadIdx.x; item < TILE * TILE * ng; item += blockDim.x) {
-      const int g = item % ng, p = item / ng;
-      const int i = p / TILE, j = p % TILE;
-      const int y = y0 + i, xx = x0 + j;
-      if (y >= H || xx >= W) continue;
-      int ay[4], ax[4];
-      dot4(Y + p * cp, WF, cp, cp, 4 * g, ay);
-      dot4(X + ((i + 2) * R0 + j + 2) * cp, WF, cp, cp, 4 * g, ax);
-      T* px = a.out + (((size_t)n * H + y) * W + xx) * C;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int co = 4 * g + k;
-        if (co >= C) break;
-        const float s = fuse_combine(ay[k], ax[k], v[6 * cp + co], v[7 * cp + co], v[8 * cp + co]);
-        px[co] = requant<T>(fmaxf(s, 0.f), qc[4], qc[5]);
-      }
     }
   }
 }
@@ -410,12 +305,6 @@ int qbsconv_launch(const QBArgs<T>& a, void* stream) {
 }
 
 template <class T>
-int qsfb_launch(const QSArgs<T>& a, void* stream) {
-  return launch(qsfb_kernel<T>, 512, qsfb_smem<T>(round4(a.C)), tiles_of(a.N, a.H, a.W), a,
-                stream);
-}
-
-template <class T>
 int qdsconv_launch(const QDArgs<T>& a, void* stream) {
   return launch(qdsconv_kernel<T>, 256, qdsconv_smem<T>(round4(a.Cin), round4(a.Cout)),
                 tiles_of(a.N, a.H, a.W), a, stream);
@@ -424,13 +313,12 @@ int qdsconv_launch(const QDArgs<T>& a, void* stream) {
 }  // namespace
 
 // Dynamic shared memory of one block, in bytes: kernel 0 qBSConv (cin ->
-// cout), 1 qSFB (cin = cout = C), 2 qDSConv (cin -> cout).
+// cout), 2 qDSConv (cin -> cout); qSFB (1) lives in qsfb.cu.
 extern "C" long long qconv_smem_bytes(int kernel, int cin, int cout, int bits) {
   const int cpi = round4(cin), cpo = round4(cout);
   const bool b8 = bits <= 8;
   switch (kernel) {
     case 0: return (long long)(b8 ? qbsconv_smem<int8_t>(cpi, cpo) : qbsconv_smem<int32_t>(cpi, cpo));
-    case 1: return (long long)(b8 ? qsfb_smem<int8_t>(cpo) : qsfb_smem<int32_t>(cpo));
     case 2: return (long long)(b8 ? qdsconv_smem<int8_t>(cpi, cpo) : qdsconv_smem<int32_t>(cpi, cpo));
     default: return -1;
   }
@@ -455,28 +343,6 @@ extern "C" int qbsconv_forward(const void* x, const void* pwq, const float* pws,
                                         static_cast<const int32_t*>(pwq), pws, pwb, dw, dwb, qc,
                                         static_cast<int32_t*>(out), N, H, W, Cin, Cout, relu},
                         stream);
-}
-
-extern "C" int qsfb_forward(const void* x, const void* b1pwq, const float* b1s,
-                            const float* b1pwb, const float* b1dw, const float* b1dwb,
-                            const void* b2pwq, const float* b2s, const float* b2pwb,
-                            const float* b2dw, const float* b2dwb, const void* fuseq,
-                            const float* fsy, const float* fsx, const float* fuseb,
-                            const float* qc, void* out, int N, int H, int W, int C, int bits,
-                            void* stream) {
-  if (bits <= 8)
-    return qsfb_launch(
-        QSArgs<int8_t>{static_cast<const int8_t*>(x), static_cast<const int8_t*>(b1pwq), b1s,
-                       b1pwb, b1dw, b1dwb, static_cast<const int8_t*>(b2pwq), b2s, b2pwb, b2dw,
-                       b2dwb, static_cast<const int8_t*>(fuseq), fsy, fsx, fuseb, qc,
-                       static_cast<int8_t*>(out), N, H, W, C},
-        stream);
-  return qsfb_launch(
-      QSArgs<int32_t>{static_cast<const int32_t*>(x), static_cast<const int32_t*>(b1pwq), b1s,
-                      b1pwb, b1dw, b1dwb, static_cast<const int32_t*>(b2pwq), b2s, b2pwb, b2dw,
-                      b2dwb, static_cast<const int32_t*>(fuseq), fsy, fsx, fuseb, qc,
-                      static_cast<int32_t*>(out), N, H, W, C},
-      stream);
 }
 
 extern "C" int qdsconv_forward(const void* x, const int32_t* dwq, const float* dws,

@@ -1,6 +1,8 @@
 """Integer-domain quantized ESSR kernels (PAMS serving path, Sec. IV-H):
 the host side of ``repro.kernels.qconv`` and the wrappers of the four CUDA
-kernels of ``csrc/qconv.cu``.
+kernels: quantize, qBSConv and qDSConv in ``csrc/qconv.cu``, qSFB in
+``csrc/qsfb.cu`` (a band walker with its 1x1 dots on the tensor cores, sized
+by :func:`qsfb_report`).
 
 Activations travel between the fused groups as integer codes (int8 under
 ``"int8"``, int32 under ``"fxp10"``). A 1x1 whose input is a lattice is an
@@ -25,6 +27,7 @@ per patch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -32,9 +35,11 @@ import torch
 
 from repro_torch.core.caching import BoundedCache
 from repro_torch.kernels import _build
-from repro_torch.kernels._launch import CODE_DTYPES, check_channels, check_operands, stream_of
-from repro_torch.kernels.megakernel import _TreeKey
+from repro_torch.kernels._launch import (CODE_DTYPES, MAX_CHANNELS, check_channels,
+                                        check_operands, stream_of)
+from repro_torch.kernels.megakernel import SMEM_LIMIT, _TreeKey
 from repro_torch.kernels.ref import qbsconv_ref, qdsconv_ref, qsfb_ref, quantize_ref
+from repro_torch.kernels.sfb import _busy, _up
 from repro_torch.models.essr import ESSRConfig, slice_width
 from repro_torch.models.layers import pixel_shuffle
 from repro_torch.quant.pams import (EPS, QuantPack, _act_points, _clip, code_dtype, step_size,
@@ -44,6 +49,12 @@ from repro_torch.quant.pams import (EPS, QuantPack, _act_points, _clip, code_dty
 QSFB_KEYS = ("b1_pwq", "b1_pw_scale", "b1_pwb", "b1_dw_fq", "b1_dwb",
              "b2_pwq", "b2_pw_scale", "b2_pwb", "b2_dw_fq", "b2_dwb",
              "fuseq", "fuse_scale_y", "fuse_scale_x", "fuseb")
+#: Widest output band of a qSFB work item, pixels (csrc/qsfb.cu ``BAND``).
+QSFB_BAND = 32
+#: Most output rows a qSFB step, and most threads a block (``MAX_THREADS``).
+QSFB_MAX_ROWS, QSFB_MAX_THREADS = 8, 512
+#: Shared memory of one H100 SM, of which each resident block also holds 1 KB.
+SM_SMEM = 233_472
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +189,96 @@ prepared_qparams = BoundedCache(
 
 
 # ---------------------------------------------------------------------------
+# the qSFB kernel's sizing
+# ---------------------------------------------------------------------------
+
+def _qsfb_layout(c: int, w: int, code_bytes: int) -> Dict[str, int]:
+    """csrc/qsfb.cu ``Shape``: channel paddings, operand and ring strides,
+    column bands and ring row widths."""
+    cp8 = _up(c, 8)
+    kp = _up(c, 32 if code_bytes == 1 else 8)
+    ast = kp * code_bytes
+    if (ast // 16) % 2 == 0:            # an odd multiple of 16 B: ldmatrix rows on distinct banks
+        ast += 16
+    bw = -(-w // -(-w // QSFB_BAND))
+    rw1 = min(w, bw + 4)
+    return {"cp8": cp8, "kp": kp, "ast": ast, "pst": cp8 + 8 if cp8 % 16 == 0 else cp8,
+            "bw": bw, "bands": -(-w // bw), "rw1": rw1, "rw2": min(w, bw + 2),
+            "srow": _up(rw1 * c * code_bytes, 16)}
+
+
+def _qsfb_smem(lay: Dict[str, int], rows: int, code_bytes: int) -> int:
+    """Dynamic shared memory of one block, as ``Shape::smem_bytes``: the x
+    ring (S + 2 rows; fxp10 also the S rows in flight), int8's staging ring
+    (S + 2 rows), the pw1 and pw2 rings (S + 2 rows each), Y, three transposed
+    weight matrices, two depthwise kernels and nine vectors."""
+    m, rw1, rw2, ast, pst, cp8 = (rows + 2, lay["rw1"], lay["rw2"], lay["ast"], lay["pst"],
+                                  lay["cp8"])
+    xr, staged = (m, m * lay["srow"]) if code_bytes == 1 else (2 * rows + 2, 0)
+    return (xr * rw1 * ast + staged + 4 * m * (rw1 + rw2) * pst
+            + (rows + 1) * rw2 * ast + 3 * cp8 * ast + 4 * 27 * cp8)
+
+
+def _dot_tasks(pixels: int, cp8: int, warps: int) -> int:
+    """Warp tasks of one dot stage, as ``dot_stage`` forms them: M-tiles of
+    16 pixels times groups of an even number of 8-channel n-tiles."""
+    mt, nt = -(-pixels // 16), cp8 // 8
+    groups = max(1, min(-(-warps // max(mt, 1)), (nt + 1) // 2))
+    ntg = _up(-(-nt // groups), 2)
+    return mt * -(-nt // ntg)
+
+
+def qsfb_report(c: int, h: int, w: int, bits: int) -> Dict[str, Any]:
+    """Static sizing of the qSFB kernel on the H100 for (h, w) patches of
+    ``c`` channels and ``bits``-bit codes (8: int8, wider: int32): column
+    bands and their width, output rows a step, threads, dynamic shared-memory
+    bytes a block (the launch uses exactly these), blocks an SM holds by
+    shared memory and threads (registers may allow fewer: ``qsfb_blocks_per_sm``
+    on the card says), 1x1 pixel-dots per output pixel (4.0 when one band
+    spans the patch), and the share of warps that work in a full step's dot
+    stages and of threads in its depthwise stages. Raises ValueError when no
+    step fits a block's 232,448 B."""
+    if not (1 <= c <= MAX_CHANNELS and h >= 1 and w >= 1):
+        raise ValueError(f"qsfb_report: C={c}, patch {h}x{w}: C must be in 1..{MAX_CHANNELS} "
+                         f"and the patch at least 1x1")
+    code_bytes = 1 if bits <= 8 else 4
+    lay = _qsfb_layout(c, w, code_bytes)
+    rows = next((s for s in range(min(QSFB_MAX_ROWS, h), 0, -1)
+                 if _qsfb_smem(lay, s, code_bytes) <= SMEM_LIMIT), 0)
+    if rows == 0:
+        raise ValueError(f"qsfb_report: C={c}, patch {h}x{w}, {bits}-bit codes: one row a step "
+                         f"needs {_qsfb_smem(lay, 1, code_bytes)} B of shared memory, over the "
+                         f"H100's {SMEM_LIMIT} B per block")
+    threads = QSFB_MAX_THREADS
+    smem = _qsfb_smem(lay, rows, code_bytes)
+    bw, cp8 = lay["bw"], lay["cp8"]
+    # columns each band computes: x / pw1, dw1 / pw2, and its output
+    cols = [(min(w, b + bw + 2) - max(0, b - 2), min(w, b + bw + 1) - max(0, b - 1),
+             min(w, b + bw) - b) for b in range(0, w, bw)]
+    w1, w2, w3 = cols[0]
+    warps = threads // 32
+    dot_tasks = [_dot_tasks(rows * width, cp8, warps) for width in (w1, w2, w3)]
+    dw_items = []
+    for width in (w2, w3):
+        per_row = cp8 // 4 * -(-width // 2)
+        dw_items.append(per_row * max(1, min(rows, threads // per_row)))
+    return {"bands": lay["bands"], "band_width": bw, "rows_per_step": rows, "threads": threads,
+            "smem_bytes": smem, "smem_limit": SMEM_LIMIT,
+            "blocks_per_sm": min(SM_SMEM // (smem + 1024), 2048 // threads),
+            "pixel_dots_per_output_px": sum(a + b + 2 * o for a, b, o in cols) / w,
+            "dot_busy": min(_busy(n, warps) for n in dot_tasks),
+            "depthwise_busy": min(_busy(n, threads) for n in dw_items)}
+
+
+@functools.lru_cache(maxsize=64)
+def _qsfb_launch_shape(c: int, h: int, w: int, bits: int) -> Tuple[int, int]:
+    """(rows a step, threads) of `qsfb_report`, kept per shape: the wrapper
+    runs once per qSFB launch."""
+    rep = qsfb_report(c, h, w, bits)
+    return rep["rows_per_step"], rep["threads"]
+
+
+# ---------------------------------------------------------------------------
 # the four kernels' wrappers
 # ---------------------------------------------------------------------------
 
@@ -246,7 +347,10 @@ def qsfb_fused(xq: torch.Tensor, q: Dict[str, torch.Tensor], qc: torch.Tensor) -
     """Whole SFB on the lattice in one launch. xq: (N,H,W,C) codes; ``q``:
     the `QSFB_KEYS` operands of `prepare_qparams` (code weights (C,C) of
     xq's dtype, depthwise (3,3,C) fp, the rest (C,)); ``qc``: the six
-    (a, s) of sites b1, b2 and out. Returns (N,H,W,C) codes."""
+    (a, s) of sites b1, b2 and out. Returns (N,H,W,C) codes. The kernel
+    (``csrc/qsfb.cu``) launches with `qsfb_report`'s rows and threads; its
+    fxp10 dots are exact for codes and weight codes in [-511, 511], the
+    lattice's range."""
     c = int(xq.shape[-1]) if xq.ndim == 4 else -1
     spec = {}
     for k in QSFB_KEYS:
@@ -263,9 +367,10 @@ def qsfb_fused(xq: torch.Tensor, q: Dict[str, torch.Tensor], qc: torch.Tensor) -
     out = torch.empty_like(xq)
     if n == 0:
         return out
-    launch = _build.entry("qconv", "qsfb_forward", 17, 5)
+    bits = _code_bits(xq.dtype)
+    launch = _build.entry("qsfb", "qsfb_forward", 17, 7)
     launch(xq.data_ptr(), *(q[k].data_ptr() for k in QSFB_KEYS), qc.data_ptr(),
-           out.data_ptr(), n, h, w, c, _code_bits(xq.dtype), stream_of(xq))
+           out.data_ptr(), n, h, w, c, bits, *_qsfb_launch_shape(c, h, w, bits), stream_of(xq))
     qsfb_fused.launches += 1
     return out
 

@@ -10,7 +10,8 @@ Tolerances: one kernel rtol 1e-4 / atol 1e-5 (fp32 FFMA against fp32
 PyTorch with TF32 off); the megakernel's whole chain and whole frames
 rtol 1e-3 / atol 1e-3 (12 fp32 layers sum in different orders). The
 quantized kernels (the quantized megakernel too) put out integer codes and
-are held to their plain versions with ``torch.equal``; the edge kernel sums
+are held to their plain versions with ``torch.equal`` (qSFB also at extreme
+codes, C64 and every code and weight at +-qmax, and across column bands); the edge kernel sums
 each patch's mean in another order, rtol 1e-4 / atol 1e-3.
 """
 import numpy as np
@@ -184,6 +185,52 @@ def test_quantized_kernels_equal_plain(cuda, mode, n, h, w, width):
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert launched == ({} if n == 0 else
                         {"quantize": 1, "qbsconv": 1, "qsfb": cfg.n_sfb, "qdsconv": 1})
+
+
+def _qsfb_extreme(n, h, w, c, bits, seed):
+    """qSFB codes and operands on the card at the lattice's extremes: every
+    code and weight code at +-qmax, a third of the patches all +qmax, every
+    third weight column all +qmax and the next all -qmax, so the integer sums
+    reach qmax^2 * c; scales that keep the site codes spread."""
+    g = torch.Generator().manual_seed(seed)
+    qmax = 2 ** (bits - 1) - 1
+    dtype = torch.int8 if bits <= 8 else torch.int32
+
+    def signs(*shape):
+        return torch.randint(0, 2, shape, generator=g) * 2 - 1
+
+    def scale():
+        return (torch.rand(c, generator=g) + 0.5) / (qmax * qmax * c ** 0.5)
+
+    x = signs(n, h, w, c) * qmax
+    x[: max(1, n // 3)] = qmax
+    q = {}
+    for k in ("b1_pwq", "b2_pwq", "fuseq"):
+        wq = signs(c, c) * qmax
+        wq[:, 0::3], wq[:, 1::3] = qmax, -qmax
+        q[k] = wq.to(dtype)
+    for b in ("b1", "b2"):
+        q.update({f"{b}_pw_scale": scale(), f"{b}_pwb": 0.1 * torch.randn(c, generator=g),
+                  f"{b}_dw_fq": torch.rand((3, 3, c), generator=g) * 0.4 - 0.1,
+                  f"{b}_dwb": 0.1 * torch.randn(c, generator=g)})
+    q.update(fuse_scale_y=scale(), fuse_scale_x=scale(), fuseb=0.1 * torch.randn(c, generator=g))
+    qc = torch.tensor([2.0, 2.0 / qmax] * 3, dtype=torch.float32)
+    return x.to(dtype).cuda(), {k: v.contiguous().cuda() for k, v in q.items()}, qc.cuda()
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("n,h,w,c", [(0, 32, 32, 64), (1, 32, 32, 64), (7, 32, 32, 64),
+                                     (2, 40, 72, 54), (3, 13, 21, 27), (1, 33, 32, 54),
+                                     (2, 17, 9, 64)])
+def test_qsfb_kernel_equals_plain_at_extreme_codes(cuda, n, h, w, c, bits):
+    xq, q, qc = _qsfb_extreme(n, h, w, c, bits, seed=n + h + c + bits)
+    before = tq.qsfb_fused.launches
+    got = tq.qsfb_fused(xq, q, qc)
+    torch.cuda.synchronize()
+    assert tq.qsfb_fused.launches == before + (n > 0)
+    want = ref.qsfb_ref(xq, q, qc)
+    assert got.dtype == xq.dtype and torch.equal(got, want)
+    assert (want.abs().max().item() if n else 1) > 0          # not all-zero codes
 
 
 def test_engine_int8_frame_on_card(cuda):
