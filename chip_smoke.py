@@ -59,15 +59,20 @@ before the last line:
      reported (the weights are random); one frame per mode is profiled;
  10. the TPU kernel table with each row's port status, the per-kernel JSON
      line, and the result line;
- 11. the quantized megakernel (csrc/qmega.cu) against its plain version
-     (recon codes), and its images against the qconv kernel chain and the
-     integer reference essr_forward_qref on the card, all with torch.equal,
-     for "int8" and "fxp10", C54 and C27, N in {1, 7, 512, 1024} and a 13x21
-     patch, with non-zero biases;
+ 11. the quantized megakernel (csrc/qmega.cu, its 1x1 dots on the tensor
+     cores) against its plain version (recon codes), and its images against
+     the qconv kernel chain and the integer reference essr_forward_qref on
+     the card, all with torch.equal, for "int8" and "fxp10", C54 and C27, N in
+     {1, 7, 512, 1024} and the ragged patches of QMEGA_SHAPES (ragged last
+     strips, idle blocks, both cluster sizes), with non-zero biases; and on
+     synthetic extreme operands
+     at C54 (every weight code at +-qmax, site steps that saturate the codes,
+     so the fxp10 sums reach 511^2 * 54), its codes against the plain version
+     and the qconv kernel chain;
  12. the quantized megakernel timed at N = 1024 C54 32x32 beside its plain
-     version, the qconv chain's summed time from phase 8 and its bound (at
-     the data sheet's rates, and at the CUDA-core rates its dots run at),
-     with its resident clusters and shared memory per block;
+     version, the qconv chain's summed time from phase 8 and its bound at the
+     data sheet's rates, with its resident clusters and shared memory per
+     block;
  13. quantized group serving: ExecutionPlan(quant=mode, fusion="group")
      serves the same three frames on the same weights and pack; the label
      must be "cuda-<mode>", the launches one qmega per non-empty conv bucket
@@ -125,6 +130,11 @@ QKERNELS = ("quantize", "qbsconv", "qsfb", "qdsconv")
 #: qSFB checks beyond the main path's 32x32 (N, H, W): column bands with a
 #: recomputed halo (72 wide), ragged last steps (13, 17 and 33 rows), odd widths.
 QSFB_SHAPES = ((2, 40, 72), (3, 13, 21), (1, 33, 32), (2, 17, 9))
+#: qmega checks (N, H, W): the main path's 32x32 at four batch sizes, then
+#: ragged last strips (13, 17 and 25 rows; 25 takes 8-block clusters in fxp10
+#: at C54, its last block idle) and a patch whose last block is idle (5 rows).
+QMEGA_SHAPES = ((1, 32, 32), (7, 32, 32), (512, 32, 32), (1024, 32, 32), (3, 13, 21),
+                (2, 17, 9), (1, 25, 32), (2, 5, 9))
 
 #: Every TPU kernel of the JAX package (each function reaching pl.pallas_call).
 TPU_KERNELS = (
@@ -369,6 +379,78 @@ def qsfb_extreme_operands(n: int, h: int, w: int, c: int, bits: int, g, torch):
     return (xq.to(dtype).cuda(), {k: v.contiguous().cuda() for k, v in q.items()}, qc.cuda())
 
 
+def qmega_extreme_operands(c: int, bits: int, g, torch, cout: int = 48, n_sfb: int = 5):
+    """Synthetic prepared operands of the whole integer chain on the card at
+    the lattice's extremes (the keys of `prepare_qparams`): every weight code
+    at +-qmax (random signs; in each qSFB 1x1 every third output channel all
+    +qmax and the next all -qmax), scales that put the dequantized values
+    past the sites' clip, and site steps of 2 / qmax at a clip of 2, so the
+    codes saturate at +-qmax. In the middle qSFB every b1 code is +qmax (a
+    bias past the clip after a near-zero pointwise), so its second 1x1's sums
+    reach +-qmax^2 * c."""
+    qmax = 127 if bits <= 8 else 511
+    dtype = torch.int8 if bits <= 8 else torch.int32
+
+    def codes(*shape, columns=False):
+        wq = (torch.randint(0, 2, shape, generator=g) * 2 - 1) * qmax
+        if columns:
+            wq[:, 0::3], wq[:, 1::3] = qmax, -qmax
+        return wq.to(dtype)
+
+    def scale(k):
+        return (torch.rand(c, generator=g) + 0.5) * 4.0 / (qmax * qmax * k ** 0.5)
+
+    def bias(k=c):
+        return 0.1 * torch.randn(k, generator=g)
+
+    def taps():
+        return torch.rand((3, 3, c), generator=g) * 0.4 - 0.1
+
+    site = torch.tensor([2.0, 2.0 / qmax], dtype=torch.float32)
+    first = dict(pwq=codes(3, c), pw_scale=scale(3), pwb=bias(), dw_fq=taps(), dwb=bias(),
+                 qc=site)
+    sfbs = []
+    for _ in range(n_sfb):
+        s = {}
+        for b in ("b1", "b2"):
+            s.update({f"{b}_pwq": codes(c, c, columns=True), f"{b}_pw_scale": scale(c),
+                      f"{b}_pwb": bias(), f"{b}_dw_fq": taps(), f"{b}_dwb": bias()})
+        s.update(fuseq=codes(c, c, columns=True), fuse_scale_y=scale(c), fuse_scale_x=scale(c),
+                 fuseb=bias(), qc=torch.cat([site] * 3))
+        sfbs.append(s)
+    mid = sfbs[n_sfb // 2]
+    mid["b1_pw_scale"] = mid["b1_pw_scale"] * 1e-4
+    mid["b1_dwb"] = torch.full((c,), 8.0)
+    recon = dict(dwq=codes(3, 3, c).to(torch.int32),
+                 dw_scale=(torch.rand(c, generator=g) + 0.5) / (qmax * qmax * 3),
+                 dwb=bias(), pw_fq=torch.randn((c, cout), generator=g) * 4 / c ** 0.5,
+                 pwb=bias(cout), qc=site)
+    in_qc = torch.tensor([1.0, 1.0 / qmax], dtype=torch.float32)
+    q = dict(first=first, sfbs=sfbs, recon=recon, in_qc=in_qc,
+             consts=torch.cat([in_qc, site] + [s["qc"] for s in sfbs] + [site]))
+
+    def cuda(tree):
+        if isinstance(tree, dict):
+            return {k: cuda(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cuda(v) for v in tree]
+        return tree.contiguous().cuda()
+    return cuda(q)
+
+
+def qchain_kernels(q, x, bits: int):
+    """The recon codes of ``x`` through the per-layer quantized kernels
+    (quantize, qBSConv, n x qSFB, qDSConv), each fed the kernel before."""
+    from repro_torch.kernels import qconv as tq
+    p, r = q["first"], q["recon"]
+    f = tq.quantize_fused(x, q["in_qc"], bits=bits)
+    f = tq.qbsconv_fused(f, p["pwq"], p["pw_scale"], p["pwb"], p["dw_fq"], p["dwb"], p["qc"],
+                         relu=False)
+    for s in q["sfbs"]:
+        f = tq.qsfb_fused(f, s, s["qc"])
+    return tq.qdsconv_fused(f, r["dwq"], r["dw_scale"], r["dwb"], r["pw_fq"], r["pwb"], r["qc"])
+
+
 def to_cpu(tree):
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
@@ -524,13 +606,14 @@ def main() -> None:
     qsmem.argtypes, qsmem.restype = [ctypes.c_int] * 7, ctypes.c_longlong
     for c in (54, 27):
         for m, b in (("int8", 8), ("fxp10", 10)):
-            qrep = mk.qgroup_report(c, 32, 4, 5, b)
-            got = qsmem(32, 3, c, 48, 5, qrep["rows_per_cta"], b)
-            say(f"  qmega C{c} {m}: {got} B of dynamic shared memory per block "
-                f"(qgroup_report {qrep['smem_bytes']} B, {qrep['rows_per_cta']} rows, "
-                f"{qrep['threads']} threads)")
-            if got != qrep["smem_bytes"]:
-                fail("qgroup_report disagrees with the kernel's shared-memory size")
+            for h, w in ((32, 32),) + tuple((h, w) for _, h, w in QMEGA_SHAPES[4:]):
+                qrep = mk.qgroup_report(c, (h, w), 4, 5, b)
+                got = qsmem(w, 3, c, 48, 5, qrep["rows_per_cta"], b)
+                say(f"  qmega C{c} {m} {h}x{w}: {got} B of dynamic shared memory per block "
+                    f"(qgroup_report {qrep['smem_bytes']} B, clusters of {qrep['cluster']}, "
+                    f"{qrep['rows_per_cta']} rows, {qrep['threads']} threads)")
+                if got != qrep["smem_bytes"]:
+                    fail("qgroup_report disagrees with the kernel's shared-memory size")
     sfb_lib = _build.load("sfb")
     sfb_lib.sfb_smem_bytes.argtypes, sfb_lib.sfb_smem_bytes.restype = [ctypes.c_int] * 3, \
         ctypes.c_longlong
@@ -677,8 +760,7 @@ def main() -> None:
             lay = mk.QWeightLayout(3, width, qcfg.out_channels, qcfg.n_sfb,
                                    1 if pack.bits <= 8 else 4)
             plain_w = mk.unpack_qweights(wbuf, lay)
-            for n, h, w in ((1, 32, 32), (7, 32, 32), (512, 32, 32), (1024, 32, 32),
-                            (3, 13, 21)):
+            for n, h, w in QMEGA_SHAPES:
                 x = torch.rand((n, h, w, 3), generator=g).cuda()
                 codes = mk.qmega_fused(x, wbuf, q["consts"], width=width, n_sfb=qcfg.n_sfb,
                                        out_channels=qcfg.out_channels, bits=pack.bits)
@@ -699,7 +781,32 @@ def main() -> None:
                 if want.abs().max().item() == 0:
                     fail(f"qmega ({mode}, C{width}, N={n}): every code is 0, the check would "
                          f"see nothing")
-    del x, codes, want, img, chain, qref, wbuf, plain_w
+        # synthetic extreme operands: codes that saturate, sums up to qmax^2 * 54
+        ext = qmega_extreme_operands(54, pack.bits, g, torch)
+        wbuf = mk.pack_qweights(ext, pack.bits)
+        plain_w = mk.unpack_qweights(wbuf, mk.QWeightLayout(3, 54, qcfg.out_channels,
+                                                            qcfg.n_sfb, 1 if pack.bits <= 8 else 4))
+        for n, h, w in ((7, 32, 32), (3, 13, 21), (2, 17, 9), (1, 25, 32)):
+            x = torch.rand((n, h, w, 3), generator=g).cuda()
+            codes = mk.qmega_fused(x, wbuf, ext["consts"], width=54, n_sfb=qcfg.n_sfb,
+                                   out_channels=qcfg.out_channels, bits=pack.bits)
+            torch.cuda.synchronize()
+            want = qmega_ref(x, plain_w, ext["consts"], codes.dtype)
+            chain = qchain_kernels(ext, x, pack.bits)
+            err = (codes.long() - want.long()).abs().max().item()
+            qerr["qmega"] = max(qerr["qmega"], err)
+            qmax = 127 if pack.bits <= 8 else 511
+            eq = (torch.equal(codes, want), torch.equal(codes, chain))
+            saturated = (want.abs() == qmax).float().mean().item()
+            say(f"phase check qmega {mode} extreme C54 N={n} {h}x{w}: recon codes torch.equal "
+                f"to the plain version {eq[0]} (max {err} codes apart) and to the qconv kernel "
+                f"chain {eq[1]}; share of codes at +-qmax {saturated:.3f}, nonzero "
+                f"{(want != 0).float().mean().item():.3f}")
+            if not all(eq):
+                fail(f"the quantized megakernel ({mode}, extreme C54, N={n} {h}x{w}) differs")
+            if saturated == 0:
+                fail(f"qmega ({mode}, extreme): no code saturates, the check would see nothing")
+    del x, codes, want, img, chain, qref, wbuf, plain_w, ext
 
     # 4. times at N = 1024 C54
     timing = {}
@@ -809,28 +916,20 @@ def main() -> None:
         iops, fops = TIMING_N * qrep["int_ops_per_patch"], TIMING_N * qrep["fp_ops_per_patch"]
         nbytes = TIMING_N * qrep["bytes_per_patch"] + qrep["weight_bytes"]
         int_peak = int_peak_for(name, pack.bits)
-        # the dots run on the CUDA cores: __dp4a does 4 int8 MACs per lane
-        # instruction and issues no faster than an FFMA, int32 multiply-add
-        # no faster than an FFMA, so these rates bound the kernel's own
-        # arithmetic from above
-        core_peak = 4 * peak_flops if pack.bits <= 8 else peak_flops
         t_bytes = nbytes / peak_bw * 1e3
         t_ops = (iops / int_peak + fops / peak_flops) * 1e3
-        t_core = (iops / core_peak + fops / peak_flops) * 1e3
         chain_ms = sum(qtiming[mode][k]["ms"] * (qcfg.n_sfb if k == "qsfb" else 1)
                        for k in QKERNELS)
         clusters = mk.qresident_clusters(54, 32, qcfg.scale, qcfg.n_sfb, pack.bits)
         qmega_timing[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                  library_ms=None, cuda_core_bound_ms=max(t_bytes, t_core),
-                                  layer_chain_ms=chain_ms)
+                                  library_ms=None, layer_chain_ms=chain_ms)
         say(f"phase time qmega {mode} N={TIMING_N} C54: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, qconv chain {chain_ms:.4f} ms (quantize + qbsconv + "
             f"{qcfg.n_sfb} x qsfb + qdsconv, phase 8 of this run), library none, bound "
             f"{max(t_bytes, t_ops):.4f} ms by {qmega_timing[mode]['bound_by']} ("
             f"{nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G integer ops at {int_peak / 1e12:g} T/s, "
-            f"{fops / 1e9:.2f} GFLOP fp32); at the CUDA-core rates its dots use (integer ops "
-            f"at {core_peak / 1e12:g} T/s) {max(t_bytes, t_core):.4f} ms; resident clusters "
+            f"{fops / 1e9:.2f} GFLOP fp32); resident clusters "
             f"{clusters}, {qrep['smem_bytes']} B of shared memory per block, "
             f"{qrep['threads']} threads")
         del x, got, want, wbuf, plain_w

@@ -1,6 +1,7 @@
-// Thread-block-cluster plumbing shared by the subnet-group megakernels
-// (mega.cu, fp32; qmega.cu, integer codes): the halo-row exchange over
-// distributed shared memory, and a persistent cluster launch.
+// Thread-block-cluster plumbing of the subnet-group megakernels (mega.cu,
+// fp32; qmega.cu, integer codes): a persistent cluster launch, and mega.cu's
+// halo-row exchange over distributed shared memory (qmega.cu pushes its halo
+// rows instead, push_halo).
 //
 // Layout they share: each patch belongs to one cluster, each block of the
 // cluster owns a strip of `rows` consecutive rows, and a depthwise layer's

@@ -10,9 +10,19 @@
 // same site constants in the same order (its `consts`, :388-392).
 //
 // Arithmetic contract: bit for bit the chain of the per-layer integer kernels
-// (qconv.cu) and their plain versions (kernels/ref.py::qmega_ref). Every
-// rounded fp step and every integer dot comes from qmath.cuh, which qconv.cu
-// includes too; the order of every fp sum is the plain version's.
+// (qconv.cu, qsfb.cu) and their plain versions (kernels/ref.py::qmega_ref).
+// Every rounded fp step comes from qmath.cuh, in the plain version's order:
+// dequant; the depthwise taps as mul_add_rn in (dy, dx) raster order from 0,
+// then + bias; fuse_combine; the recon's fp 1x1 as an ordered sum over
+// channels 0..C-1 from 0; requant's division. Only the integer dots change
+// their order, because they are exact.
+//
+// The 1x1 dots (the first layer's, and the four of each qSFB, the fuse's two
+// included) run on the tensor cores through qmma.cuh, the pieces qsfb.cu uses:
+// int8 on mma.sync m16n8k32 s8, fxp10 on m16n8k8 TF32 over codes held as
+// floats (exact while |code| <= 511 and K <= 64: every sum below 2^24). The
+// first layer's depth (Cin = 3) pads with zero codes to one k-step. The
+// recon's int32 3x3 and its fp 1x1 stay on the CUDA cores.
 //
 // What bounds it: at C54 x4 the chain does per LR pixel 58,968 integer MACs
 // (3*54 for the first 1x1, 5 x 4 x 54^2 for the qSFBs' 1x1s, the fuse's two
@@ -21,53 +31,67 @@
 // 48), against 12 bytes in and 48 codes out. So it is bound by operations:
 // for 1024 32x32 patches 123.7 G integer operations and 23.5 GFLOP fp32;
 // on an H100 SXM at the data sheet's rates (int8 on the tensor cores at
-// 1,979 TOPS, fp32 at 67 TFLOP/s, fxp10's int32 counted at the fp32 rate)
-// 0.41 ms for int8 and 2.20 ms for fxp10, against 0.02 / 0.06 ms of
-// device-memory traffic. The dots stay on the CUDA cores here (__dp4a /
-// int32 multiply-add), so the int8 bound at the tensor-core rate is out of
-// this kernel's reach.
+// 1,979 TOPS, fxp10 on the TF32 tensor cores at 495 TFLOP/s, fp32 at 67
+// TFLOP/s) 0.41 ms for int8 and 0.60 ms for fxp10, against 0.02 / 0.06 ms
+// of device-memory traffic.
 //
-// Design: csrc/mega.cu's cluster layout, not the TPU's block sizing. Each
-// patch belongs to one thread-block cluster (CLUSTER blocks, launched
-// persistent: a cluster walks patches), and each block of the cluster owns a
-// strip of `rows` consecutive rows. A block holds, for its strip:
-//   A0, A1  fp32, a pointwise output (dequantized, + bias) with one halo row
-//           above and one below; in qDSConv A[k] holds the feature CODES with
-//           their halo rows and A[k^1] the dequantized depthwise output
-//   Wt      the packed weights of the current layer group (one SFB: 3 code
-//           matrices + 27 fp vectors), a contiguous 16-byte copy
-//   F       the running feature codes, also the qSFB shortcut
-//   Z       the fuse's output codes; F and Z swap after each qSFB (the fuse
-//           reads every channel of F[p] while writing Z[p], so it cannot
-//           write in place)
-//   Y       the codes of b1, then of b2 (y1 is dead once b2's pointwise has
-//           read it, and the cluster barrier of b2's halo lies between); on
-//           entry, the quantized input
+// Design: csrc/mega.cu's cluster layout. Each patch belongs to one
+// thread-block cluster (launched persistent: a cluster walks patches), and
+// each block of the cluster owns a strip of `rows` consecutive rows. The
+// cluster takes 4 blocks where a block's strip fits in shared memory, else 8
+// (kernels/megakernel.py::qgroup_report; C54 32x32: 4 x 8 rows int8, 8 x 4
+// rows fxp10): taller strips pay fewer barriers a row and the card holds 30
+// clusters of 4 against 15 of 8. A block holds, for its strip:
+//   A0, A1  fp32 maps, a pointwise output (dequantized, + bias) with one halo
+//           row above and one below; the fuse stages its output codes in the
+//           one dw2 has read; in qDSConv A[k] holds the feature CODES with
+//           their halo rows and the interior rows of A[k^1] the dequantized
+//           depthwise output
+//   F       the running feature codes in the dot operand layout (kp codes a
+//           pixel, an odd multiple of 16 bytes), also the qSFB shortcut
+//   Y       the codes of b1, then of b2; on entry the quantized input
+//   WFIRST, WRECON  the first layer's and the recon's packed weights, staged
+//           once per block
+//   WSFB    one qSFB's packed weights: b1 | b2 | fuse
 // Two kinds of halo: the fp 3x3 of each qBSConv group reads its neighbours'
 // fp32 pointwise outputs (0 on pixels off the patch and on rows past H,
 // bias included: the SAME padding of the dequantized map); the int32 3x3 of
 // qDSConv reads its neighbours' codes (0 off the patch). Before each of the
-// 2*n_sfb + 2 depthwise layers the block fills its halo rows from its
-// neighbours' strips over distributed shared memory after one cluster
-// barrier; the layers alternate between A0 and A1, so a neighbour reads my
-// A[k] between barriers L and L+1 and I write A[k] again only after barrier
-// L+1. Blocks whose strip lies wholly past H compute nothing but keep the
-// barriers. The fp depthwise slides a 3x3 window of inputs down a column in
-// registers (one thread per (channel group, column)), summing its taps in
-// (dy, dx) raster order with rounded ops.
+// 2*n_sfb + 2 depthwise layers a block pushes its first and last interior
+// rows into its neighbours' halo rows over distributed shared memory (stores
+// need not wait, as loads would) and the cluster meets at one barrier. The
+// layers alternate between A0 and A1, and a neighbour writes only the halo
+// rows of the map of the layer at hand, so between two barriers a block may
+// reuse the other map, and the interior of this one, as it likes. Blocks
+// whose strip lies wholly past H compute nothing but keep the barriers. The
+// fp depthwise walks four columns a thread (depthwise_quad); the division of
+// requantize is skipped where the ReLU gave 0 (relu_requant, bit-equal).
+//
+// Weight staging overlaps the compute: WSFB's three parts roll. Once b1's
+// depthwise has read the last of b1, the next qSFB's b1 (the next patch's
+// first qSFB after the last) is on its way into the same bytes by cp.async,
+// and so on for b2 and the fuse; each part is waited for just before its
+// 1x1. Three copy groups are in flight at any time.
+//
+// Measured (scripts/torch_qmega_ab.py, chip_smoke.py; NVIDIA H100 80GB
+// HBM3, 700.00 W): at N = 1024 C54 32x32 0.55x the CUDA-core kernel it
+// replaces in int8 and 0.36x in fxp10, at or below the per-layer kernel
+// chain of the same run in both. The requantize divisions, the depthwise and
+// the halo barriers take most of what is left (PERF.md).
 //
 // Weights arrive packed once per (tree, width, pack, device) in the TPU
 // kernel's operand order (_flat_q_operands; kernels/megakernel.py::
-// pack_qweights): code matrices zero-padded to channel counts that are
-// multiples of 4 and already in the staged layout of qmath.cuh, fp vectors
-// and matrices zero-padded likewise, every operand a multiple of 16 bytes.
-// The site constants (clip, step pairs of `_act_points`) come as one small
-// fp32 array.
+// pack_qweights): each 1x1's code weights as the dots' B operand (a row of
+// `ast` bytes per output channel, fxp10 codes as fp32), output channels
+// zero-padded to multiples of 8; fp vectors and matrices zero-padded
+// likewise; every operand a multiple of 16 bytes. The site constants (clip,
+// step pairs of `_act_points`) come as one small fp32 array.
 #include <stdint.h>
 
 #include "cluster.cuh"
 #include "common.cuh"
 #include "qmath.cuh"
+#include "qmma.cuh"
 
 using namespace essr;
 
@@ -83,288 +107,396 @@ struct Args {
   int N, H, W, Cin, C, Cout, n_sfb, rows;
 };
 
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+// The shape of one 1x1 for dot_stage: code bytes, output channels padded to
+// 8, dot depth in codes, bytes of a weight row.
+struct DotShape {
+  int sz, cp8, kp, ast;
+};
 
-// Byte sizes of the packed weight buffer's three groups
-// (kernels/megakernel.py::QWeightLayout); cb: bytes of one code.
-struct QLayout {
-  int cpi, cp, cpo, cb, first, sfb, recon;
-  __host__ __device__ QLayout(int Cin, int C, int Cout, int cb_)
-      : cpi(round4(Cin)), cp(round4(C)), cpo(round4(Cout)), cb(cb_),
-        first(cpi * cp * cb + 48 * cp),               // pwq, scale, pwb, dw (9), dwb
-        sfb(3 * cp * cp * cb + 108 * cp),            // b1, b2, fuseq, fsy, fsx, fb
-        recon(44 * cp + 4 * cp * cpo + 4 * cpo) {}   // dwq (9), dws, dwb, pw_fq, pwb
-  __host__ __device__ int stage_bytes(int n_sfb) const {
-    const int m = imax(first, recon);
-    return n_sfb > 0 ? imax(m, sfb) : m;
+// The launch's layout (the same sums as kernels/megakernel.py::QWeightLayout
+// and _qsizing). Byte sizes of the packed groups: first = pw (cp8 rows of
+// ast1) | scale | pwb | dw (9) | dwb; one qBSConv of a qSFB (bs) the same
+// with rows of ast; fuse = fq (cp8 rows of ast) | fsy | fsx | fb; recon =
+// dwq (9, int32) | dws | dwb | pw_fq (cp8 x cpo) | pwb (cpo).
+struct QShape {
+  int sz;              // bytes of a code in device memory: 1 (int8) or 4 (fxp10)
+  int cp8, cpo;        // channels padded to 8; output channels padded to 4
+  int kp, ast;         // dot depth of a C-channel operand, bytes of its weight rows
+  int kp1, ast1;       // the same for the first 1x1's Cin-channel input
+  int ost;             // bytes of one operand pixel in F and Y
+  int pst;             // floats of one pixel of the fp32 maps
+  int first, bs, fuse, sfb, recon;
+  int rows, W, P;      // rows of a strip, patch width, pixels of a strip
+  __host__ __device__ QShape(int Cin, int C, int Cout, int code_bytes, int rows_, int W_) {
+    sz = code_bytes;
+    cp8 = up(C, 8);
+    cpo = round4(Cout);
+    kp = up(C, sz == 1 ? 32 : 8);
+    ast = operand_stride(kp * sz);
+    kp1 = up(Cin, sz == 1 ? 32 : 8);
+    ast1 = operand_stride(kp1 * sz);
+    ost = imax(ast, ast1);
+    pst = cp8 % 16 == 0 ? cp8 + 8 : cp8;
+    first = cp8 * ast1 + 48 * cp8;
+    bs = cp8 * ast + 48 * cp8;
+    fuse = cp8 * ast + 12 * cp8;
+    sfb = 2 * bs + fuse;
+    recon = 44 * cp8 + 4 * cp8 * cpo + 4 * cpo;
+    rows = rows_;
+    W = W_;
+    P = rows * W;
+  }
+  // an A map: the strip with its halo rows (fp32), or the fuse's output codes
+  __host__ __device__ size_t a_bytes() const {
+    const size_t m = (size_t)(rows + 2) * W * pst * 4, z = (size_t)P * ost;
+    return m > z ? m : z;
+  }
+  __host__ __device__ size_t op_bytes() const { return (size_t)P * ost; }
+  // regions, in this order: A0 | A1 | F | Y | WFIRST | WRECON | WSFB
+  __host__ __device__ size_t smem_bytes(int n_sfb) const {
+    return 2 * a_bytes() + 2 * op_bytes() + first + recon + (n_sfb > 0 ? sfb : 0);
   }
 };
 
-// Pixels of one A buffer: the strip with its two halo rows, and at least
-// the strip's padded pixel count (A[k^1] holds qDSConv's depthwise output).
-__host__ __device__ inline int a_pixels(int rows, int W) {
-  return imax((rows + 2) * W, round4(rows * W));
-}
-
-// Shared-memory bytes of one block (A0, A1, Wt, F, Z, Y).
-__host__ __device__ inline size_t smem_bytes(const QLayout& l, int rows, int W, int n_sfb) {
-  const size_t pp = round4(rows * W);
-  return 2 * sizeof(float) * (size_t)a_pixels(rows, W) * l.cp + l.stage_bytes(n_sfb) +
-         (size_t)l.cb * pp * (2 * l.cp + imax(l.cp, l.cpi));
-}
-
-// Walks a packed layer group in operand order.
-struct Cursor {
-  const unsigned char* p;
-  template <class U>
-  __device__ const U* take(int n) {
-    const U* r = reinterpret_cast<const U*>(p);
-    p += (size_t)n * sizeof(U);
-    return r;
-  }
-};
-
-// One qBSConv group's operands: code weights (kp x cp), scale, bias,
-// depthwise (9 x cp), depthwise bias.
-template <class T>
+// One qBSConv group's operands in shared memory: code weights as B rows,
+// scale, bias, depthwise (9 x cp8), depthwise bias.
 struct QBS {
-  const T* pwq;
+  const char* pw;
   const float *scale, *pwb, *dw, *dwb;
-  __device__ QBS(Cursor& c, int kp, int cp)
-      : pwq(c.take<T>(kp * cp)), scale(c.take<float>(cp)), pwb(c.take<float>(cp)),
-        dw(c.take<float>(9 * cp)), dwb(c.take<float>(cp)) {}
+  __device__ QBS(const char* p, int rows_bytes, int cp8)
+      : pw(p), scale(reinterpret_cast<const float*>(p + rows_bytes)), pwb(scale + cp8),
+        dw(pwb + cp8), dwb(dw + 9 * cp8) {}
 };
 
-// dst[0, bytes) = src[0, bytes), bytes % 16 == 0, both 16-byte aligned.
-__device__ __forceinline__ void copy16(const unsigned char* __restrict__ src, int bytes,
-                                       unsigned char* dst) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = __ldg(s + i);
+// dst[0, bytes) = src[0, bytes) by 16-byte cp.async; the caller commits.
+__device__ __forceinline__ void fetch(const unsigned char* src, int bytes, char* dst) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    cp_async16(dst + 16 * i, reinterpret_cast<const char*>(src) + 16 * i);
 }
 
-// Integer 1x1 over the strip's P pixels, dequantized: A's interior row
-// pixel p, channels co..co+3 = dequant(X[p] . w(:, co)); 0 on pixels past H
-// (bias included). One thread per (pixel, 4 output channels).
-template <class T>
-__device__ __forceinline__ void pointwise_q(const T* X, int cpi, const T* wq,
-                                            const float* scale, const float* bias, int cp,
-                                            int P, int valid, float* Ai) {
-  const int ng = cp >> 2;
-  for (int item = threadIdx.x; item < P * ng; item += blockDim.x) {
-    const int g = item % ng, p = item / ng;
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p < valid) {
-      int acc[4];
-      dot4(X + p * cpi, wq, cpi, cp, 4 * g, acc);
-      const int c = 4 * g;
-      o = make_float4(dequant(acc[0], scale[c], bias[c]), dequant(acc[1], scale[c + 1], bias[c + 1]),
-                      dequant(acc[2], scale[c + 2], bias[c + 2]),
-                      dequant(acc[3], scale[c + 3], bias[c + 3]));
+// The halo rows of this layer's map A (`row_bytes` each, fp32 rows or code
+// rows alike, a multiple of 8), pushed once its interior rows are written:
+// my first interior row goes to the bottom halo row of rank - 1, my last to
+// the top halo row of rank + 1 when that block's strip lies inside the
+// patch; a halo row of mine that no neighbour fills (the patch border, rows
+// past H) is zeroed. The cluster barrier then makes every row visible. Only
+// the halo rows of the map of the layer at hand are written remotely, so a
+// block may use the rest of its buffers between the barriers; blocks whose
+// strip lies past H (`active` false) keep the barrier and send nothing.
+template <class V>
+__device__ __forceinline__ void push_rows(const V* first, const V* last, V* up, V* down, V* top,
+                                          V* bot, int n) {
+  const V zero{};
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
+    if (i < n) {
+      if (up) up[i] = first[i];
+      else top[i] = zero;
+    } else {
+      if (down) down[i - n] = last[i - n];
+      else bot[i - n] = zero;
     }
-    st4(Ai + p * cp + 4 * g, o);
   }
 }
 
-__device__ __forceinline__ void tap4(float4& acc, float4 v, float4 w) {
-  acc.x = mul_add_rn(acc.x, v.x, w.x);
-  acc.y = mul_add_rn(acc.y, v.y, w.y);
-  acc.z = mul_add_rn(acc.z, v.z, w.z);
-  acc.w = mul_add_rn(acc.w, v.w, w.w);
+__device__ __forceinline__ void push_halo(cg::cluster_group& cl, char* A, int rank, int cs, int r0,
+                                          int rows, int H, int row_bytes, bool active) {
+  __syncthreads();
+  if (active) {
+    char* top = A;
+    char* bot = A + (size_t)(rows + 1) * row_bytes;
+    char* up = rank > 0 ? cl.map_shared_rank(bot, rank - 1) : nullptr;
+    char* down = rank + 1 < cs && r0 + rows < H ? cl.map_shared_rank(top, rank + 1) : nullptr;
+    const char* first = A + row_bytes;
+    const char* last = A + (size_t)rows * row_bytes;
+    if (row_bytes % 16 == 0)
+      push_rows(reinterpret_cast<const uint4*>(first), reinterpret_cast<const uint4*>(last),
+                reinterpret_cast<uint4*>(up), reinterpret_cast<uint4*>(down),
+                reinterpret_cast<uint4*>(top), reinterpret_cast<uint4*>(bot), row_bytes / 16);
+    else
+      push_rows(reinterpret_cast<const uint2*>(first), reinterpret_cast<const uint2*>(last),
+                reinterpret_cast<uint2*>(up), reinterpret_cast<uint2*>(down),
+                reinterpret_cast<uint2*>(top), reinterpret_cast<uint2*>(bot), row_bytes / 8);
+  }
+  cl.sync();
 }
 
-// fp 3x3 depthwise from A ((rows+2) x W pixels, halo rows included) to the
-// rows x W strip, + bias, optional ReLU, requantized to codes in out (rows*W
-// x cp). Output (i, j) reads A (i + dy, j + dx - 1), columns off the patch
-// read 0; taps in (dy, dx) raster order from 0. One thread per (channel
-// group, column), sliding a 3x3 window of inputs down the column.
+// Integer 1x1 over the strip's first `valid` pixels of operand buffer X into
+// the interior rows of the fp32 map A: dequant(X[p] . w) + bias; the interior
+// pixels from `valid` to P (rows past H) get 0, the SAME padding of the
+// dequantized map.
 template <class T>
-__device__ __forceinline__ void depthwise_q(const float* __restrict__ A, const float* w9,
-                                            const float* bias, int cp, int W, int rows,
-                                            bool relu, float ao, float so, T* out) {
-  const int ng = cp >> 2;
+__device__ __forceinline__ void pointwise_mma(const char* X, const QShape& s, const DotShape& d,
+                                              const QBS& w, int valid, char* A) {
+  char* interior = A + (size_t)s.W * s.pst * 4;
+  const Map in[1] = {{const_cast<char*>(X), 0, s.W, s.W, FLAT, 0, s.ost}};
+  const int pbytes = s.pst * 4;
+  dot_stage<T, 1, 4>(in, valid, w.pw, d, [&](int p) { return interior + (size_t)p * pbytes; },
+                  [&](char* dst, int co, const int (&acc)[1][2]) {
+                    *reinterpret_cast<float2*>(dst + 4 * co) =
+                        make_float2(dequant(acc[0][0], w.scale[co], w.pwb[co]),
+                                    dequant(acc[0][1], w.scale[co + 1], w.pwb[co + 1]));
+                  });
+  float4* tail = reinterpret_cast<float4*>(interior + (size_t)valid * pbytes);
+  for (int i = threadIdx.x; i < (s.P - valid) * pbytes / 16; i += blockDim.x)
+    tail[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// fp 3x3 depthwise from the map A (rows + 2 rows of W pixels, pst floats a
+// pixel, the halo rows included) to the strip's first R rows: output (i, j)
+// reads A (i + dy, j + dx - 1), columns off the patch read 0; the nine taps
+// as mul_add_rn in (dy, dx) raster order from 0, then epi(i, j, co, acc); the
+// epilogue adds the bias. One thread per (channel group of 4, four adjacent
+// columns, row) reads each of its three input rows once (six pixels) and
+// keeps the four outputs' sums: 6.75 shared-memory loads an output, against
+// 8.5 for qsfb.cu's column-pair window at two rows a thread.
+template <class Epi>
+__device__ __forceinline__ void depthwise_quad(const float* A, int pst,
+                                               const float* __restrict__ w9, int cp8, int W,
+                                               int R, Epi epi) {
+  const int ng = cp8 >> 2, quads = (W + 3) >> 2;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int item = threadIdx.x; item < ng * W; item += blockDim.x) {
-    const int g = item % ng, j = item / ng;
-    const float* a = A + 4 * g;
-    const bool left = j > 0, right = j + 1 < W;
-    auto in = [&](int r, int jj, bool ok) { return ok ? ld4(a + (r * W + jj) * cp) : zero; };
-    float4 w[9];
+  for (int item = threadIdx.x; item < ng * quads * R; item += blockDim.x) {
+    const int g = item % ng, rest = item / ng;
+    const int jq = rest % quads, i = rest / quads;
+    const int j0 = 4 * jq;
+    const float* tap = w9 + 4 * g;
+    float4 sum[4] = {zero, zero, zero, zero};
 #pragma unroll
-    for (int t = 0; t < 9; ++t) w[t] = ld4(w9 + t * cp + 4 * g);
-    const float4 b = ld4(bias + 4 * g);
-    float4 a0 = in(0, j - 1, left), a1 = in(0, j, true), a2 = in(0, j + 1, right);
-    float4 b0 = in(1, j - 1, left), b1 = in(1, j, true), b2 = in(1, j + 1, right);
-    for (int i = 0; i < rows; ++i) {
-      const float4 c0 = in(i + 2, j - 1, left), c1 = in(i + 2, j, true),
-                   c2 = in(i + 2, j + 1, right);
-      float4 d = zero;
-      tap4(d, a0, w[0]);
-      tap4(d, a1, w[1]);
-      tap4(d, a2, w[2]);
-      tap4(d, b0, w[3]);
-      tap4(d, b1, w[4]);
-      tap4(d, b2, w[5]);
-      tap4(d, c0, w[6]);
-      tap4(d, c1, w[7]);
-      tap4(d, c2, w[8]);
-      float v[4] = {__fadd_rn(d.x, b.x), __fadd_rn(d.y, b.y), __fadd_rn(d.z, b.z),
-                    __fadd_rn(d.w, b.w)};
-      T* o = out + (i * W + j) * cp + 4 * g;
+    for (int dy = 0; dy < 3; ++dy) {
+      const float* row = A + (size_t)(i + dy) * W * pst + 4 * g;
+      float4 v[6];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) o[k] = requant<T>(relu ? fmaxf(v[k], 0.f) : v[k], ao, so);
-      a0 = b0; a1 = b1; a2 = b2;
-      b0 = c0; b1 = c1; b2 = c2;
+      for (int e = 0; e < 6; ++e) {
+        const int c = j0 - 1 + e;
+        v[e] = c >= 0 && c < W ? ld4(row + c * pst) : zero;
+      }
+      const float4 w0 = ld4(tap + 3 * dy * cp8), w1 = ld4(tap + (3 * dy + 1) * cp8),
+                   w2 = ld4(tap + (3 * dy + 2) * cp8);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        mac4(sum[q], v[q], w0);
+        mac4(sum[q], v[q + 1], w1);
+        mac4(sum[q], v[q + 2], w2);
+      }
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (j0 + q < W) epi(i, j0 + q, 4 * g, sum[q]);
   }
+}
+
+// fp 3x3 depthwise of the map A on the strip's first `vrows` rows, + bias,
+// ReLU where asked, requantized to codes in the operand buffer out.
+template <class T, bool RELU>
+__device__ __forceinline__ void depthwise_q(const char* A, const QShape& s, const QBS& w,
+                                            int vrows, float ao, float so, char* out) {
+  using Op = typename Dot<T>::Op;
+  depthwise_quad(reinterpret_cast<const float*>(A), s.pst, w.dw, s.cp8, s.W, vrows,
+                 [&](int i, int j, int co, float4 acc) {
+                     const float4 b = ld4(w.dwb + co);
+                     const float v[4] = {__fadd_rn(acc.x, b.x), __fadd_rn(acc.y, b.y),
+                                         __fadd_rn(acc.z, b.z), __fadd_rn(acc.w, b.w)};
+                     int c4[4];
+#pragma unroll
+                     for (int e = 0; e < 4; ++e)
+                       c4[e] = RELU ? relu_requant<T>(v[e], ao, so) : (int)requant<T>(v[e], ao, so);
+                     Dot<T>::put4(out + ((size_t)i * s.W + j) * s.ost + co * sizeof(Op), c4);
+                   });
 }
 
 template <class T>
 __global__ void __launch_bounds__(MAX_THREADS, 1) qmega_kernel(Args a) {
+  using Op = typename Dot<T>::Op;
   extern __shared__ __align__(16) unsigned char sm[];
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank(), cs = (int)cl.num_blocks();
   const int H = a.H, W = a.W, rows = a.rows;
-  const QLayout l(a.Cin, a.C, a.Cout, (int)sizeof(T));
-  const int cpi = l.cpi, cp = l.cp, cpo = l.cpo, ng = cp >> 2;
-  const int P = rows * W, pp = round4(P);
+  const QShape s(a.Cin, a.C, a.Cout, (int)sizeof(T), rows, W);
+  const int cp8 = s.cp8, cpo = s.cpo, P = s.P;
+  const DotShape d1{s.sz, cp8, s.kp1, s.ast1}, dc{s.sz, cp8, s.kp, s.ast};
   const int r0 = rank * rows;
-  const int valid = imax(0, imin(H - r0, rows)) * W;   // strip pixels inside
+  const int vrows = imax(0, imin(H - r0, rows));
+  const int valid = vrows * W;                         // strip pixels inside
   const bool active = valid > 0;
-  const int frow = W * cp * (int)sizeof(float);        // bytes of one fp32 row
-  const int crow = W * cp * (int)sizeof(T);            // bytes of one code row
+  const int frow = W * s.pst * (int)sizeof(float);     // bytes of one fp32 map row
+  const int crow = W * cp8 * (int)sizeof(T);           // bytes of one code row
   const float* qc = a.qc;
 
-  unsigned char* A[2] = {sm, sm + sizeof(float) * (size_t)a_pixels(rows, W) * cp};
-  unsigned char* Wt = A[1] + sizeof(float) * (size_t)a_pixels(rows, W) * cp;
-  T* F = reinterpret_cast<T*>(Wt + l.stage_bytes(a.n_sfb));
-  T* Z = F + pp * cp;
-  T* Y = Z + pp * cp;
-  auto interior = [&](int k) { return reinterpret_cast<float*>(A[k] + frow); };
+  char* A[2] = {reinterpret_cast<char*>(sm), reinterpret_cast<char*>(sm) + s.a_bytes()};
+  char* F = A[1] + s.a_bytes();
+  char* Y = F + s.op_bytes();
+  char* WFIRST = Y + s.op_bytes();
+  char* WRECON = WFIRST + s.first;
+  char* WSFB = WRECON + s.recon;
+  const QBS wfirst(WFIRST, cp8 * s.ast1, cp8);
+  const QBS b1(WSFB, cp8 * s.ast, cp8), b2(WSFB + s.bs, cp8 * s.ast, cp8);
+  const char* wf = WSFB + 2 * s.bs;
+  const float* fsy = reinterpret_cast<const float*>(wf + cp8 * s.ast);
+  const float* fsx = fsy + cp8;
+  const float* fb = fsx + cp8;
+
+  // the first layer's and the recon's weights once; the first qSFB's three
+  // parts as three copy groups (empty without qSFBs), so that three groups
+  // are always in flight from here on
+  const unsigned char* wsfb0 = a.w + s.first;
+  const size_t recon_off = s.first + (size_t)a.n_sfb * s.sfb;
+  fetch(a.w, s.first, WFIRST);
+  fetch(a.w + recon_off, s.recon, WRECON);
+  cp_commit();
+  const int part_off[3] = {0, s.bs, 2 * s.bs}, part_len[3] = {s.bs, s.bs, s.fuse};
+  // part j of qSFB i into its bytes of WSFB
+  auto prefetch = [&](int j, int i) {
+    if (a.n_sfb > 0) fetch(wsfb0 + (size_t)i * s.sfb + part_off[j], part_len[j], WSFB + part_off[j]);
+    cp_commit();
+  };
+  for (int j = 0; j < 3; ++j) prefetch(j, 0);
+  // the operand padding (channels past cp8, the first layer's past Cin) is
+  // never written again: it stays 0
+  for (int i = threadIdx.x; i < (int)(2 * s.op_bytes() / 16); i += blockDim.x)
+    reinterpret_cast<uint4*>(F)[i] = make_uint4(0u, 0u, 0u, 0u);
+  cp_wait<3>();
 
   int k = 0;
   for (int n = blockIdx.x / cs; n < a.N; n += gridDim.x / cs) {
     const size_t strip = ((size_t)n * H + r0) * W;   // first pixel of the strip
 
     // quantize x (site "in") -> qBSConv Cin -> C, no ReLU (site "first"), into F
+    __syncthreads();
     if (active) {
-      __syncthreads();
-      copy16(a.w, l.first, Wt);
       const float ai = __ldg(qc), si = __ldg(qc + 1);
       const float* xs = a.x + strip * a.Cin;
-      for (int i = threadIdx.x; i < pp * cpi; i += blockDim.x) {
-        const int p = i / cpi, c = i - p * cpi;
-        Y[i] = (p < valid && c < a.Cin) ? requant<T>(__ldg(xs + (size_t)p * a.Cin + c), ai, si)
-                                        : T(0);
+      const int units = s.kp1 >> 2;
+      for (int i = threadIdx.x; i < valid * units; i += blockDim.x) {
+        const int p = i / units, u = i - p * units;
+        int v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 4 * u + e;
+          v[e] = c < a.Cin ? (int)requant<T>(__ldg(xs + (size_t)p * a.Cin + c), ai, si) : 0;
+        }
+        Dot<T>::put4(Y + (size_t)p * s.ost + 4 * u * sizeof(Op), v);
       }
       __syncthreads();
-      Cursor s{Wt};
-      const QBS<T> w(s, cpi, cp);
-      pointwise_q(Y, cpi, w.pwq, w.scale, w.pwb, cp, P, valid, interior(k));
+      pointwise_mma<T>(Y, s, d1, wfirst, valid, A[k]);
     }
-    exchange(cl, A[k], rank, cs, r0, rows, H, frow, active);
-    if (active) {
-      Cursor s{Wt};
-      const QBS<T> w(s, cpi, cp);
-      depthwise_q(reinterpret_cast<const float*>(A[k]), w.dw, w.dwb, cp, W, rows, false,
-                  __ldg(qc + 2), __ldg(qc + 3), F);
-    }
+    push_halo(cl, A[k], rank, cs, r0, rows, H, frow, active);
+    if (active) depthwise_q<T, false>(A[k], s, wfirst, vrows, __ldg(qc + 2), __ldg(qc + 3), F);
     k ^= 1;
 
     // each qSFB: qBSConv (relu, site b1) -> qBSConv (relu, site b2) -> fuse
-    // ((wf . y2) * sy + (wf . x) * sx) + b -> ReLU -> requantize (site out)
+    // ((wf . y2) * sy + (wf . x) * sx) + b -> ReLU -> requantize (site out).
+    // Copy groups in flight at its start: b1, b2, fuse of this qSFB.
     for (int sfb = 0; sfb < a.n_sfb; ++sfb) {
       const float* sq = qc + 4 + 6 * sfb;
-      Cursor s{Wt};
-      const QBS<T> b1(s, cp, cp), b2(s, cp, cp);
-      const T* wf = s.take<T>(cp * cp);
-      const float* fsy = s.take<float>(cp);
-      const float* fsx = s.take<float>(cp);
-      const float* fb = s.take<float>(cp);
-      if (active) {
-        __syncthreads();
-        copy16(a.w + l.first + (size_t)sfb * l.sfb, l.sfb, Wt);
-        __syncthreads();
-        pointwise_q(F, cp, b1.pwq, b1.scale, b1.pwb, cp, P, valid, interior(k));
-      }
-      exchange(cl, A[k], rank, cs, r0, rows, H, frow, active);
-      if (active) {
-        depthwise_q(reinterpret_cast<const float*>(A[k]), b1.dw, b1.dwb, cp, W, rows, true,
-                    __ldg(sq), __ldg(sq + 1), Y);
-        __syncthreads();
-      }
+      const int next = sfb + 1 < a.n_sfb ? sfb + 1 : 0;
+      cp_wait<2>();                                   // b1 has landed
+      __syncthreads();
+      if (active) pointwise_mma<T>(F, s, dc, b1, valid, A[k]);
+      push_halo(cl, A[k], rank, cs, r0, rows, H, frow, active);
+      if (active) depthwise_q<T, true>(A[k], s, b1, vrows, __ldg(sq), __ldg(sq + 1), Y);
+      cp_wait<1>();                                   // b2 has landed
+      __syncthreads();
+      prefetch(0, next);                              // b1 is read: the next b1 in flight
       k ^= 1;
-      if (active) pointwise_q(Y, cp, b2.pwq, b2.scale, b2.pwb, cp, P, valid, interior(k));
-      exchange(cl, A[k], rank, cs, r0, rows, H, frow, active);
+      if (active) pointwise_mma<T>(Y, s, dc, b2, valid, A[k]);
+      push_halo(cl, A[k], rank, cs, r0, rows, H, frow, active);
+      if (active) depthwise_q<T, true>(A[k], s, b2, vrows, __ldg(sq + 2), __ldg(sq + 3), Y);
+      cp_wait<1>();                                   // the fuse has landed
+      __syncthreads();
+      prefetch(1, next);
+      // the fuse's output codes go to A[k], which dw2 has read and no
+      // neighbour writes before the next barrier; then back into F, once
+      // every dot has read F
+      char* Z = A[k];
       if (active) {
-        depthwise_q(reinterpret_cast<const float*>(A[k]), b2.dw, b2.dwb, cp, W, rows, true,
-                    __ldg(sq + 2), __ldg(sq + 3), Y);
-        __syncthreads();
         const float ao = __ldg(sq + 4), so = __ldg(sq + 5);
-        for (int item = threadIdx.x; item < P * ng; item += blockDim.x) {
-          const int g = item % ng, p = item / ng;
-          T* z = Z + p * cp + 4 * g;
-          if (p >= valid) {
+        const Map in[2] = {{Y, 0, W, W, FLAT, 0, s.ost}, {F, 0, W, W, FLAT, 0, s.ost}};
+        dot_stage<T, 2, 4>(in, valid, wf, dc, [&](int p) { return Z + (size_t)p * s.ost; },
+                           [&](char* dst, int co, const int (&acc)[2][2]) {
+                             Op* o = reinterpret_cast<Op*>(dst);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) z[j] = T(0);
-            continue;
-          }
-          int ay[4], ax[4];
-          dot4(Y + p * cp, wf, cp, cp, 4 * g, ay);
-          dot4(F + p * cp, wf, cp, cp, 4 * g, ax);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int co = 4 * g + j;
-            z[j] = requant<T>(fmaxf(fuse_combine(ay[j], ax[j], fsy[co], fsx[co], fb[co]), 0.f),
-                              ao, so);
-          }
-        }
+                             for (int e = 0; e < 2; ++e) {
+                               const int c = co + e;
+                               o[c] = Dot<T>::op(relu_requant<T>(
+                                   fuse_combine(acc[0][e], acc[1][e], fsy[c], fsx[c], fb[c]), ao,
+                                   so));
+                             }
+                           });
       }
-      T* t = F;
-      F = Z;
-      Z = t;
+      __syncthreads();
+      prefetch(2, next);
+      if (active)
+        for (int i = threadIdx.x; i < valid * s.ost / 16; i += blockDim.x)
+          reinterpret_cast<uint4*>(F)[i] = reinterpret_cast<const uint4*>(Z)[i];
       k ^= 1;
     }
 
     // qDSConv: exact int32 3x3 on the codes -> dequant + bias -> fp 1x1 as
     // an ordered sum over input channels -> + bias -> requantize (site
     // recon), codes to device memory
-    Cursor s{Wt};
-    const int32_t* dwq = s.take<int32_t>(9 * cp);
-    const float* dws = s.take<float>(cp);
-    const float* dwb = s.take<float>(cp);
-    const float* pw = s.take<float>(cp * cpo);
-    const float* pwb = s.take<float>(cpo);
+    const int32_t* dwq = reinterpret_cast<const int32_t*>(WRECON);
+    const float* dws = reinterpret_cast<const float*>(dwq + 9 * cp8);
+    const float* dwb = dws + cp8;
+    const float* pw = dwb + cp8;
+    const float* pwb = pw + cp8 * cpo;
     T* Ac = reinterpret_cast<T*>(A[k]);
+    const int ng = cp8 >> 2;
+    __syncthreads();
+    if (active)       // the codes of 4 channels a step
+      for (int i = threadIdx.x; i < P * ng; i += blockDim.x) {
+        const int p = i / ng, c = 4 * (i - p * ng);
+        T* dst = Ac + (size_t)(W + p) * cp8 + c;
+        const char* src = F + (size_t)p * s.ost + c * sizeof(Op);
+        if constexpr (sizeof(T) == 1) {
+          *reinterpret_cast<unsigned*>(dst) = p < valid ? *reinterpret_cast<const unsigned*>(src)
+                                                        : 0u;
+        } else {
+          const float4 v = p < valid ? *reinterpret_cast<const float4*>(src)
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<int4*>(dst) = make_int4(__float2int_rn(v.x), __float2int_rn(v.y),
+                                                    __float2int_rn(v.z), __float2int_rn(v.w));
+        }
+      }
+    push_halo(cl, A[k], rank, cs, r0, rows, H, crow, active);
     if (active) {
-      __syncthreads();
-      copy16(a.w + l.first + (size_t)a.n_sfb * l.sfb, l.recon, Wt);
-      for (int i = threadIdx.x; i < P * cp; i += blockDim.x)
-        Ac[W * cp + i] = i / cp < valid ? F[i] : T(0);
-    }
-    exchange(cl, A[k], rank, cs, r0, rows, H, crow, active);
-    if (active) {
-      float* D = reinterpret_cast<float*>(A[k ^ 1]);   // pp x cp
-      for (int item = threadIdx.x; item < P * cp; item += blockDim.x) {
-        const int c = item % cp, q = item / cp;
+      // valid x cp8, in the interior rows of A[k^1]: the next patch's first
+      // layer may push into its halo rows meanwhile
+      float* D = reinterpret_cast<float*>(A[k ^ 1] + frow);
+      for (int item = threadIdx.x; item < valid * ng; item += blockDim.x) {   // 4 channels
+        const int c = 4 * (item % ng), q = item / ng;
         const int i = q / W, j = q - i * W;
-        int acc = 0;
+        int acc[4] = {0, 0, 0, 0};
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx) {
             const int jj = j + dx - 1;
-            if (jj >= 0 && jj < W)
-              acc += static_cast<int>(Ac[((i + dy) * W + jj) * cp + c]) * dwq[(dy * 3 + dx) * cp + c];
+            if (jj < 0 || jj >= W) continue;
+            const T* v = Ac + (size_t)((i + dy) * W + jj) * cp8 + c;
+            const int4 wv = *reinterpret_cast<const int4*>(dwq + (dy * 3 + dx) * cp8 + c);
+            int x[4];
+            if constexpr (sizeof(T) == 1) {
+              const char4 b = *reinterpret_cast<const char4*>(v);
+              x[0] = b.x, x[1] = b.y, x[2] = b.z, x[3] = b.w;
+            } else {
+              const int4 b = *reinterpret_cast<const int4*>(v);
+              x[0] = b.x, x[1] = b.y, x[2] = b.z, x[3] = b.w;
+            }
+            acc[0] += x[0] * wv.x;
+            acc[1] += x[1] * wv.y;
+            acc[2] += x[2] * wv.z;
+            acc[3] += x[3] * wv.w;
           }
-        D[item] = dequant(acc, dws[c], dwb[c]);
+        st4(D + (size_t)q * cp8 + c,
+            make_float4(dequant(acc[0], dws[c], dwb[c]), dequant(acc[1], dws[c + 1], dwb[c + 1]),
+                        dequant(acc[2], dws[c + 2], dwb[c + 2]),
+                        dequant(acc[3], dws[c + 3], dwb[c + 3])));
       }
       __syncthreads();
       const float ao = __ldg(qc + 4 + 6 * a.n_sfb), so = __ldg(qc + 5 + 6 * a.n_sfb);
       T* os = static_cast<T*>(a.out) + strip * a.Cout;
       // 4 output channels of the 4 pixels p, p + pp/4, p + pp/2, p + 3pp/4
-      const int npg = pp >> 2, ngo = cpo >> 2;
+      const int pp = round4(valid), npg = pp >> 2, ngo = cpo >> 2;
       for (int item = threadIdx.x; item < ngo * npg; item += blockDim.x) {
         const int g = item % ngo, pg = item / ngo;
         float acc[4][4];
@@ -376,11 +508,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) qmega_kernel(Args a) {
           const float4 wv = ld4(pw + ci * cpo + 4 * g);
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            const float d = D[(pg + r * npg) * cp + ci];
-            acc[r][0] = mul_add_rn(acc[r][0], d, wv.x);
-            acc[r][1] = mul_add_rn(acc[r][1], d, wv.y);
-            acc[r][2] = mul_add_rn(acc[r][2], d, wv.z);
-            acc[r][3] = mul_add_rn(acc[r][3], d, wv.w);
+            const float dv = D[(pg + r * npg) * cp8 + ci];
+            acc[r][0] = mul_add_rn(acc[r][0], dv, wv.x);
+            acc[r][1] = mul_add_rn(acc[r][1], dv, wv.y);
+            acc[r][2] = mul_add_rn(acc[r][2], dv, wv.z);
+            acc[r][3] = mul_add_rn(acc[r][3], dv, wv.w);
           }
         }
 #pragma unroll
@@ -398,15 +530,16 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) qmega_kernel(Args a) {
     }
     k ^= 1;
   }
+  cp_wait_all();
   cl.sync();   // no block leaves while a neighbour may still read its shared memory
 }
 
 template <class T>
 ClusterLaunch<Args> launcher(int W, int Cin, int C, int Cout, int n_sfb, int rows, int cluster,
                              int threads, cudaStream_t stream) {
-  return ClusterLaunch<Args>(qmega_kernel<T>,
-                             smem_bytes(QLayout(Cin, C, Cout, (int)sizeof(T)), rows, W, n_sfb),
-                             cluster, threads, stream);
+  return ClusterLaunch<Args>(
+      qmega_kernel<T>, QShape(Cin, C, Cout, (int)sizeof(T), rows, W).smem_bytes(n_sfb), cluster,
+      threads, stream);
 }
 
 }  // namespace
@@ -414,10 +547,14 @@ ClusterLaunch<Args> launcher(int W, int Cin, int C, int Cout, int n_sfb, int row
 // Runs the chain on `stream` as a persistent grid of as many clusters as the
 // card holds at once (at most N): x (N,H,W,Cin) fp32 -> out (N,H,W,Cout)
 // codes, int8 for bits <= 8 else int32. Returns the launch's CUDA error;
+// cudaErrorInvalidValue for a width past the dots' 64 channels,
 // cudaErrorLaunchOutOfResources when no cluster of this shape fits the card.
 extern "C" int qmega_forward(const float* x, const void* w, const float* qc, void* out, int N,
                              int H, int W, int Cin, int C, int Cout, int n_sfb, int rows,
                              int cluster, int threads, int bits, void* stream) {
+  if (C < 1 || C > NTMAX * 8 || Cin < 1 || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   const Args a{x, static_cast<const unsigned char*>(w), qc, out, N, H, W, Cin, C, Cout,
                n_sfb, rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -429,7 +566,7 @@ extern "C" int qmega_forward(const float* x, const void* w, const float* qc, voi
 // Dynamic shared memory of one block, in bytes (the sizing report's check).
 extern "C" long long qmega_smem_bytes(int W, int Cin, int C, int Cout, int n_sfb, int rows,
                                       int bits) {
-  return (long long)smem_bytes(QLayout(Cin, C, Cout, bits <= 8 ? 1 : 4), rows, W, n_sfb);
+  return (long long)QShape(Cin, C, Cout, bits <= 8 ? 1 : 4, rows, W).smem_bytes(n_sfb);
 }
 
 // The clusters qmega_forward keeps resident for this shape (0 when none

@@ -16,9 +16,11 @@ packed once into a single zero-padded buffer (:func:`pack_weights`, cached).
 The quantized twin (``essr_forward_qmegakernel``, ``csrc/qmega.cu``) serves
 ``ExecutionPlan(quant=..., fusion="group")``: quantize once, the whole
 integer chain with the codes in shared memory, the recon codes out; one
-launch per routed bucket, ``qmega_fused.launches``. It keeps the same
-cluster layout, sized by :func:`qgroup_report`, with the prepared integer
-operands packed once into one byte buffer (:func:`pack_qweights`, cached).
+launch per routed bucket, ``qmega_fused.launches``. It keeps the cluster
+layout (4 or 8 blocks a cluster, sized by :func:`qgroup_report`) and runs its
+1x1 dots on the tensor cores, with the prepared integer operands packed once
+into one byte buffer in the dots' operand layout (:func:`pack_qweights`,
+cached).
 """
 from __future__ import annotations
 
@@ -45,8 +47,15 @@ SMEM_LIMIT = 232_448
 MAX_THREADS = 512
 #: H100 SXM data sheet: fp32 outside the tensor cores, and device memory.
 H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
-#: H100 SXM data sheet: dense int8 on the tensor cores.
-H100_INT8_OPS = 1979e12
+#: H100 SXM data sheet: dense int8 and TF32 on the tensor cores.
+H100_INT8_OPS, H100_TF32_FLOPS = 1979e12, 495e12
+#: Widest subnet (and input) of the quantized megakernel: its dots hold 8
+#: n-tiles of 8 channels, and fxp10's TF32 dots are exact up to K = 64.
+QMEGA_MAX_WIDTH = 64
+#: Cluster sizes of the quantized megakernel, in the order tried: the first
+#: whose strip fits a block. Taller strips pay fewer halo barriers a row, and
+#: the card holds more 4-block clusters than 8-block ones.
+QMEGA_CLUSTERS = (4, 8)
 
 
 def _round4(c: int) -> int:
@@ -315,12 +324,27 @@ def essr_forward_megakernel(params: Dict[str, Any], x: torch.Tensor, cfg: ESSRCo
 # the quantized megakernel (quant x group fusion): csrc/qmega.cu
 # ---------------------------------------------------------------------------
 
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _operand_stride(nbytes: int) -> int:
+    """Bytes of one dot operand pixel or weight row holding ``nbytes`` of
+    codes: the next multiple of 16, made odd in units of 16 (csrc/qmma.cuh
+    ``operand_stride``), so the rows of one ldmatrix fall on distinct banks."""
+    s = _up(nbytes, 16)
+    return s + 16 if (s // 16) % 2 == 0 else s
+
+
 @dataclasses.dataclass(frozen=True)
 class QWeightLayout:
-    """Byte sizes of the packed integer weight buffer's three groups (the
-    same sums as ``QLayout`` in csrc/qmega.cu). Channels pad to multiples of
-    4; a code takes ``code_bytes`` (1 for int8, 4 for fxp10); every operand
-    is a multiple of 16 bytes."""
+    """Byte sizes of the packed integer weight buffer's groups (the same sums
+    as ``QShape`` in csrc/qmega.cu). Each 1x1's code weights are the
+    tensor-core dots' B operand: a row of ``ast`` bytes per output channel
+    (``ast1`` for the first layer's Cin-deep input), the depth zero-padded to
+    ``kp`` codes (int8: a multiple of 32, fxp10: of 8, as fp32); channels pad
+    to multiples of 8 (``cp8``), the recon's outputs to 4; every operand is a
+    multiple of 16 bytes."""
     cin: int
     width: int
     cout: int
@@ -328,23 +352,51 @@ class QWeightLayout:
     code_bytes: int
 
     @property
-    def padded(self) -> Tuple[int, int, int]:
-        return _round4(self.cin), _round4(self.width), _round4(self.cout)
+    def cp8(self) -> int:
+        return _up(self.width, 8)
 
     @property
-    def first(self) -> int:          # pwq (cpi, cp) codes, pw_scale, pwb, dw_fq (9, cp), dwb
-        cpi, cp, _ = self.padded
-        return cpi * cp * self.code_bytes + 48 * cp
+    def cpo(self) -> int:
+        return _round4(self.cout)
+
+    def _depth(self, k: int) -> int:
+        return _up(k, 32 if self.code_bytes == 1 else 8)
 
     @property
-    def sfb(self) -> int:            # b1, b2 as first; fuseq (cp, cp) codes, fsy, fsx, fb
-        _, cp, _ = self.padded
-        return 3 * cp * cp * self.code_bytes + 108 * cp
+    def kp(self) -> int:
+        return self._depth(self.width)
 
     @property
-    def recon(self) -> int:          # dwq (9, cp) int32, dw_scale, dwb, pw_fq (cp, cpo), pwb
-        _, cp, cpo = self.padded
-        return 44 * cp + 4 * cp * cpo + 4 * cpo
+    def kp1(self) -> int:
+        return self._depth(self.cin)
+
+    @property
+    def ast(self) -> int:
+        return _operand_stride(self.kp * self.code_bytes)
+
+    @property
+    def ast1(self) -> int:
+        return _operand_stride(self.kp1 * self.code_bytes)
+
+    @property
+    def first(self) -> int:          # pw (cp8 rows of ast1), pw_scale, pwb, dw_fq (9, cp8), dwb
+        return self.cp8 * self.ast1 + 48 * self.cp8
+
+    @property
+    def bs(self) -> int:             # one qBSConv of a qSFB: as first, rows of ast
+        return self.cp8 * self.ast + 48 * self.cp8
+
+    @property
+    def fuse(self) -> int:           # fuseq (cp8 rows of ast), fsy, fsx, fb
+        return self.cp8 * self.ast + 12 * self.cp8
+
+    @property
+    def sfb(self) -> int:            # b1, b2, fuse
+        return 2 * self.bs + self.fuse
+
+    @property
+    def recon(self) -> int:          # dwq (9, cp8) int32, dw_scale, dwb, pw_fq (cp8, cpo), pwb
+        return 44 * self.cp8 + 4 * self.cp8 * self.cpo + 4 * self.cpo
 
     @property
     def size(self) -> int:
@@ -352,38 +404,51 @@ class QWeightLayout:
 
     @property
     def stage(self) -> int:
-        """Bytes of the largest layer group a block stages at once."""
-        return max(self.first, self.recon, self.sfb if self.n_sfb else 0)
+        """Bytes of weights a block holds at once: the first layer's and the
+        recon's for the whole launch, and one qSFB's, whose three parts roll."""
+        return self.first + self.recon + (self.sfb if self.n_sfb else 0)
 
 
 def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
              bits: int) -> Dict[str, Any]:
     """The quantized megakernel's launch shape and work for one patch;
-    raises ValueError when a block's share does not fit in shared memory."""
+    raises ValueError when a block's share does not fit in shared memory or
+    the width is past the dots' 64 channels."""
     if min(width, h, w, cin, cout) < 1 or n_sfb < 0:
         raise ValueError(f"qgroup_report: width {width}, patch {h}x{w}, cin {cin}, "
                          f"cout {cout}, n_sfb {n_sfb}: every size must be positive")
+    if max(width, cin) > QMEGA_MAX_WIDTH:
+        # the dots hold 8 n-tiles of 8 channels; fxp10's TF32 dots are exact
+        # only while 511^2 * K < 2^24, K <= 64
+        raise ValueError(f"qgroup_report: width {width}, cin {cin}: the quantized megakernel's "
+                         f"tensor-core dots take 1..{QMEGA_MAX_WIDTH} channels")
     cb = 1 if bits <= 8 else 4
     lay = QWeightLayout(cin, width, cout, n_sfb, cb)
-    cpi, cp, _ = lay.padded
-    rows = -(-h // CLUSTER)
-    pp = _round4(rows * w)
-    a_pixels = max((rows + 2) * w, pp)
-    smem = 2 * 4 * a_pixels * cp + lay.stage + cb * pp * (2 * cp + max(cp, cpi))
-    if smem > SMEM_LIMIT:
+    ost = max(lay.ast, lay.ast1)
+    pst = lay.cp8 + 8 if lay.cp8 % 16 == 0 else lay.cp8
+    for cluster in QMEGA_CLUSTERS:
+        rows = -(-h // cluster)
+        p = rows * w
+        a_bytes = max(4 * (rows + 2) * w * pst, p * ost)
+        smem = 2 * a_bytes + 2 * p * ost + lay.stage
+        if smem <= SMEM_LIMIT:
+            break
+    else:
         raise ValueError(
             f"qgroup_report: width {width}, patch {h}x{w}, {bits}-bit codes: a block of the "
-            f"{CLUSTER}-block cluster ({rows} rows) needs {smem} B of shared memory, over the "
+            f"{cluster}-block cluster ({rows} rows) needs {smem} B of shared memory, over the "
             f"H100's {SMEM_LIMIT} B per block")
-    # one thread per (pixel, 4 output channels) of an integer 1x1
-    threads = min(MAX_THREADS, max(64, 32 * -(-(cp // 4) * pp // 32)))
+    # one thread per (pixel, 4 channels) of a depthwise layer
+    threads = min(MAX_THREADS, max(64, 32 * -(-(lay.cp8 // 4) * p // 32)))
     int_ops = 2 * (cin * width + n_sfb * 4 * width * width + 9 * width) * h * w
     fp_ops = (3 * cin + 24 * width + n_sfb * 58 * width + 2 * width + 2 * width * cout
               + 4 * cout) * h * w
     nbytes = h * w * (4 * cin + cb * cout)
-    int_rate = H100_INT8_OPS if bits <= 8 else H100_FP32_FLOPS
+    # int8 dots on the int8 tensor cores; fxp10 dots on the TF32 tensor cores,
+    # exact there (codes up to 2^11, sums below 2^24)
+    int_rate = H100_INT8_OPS if bits <= 8 else H100_TF32_FLOPS
     t_ops = int_ops / int_rate + fp_ops / H100_FP32_FLOPS
-    return {"cluster": CLUSTER, "rows_per_cta": rows, "threads": threads,
+    return {"cluster": cluster, "rows_per_cta": rows, "threads": threads,
             "smem_bytes": smem, "smem_limit": SMEM_LIMIT, "code_bytes": cb,
             "weight_bytes": lay.size + 4 * (6 + 6 * n_sfb),
             "int_ops_per_patch": int_ops, "fp_ops_per_patch": fp_ops,
@@ -394,28 +459,30 @@ def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
 def qgroup_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
                   n_sfb: int = 5, bits: int = 8, *, in_channels: int = 3) -> Dict[str, Any]:
     """Static sizing of the quantized megakernel on the H100 at one (width,
-    patch, code width) point, the twin of :func:`group_report`: cluster size,
-    rows per block (CTA), threads, shared-memory bytes per block against the
-    232,448 B limit (two fp32 halo buffers, one layer group's packed
-    weights, three code buffers), the packed weights' bytes, and per patch
-    the integer and fp32 operations and the device-memory bytes (fp32 input
-    read once, recon codes written once), with which of the two bounds the
-    launch at the data sheet's rates (int8 at 1,979 TOPS, fxp10's int32 at
-    the fp32 rate of 67 TFLOP/s; 3.35 TB/s). ``bits``: 8 for int8 codes,
-    anything wider int32. Raises ValueError for a strip that does not fit."""
+    patch, code width) point, the twin of :func:`group_report`: cluster size
+    (4 blocks where a block's strip fits, else 8), rows per block (CTA), threads, shared-memory bytes per block against the
+    232,448 B limit (two fp32 halo maps, two code buffers in the dots'
+    operand layout, the first layer's, the recon's and one qSFB's packed
+    weights), the packed weights' bytes, and per patch the integer and fp32
+    operations and the device-memory bytes (fp32 input read once, recon codes
+    written once), with which of the two bounds the launch at the data
+    sheet's rates (int8 dots at 1,979 TOPS, fxp10 dots at the TF32 rate of
+    495 TFLOP/s, fp32 at 67 TFLOP/s; 3.35 TB/s). ``bits``: 8 for int8 codes,
+    anything wider int32. Raises ValueError for a strip that does not fit and
+    for a width past 64 channels (fxp10's TF32 dots are exact only up to
+    K = 64)."""
     h, w = (patch, patch) if isinstance(patch, int) else (int(patch[0]), int(patch[1]))
     return _qsizing(width, h, w, in_channels, in_channels * scale * scale, n_sfb, bits)
 
 
-def _padded_codes(t: torch.Tensor, kp: int, cop: int, bits: int) -> torch.Tensor:
-    """Code weights (K, Co) -> bytes of the (kp, cop) zero-padded matrix in
-    the staged layout of csrc/qmath.cuh: int8 as 4-byte words, word
-    (k / 4) * cop + co holding input channels k..k+3; int32 row-major."""
-    m = t.new_zeros((kp, cop))
-    m[: t.shape[0], : t.shape[1]] = t
-    if bits <= 8:
-        m = m.reshape(kp // 4, 4, cop).transpose(1, 2)
-    return m.contiguous().view(torch.uint8).reshape(-1)
+def _b_rows(t: torch.Tensor, rows: int, stride: int, bits: int) -> torch.Tensor:
+    """Code weights (K, Co) -> bytes of the dots' B operand: ``rows`` rows (one
+    per output channel, zero past Co) of ``stride`` bytes, each holding the
+    channel's K codes, zero past K; int8 as bytes, fxp10 as fp32."""
+    dt = torch.int8 if bits <= 8 else torch.float32
+    m = torch.zeros((rows, stride // dt.itemsize), dtype=dt, device=t.device)
+    m[: t.shape[1], : t.shape[0]] = t.t().to(dt)
+    return m.view(torch.uint8).reshape(-1)
 
 
 def _padded_fp(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -427,41 +494,44 @@ def _padded_fp(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 def pack_qweights(q: Dict[str, Any], bits: int) -> torch.Tensor:
     """Prepared integer operands (`kernels.qconv.prepare_qparams`) -> one
     contiguous uint8 buffer on their device, in the TPU kernel's operand
-    order (``_flat_q_operands``): per qBSConv group the code weights, the
-    folded scale, the bias, the fake-quant depthwise (9, C) and its bias;
-    per qSFB two such groups, the fuse's code weights, its two scales and
-    bias; the recon's int32 depthwise codes, scale, bias, fp 1x1 and bias."""
+    order (``_flat_q_operands``): per qBSConv group the code weights as the
+    dots' B operand, the folded scale, the bias, the fake-quant depthwise
+    (9, C) and its bias; per qSFB two such groups, the fuse's code weights,
+    its two scales and bias; the recon's int32 depthwise codes, scale, bias,
+    fp 1x1 and bias. Sizes and strides: :class:`QWeightLayout`."""
     first, recon = q["first"], q["recon"]
     cin, c = first["pwq"].shape
     cout = recon["pw_fq"].shape[-1]
-    cpi, cp, cpo = _round4(cin), _round4(c), _round4(cout)
+    lay = QWeightLayout(cin, c, cout, len(q["sfbs"]), 1 if bits <= 8 else 4)
+    cp8, cpo = lay.cp8, lay.cpo
 
-    def vec(v, n=cp):
+    def vec(v, n=cp8):
         return _padded_fp(v.reshape(1, -1), 1, n)
 
-    def bs(pwq, scale, pwb, dw, dwb, kp):
-        return [_padded_codes(pwq, kp, cp, bits), vec(scale), vec(pwb),
-                _padded_fp(dw.reshape(9, c), 9, cp), vec(dwb)]
+    def bs(pwq, scale, pwb, dw, dwb, stride):
+        return [_b_rows(pwq, cp8, stride, bits), vec(scale), vec(pwb),
+                _padded_fp(dw.reshape(9, c), 9, cp8), vec(dwb)]
 
-    parts = bs(first["pwq"], first["pw_scale"], first["pwb"], first["dw_fq"], first["dwb"], cpi)
+    parts = bs(first["pwq"], first["pw_scale"], first["pwb"], first["dw_fq"], first["dwb"],
+               lay.ast1)
     for s in q["sfbs"]:
         for b in ("b1", "b2"):
             parts += bs(s[f"{b}_pwq"], s[f"{b}_pw_scale"], s[f"{b}_pwb"], s[f"{b}_dw_fq"],
-                        s[f"{b}_dwb"], cp)
-        parts += [_padded_codes(s["fuseq"], cp, cp, bits), vec(s["fuse_scale_y"]),
+                        s[f"{b}_dwb"], lay.ast)
+        parts += [_b_rows(s["fuseq"], cp8, lay.ast, bits), vec(s["fuse_scale_y"]),
                   vec(s["fuse_scale_x"]), vec(s["fuseb"])]
     dwq = recon["dwq"].reshape(9, c)
-    m = dwq.new_zeros((9, cp))
+    m = dwq.new_zeros((9, cp8))
     m[:, :c] = dwq
     parts += [m.view(torch.uint8).reshape(-1), vec(recon["dw_scale"]), vec(recon["dwb"]),
-              _padded_fp(recon["pw_fq"], cp, cpo), vec(recon["pwb"], cpo)]
+              _padded_fp(recon["pw_fq"], cp8, cpo), vec(recon["pwb"], cpo)]
     return torch.cat(parts).contiguous()
 
 
 def unpack_qweights(wbuf: torch.Tensor, lay: QWeightLayout) -> Dict[str, Any]:
     """A packed buffer -> the operands at the real channel counts, in the
     form `prepare_qparams` gives them (what `kernels.ref.qmega_ref` takes)."""
-    cpi, cp, cpo = lay.padded
+    cp8, cpo = lay.cp8, lay.cpo
     c, off = lay.width, 0
     cdt = torch.int8 if lay.code_bytes == 1 else torch.int32
 
@@ -470,27 +540,28 @@ def unpack_qweights(wbuf: torch.Tensor, lay: QWeightLayout) -> Dict[str, Any]:
         n = rows * cols * dtype.itemsize
         v = wbuf[off: off + n].view(dtype)
         off += n
-        if dtype == torch.int8:      # the __dp4a word layout back to (rows, cols)
-            v = v.reshape(rows // 4, cols, 4).transpose(1, 2)
         return v.reshape(rows, cols)[:r, :k]
 
-    def vec(n=cp, k=c):
+    def codes(k, stride):            # B rows back to (K, C) codes
+        op = torch.int8 if lay.code_bytes == 1 else torch.float32
+        return take(cp8, stride // op.itemsize, op, c, k).t().to(cdt)
+
+    def vec(n=cp8, k=c):
         return take(1, n, torch.float32, 1, k)[0]
 
-    def bs(kp, cin, prefix=""):
-        return {f"{prefix}pwq": take(kp, cp, cdt, cin, c), f"{prefix}pw_scale": vec(),
-                f"{prefix}pwb": vec(), f"{prefix}dw_fq": take(9, cp, torch.float32, 9, c)
+    def bs(k, stride, prefix=""):
+        return {f"{prefix}pwq": codes(k, stride), f"{prefix}pw_scale": vec(),
+                f"{prefix}pwb": vec(), f"{prefix}dw_fq": take(9, cp8, torch.float32, 9, c)
                 .reshape(3, 3, c), f"{prefix}dwb": vec()}
 
-    first = bs(cpi, lay.cin)
+    first = bs(lay.cin, lay.ast1)
     sfbs = []
     for _ in range(lay.n_sfb):
-        s = {**bs(cp, c, "b1_"), **bs(cp, c, "b2_")}
-        s.update(fuseq=take(cp, cp, cdt, c, c), fuse_scale_y=vec(), fuse_scale_x=vec(),
-                 fuseb=vec())
+        s = {**bs(c, lay.ast, "b1_"), **bs(c, lay.ast, "b2_")}
+        s.update(fuseq=codes(c, lay.ast), fuse_scale_y=vec(), fuse_scale_x=vec(), fuseb=vec())
         sfbs.append(s)
-    recon = {"dwq": take(9, cp, torch.int32, 9, c).reshape(3, 3, c), "dw_scale": vec(),
-             "dwb": vec(), "pw_fq": take(cp, cpo, torch.float32, c, lay.cout),
+    recon = {"dwq": take(9, cp8, torch.int32, 9, c).reshape(3, 3, c), "dw_scale": vec(),
+             "dwb": vec(), "pw_fq": take(cp8, cpo, torch.float32, c, lay.cout),
              "pwb": vec(cpo, lay.cout)}
     return {"first": first, "sfbs": sfbs, "recon": recon}
 

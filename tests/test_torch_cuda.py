@@ -14,6 +14,8 @@ are held to their plain versions with ``torch.equal`` (qSFB also at extreme
 codes, C64 and every code and weight at +-qmax, and across column bands); the edge kernel sums
 each patch's mean in another order, rtol 1e-4 / atol 1e-3.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -270,6 +272,54 @@ def test_quantized_megakernel_equals_chain_and_reference(cuda, mode, n, width):
     plain = ref.qmega_ref(x, mk.unpack_qweights(wbuf, lay), q["consts"], codes.dtype)
     torch.cuda.synchronize()
     assert torch.equal(codes, plain) and (codes.abs().max().item() if n else 1) > 0
+
+
+@pytest.mark.parametrize("mode", ["int8", "fxp10"])
+@pytest.mark.parametrize("n,h,w,width", [(2, 17, 9, 54), (2, 17, 9, 27), (3, 13, 21, 54),
+                                         (1, 25, 32, 54), (2, 5, 9, 27)])
+def test_quantized_megakernel_ragged_strips(cuda, mode, n, h, w, width):
+    """Ragged last strips (17, 13 and 25 rows; 25 rows at C54 take 8-block
+    clusters in fxp10) and an idle last block (5 rows)."""
+    cfg, tree, pack, q = _quant_setup(mode, width, seed=n + h + width)
+    x = torch.rand((n, h, w, 3), generator=torch.Generator().manual_seed(h)).cuda()
+    got = mk.essr_forward_qmegakernel(tree, x, cfg, width, pack=pack)
+    assert torch.equal(got, tq.essr_forward_qkernels(tree, x, cfg, width, pack=pack))
+    assert torch.equal(got, tq.essr_forward_qref(tree, x, cfg, width, pack=pack))
+    wbuf = mk.pack_qweights(q, pack.bits)
+    lay = mk.QWeightLayout(3, width, cfg.out_channels, cfg.n_sfb, 1 if pack.bits <= 8 else 4)
+    codes = mk.qmega_fused(x, wbuf, q["consts"], width=width, n_sfb=cfg.n_sfb,
+                           out_channels=cfg.out_channels, bits=pack.bits)
+    plain = ref.qmega_ref(x, mk.unpack_qweights(wbuf, lay), q["consts"], codes.dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, plain) and codes.abs().max().item() > 0
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root, for its synthetic operands."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("n,h,w", [(7, 32, 32), (2, 17, 9), (3, 13, 21), (1, 25, 32)])
+def test_quantized_megakernel_at_extreme_codes(cuda, n, h, w, bits):
+    """Every weight code at +-qmax and codes that saturate; one qSFB's sums
+    reach +-qmax^2 * 54 (fxp10: 511^2 * 54, below the TF32 route's 2^24)."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(n + bits)
+    q = cs.qmega_extreme_operands(54, bits, g, torch)
+    x = torch.rand((n, h, w, 3), generator=g).cuda()
+    wbuf = mk.pack_qweights(q, bits)
+    lay = mk.QWeightLayout(3, 54, 48, 5, 1 if bits <= 8 else 4)
+    codes = mk.qmega_fused(x, wbuf, q["consts"], width=54, n_sfb=5, out_channels=48, bits=bits)
+    plain = ref.qmega_ref(x, mk.unpack_qweights(wbuf, lay), q["consts"], codes.dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, plain) and torch.equal(codes, cs.qchain_kernels(q, x, bits))
+    assert (plain.abs() == (127 if bits <= 8 else 511)).any()
 
 
 def test_engine_quant_group_frame_on_card(cuda):

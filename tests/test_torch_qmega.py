@@ -88,15 +88,46 @@ def test_qmega_equals_layer_chain_and_plain_codes(qtoy, mode, width):
     assert recon.dtype == codes["recon"].dtype and torch.equal(recon, codes["recon"])
 
 
+def _extreme_q(c: int, bits: int, cin: int = 3, cout: int = 12, n_sfb: int = 2, seed: int = 0):
+    """Prepared integer operands at width ``c`` (the shapes of
+    `prepare_qparams`), every code weight at +-qmax, fp operands random."""
+    g = torch.Generator().manual_seed(seed + c + bits)
+    qmax, dt = (127, torch.int8) if bits <= 8 else (511, torch.int32)
+
+    def codes(*shape):
+        return ((torch.randint(0, 2, shape, generator=g) * 2 - 1) * qmax).to(dt)
+
+    def f(*shape):
+        return torch.randn(shape, generator=g)
+
+    def bs(k, pre=""):
+        return {f"{pre}pwq": codes(k, c), f"{pre}pw_scale": f(c), f"{pre}pwb": f(c),
+                f"{pre}dw_fq": f(3, 3, c), f"{pre}dwb": f(c)}
+
+    sfbs = [{**bs(c, "b1_"), **bs(c, "b2_"), "fuseq": codes(c, c), "fuse_scale_y": f(c),
+             "fuse_scale_x": f(c), "fuseb": f(c)} for _ in range(n_sfb)]
+    recon = {"dwq": codes(3, 3, c).to(torch.int32), "dw_scale": f(c), "dwb": f(c),
+             "pw_fq": f(c, cout), "pwb": f(cout)}
+    return {"first": bs(cin), "sfbs": sfbs, "recon": recon}
+
+
 @pytest.mark.parametrize("mode", ["int8", "fxp10"])
-def test_pack_unpack_round_trip_and_cache(qtoy, mode):
+@pytest.mark.parametrize("width", [4, 8, 27, 54])
+def test_pack_unpack_round_trip_and_cache(qtoy, mode, width):
     _, params, x, packs = qtoy
     pack = _port_pack(packs[mode])
-    q, _ = tq.prepare_qparams(params, TOY, 8, pack)
+    cb = 1 if pack.bits <= 8 else 4
+    if width <= TOY.channels:       # the toy model's operands; wider: codes at +-qmax
+        q, _ = tq.prepare_qparams(params, TOY, width, pack)
+        lay = mk.QWeightLayout(3, width, TOY.out_channels, TOY.n_sfb, cb)
+    else:
+        q = _extreme_q(width, pack.bits)
+        lay = mk.QWeightLayout(3, width, 12, 2, cb)
     wbuf = mk.pack_qweights(q, pack.bits)
-    lay = mk.QWeightLayout(3, 8, TOY.out_channels, TOY.n_sfb, 1 if pack.bits <= 8 else 4)
-    assert wbuf.dtype == torch.uint8 and wbuf.numel() == lay.size and lay.first % 16 == 0
-    assert lay.sfb % 16 == 0 and lay.recon % 16 == 0
+    assert wbuf.dtype == torch.uint8 and wbuf.numel() == lay.size
+    for part in (lay.first, lay.bs, lay.fuse, lay.sfb, lay.recon, lay.ast, lay.ast1):
+        assert part % 16 == 0
+    assert (lay.ast // 16) % 2 == 1 and (lay.ast1 // 16) % 2 == 1     # odd: no bank conflicts
     back = mk.unpack_qweights(wbuf, lay)
     for grp in ("first", "recon"):
         assert set(back[grp]) == set(k for k in q[grp] if k != "qc")
@@ -106,12 +137,13 @@ def test_pack_unpack_round_trip_and_cache(qtoy, mode):
         for k, v in mine.items():
             assert v.dtype == theirs[k].dtype and torch.equal(v, theirs[k]), k
     mk.packed_qweights.cache_clear()
+    w = min(width, TOY.channels)
     with torch.no_grad():
-        a = mk.essr_forward_qmegakernel(params, torch.from_numpy(x), TOY, 8, pack=pack)
-        mk.essr_forward_qmegakernel(params, torch.from_numpy(x), TOY, 8, pack=pack)
+        a = mk.essr_forward_qmegakernel(params, torch.from_numpy(x), TOY, w, pack=pack)
+        mk.essr_forward_qmegakernel(params, torch.from_numpy(x), TOY, w, pack=pack)
         assert mk.packed_qweights.cache_info().hits == 1
         params["recon"]["pw_b"].add_(1.0)            # an in-place edit is a new key
-        b = mk.essr_forward_qmegakernel(params, torch.from_numpy(x), TOY, 8, pack=pack)
+        b = mk.essr_forward_qmegakernel(params, torch.from_numpy(x), TOY, w, pack=pack)
         params["recon"]["pw_b"].sub_(1.0)
     assert mk.packed_qweights.cache_info().misses == 2 and not torch.equal(a, b)
 
@@ -150,21 +182,36 @@ def test_qmega_empty_bucket_width_checks_and_launches(qtoy):
 @pytest.mark.parametrize("bits", [8, 10])
 def test_qgroup_report_fits_and_raises(width, bits):
     rep = mk.qgroup_report(width, 32, 4, 5, bits)
-    assert rep["rows_per_cta"] == 4 and rep["cluster"] == 8
+    # 4-block clusters of 8-row strips where they fit (all but fxp10 at C54)
+    cluster = 8 if (width, bits) == (54, 10) else 4
+    rows = 32 // cluster
+    assert rep["rows_per_cta"] == rows and rep["cluster"] == cluster
     assert rep["smem_bytes"] <= rep["smem_limit"] == 232_448 and rep["bound"] == "operations"
-    cb, cp = (1 if bits <= 8 else 4), -(-width // 4) * 4
+    cb = 1 if bits <= 8 else 4
     lay = mk.QWeightLayout(3, width, 48, 5, cb)
-    assert rep["smem_bytes"] == 2 * 4 * 6 * 32 * cp + lay.stage + cb * 128 * 3 * cp
+    cp8 = -(-width // 8) * 8
+    pst = cp8 + 8 if cp8 % 16 == 0 else cp8         # fp32 map pixel: 8 or 24 floats mod 32
+    ost = max(lay.ast, lay.ast1)                    # operand pixel: an odd multiple of 16 B
+    # two fp32 maps of the strip's rows and two halo rows, F and Y, the weights
+    a_map = max(4 * (rows + 2) * 32 * pst, rows * 32 * ost)
+    assert rep["smem_bytes"] == 2 * a_map + 2 * rows * 32 * ost + lay.stage
+    assert lay.stage == lay.first + lay.recon + lay.sfb
     assert rep["int_ops_per_patch"] == 2 * 1024 * (3 * width + 20 * width * width + 9 * width)
     with pytest.raises(ValueError, match="232448 B"):
         mk.qgroup_report(width, 96, 4, 5, bits)
     with pytest.raises(ValueError, match="positive"):
         mk.qgroup_report(0, 32, 4, 5, bits)
+    # past K = 64 the TF32 dots of fxp10 are no longer exact (511^2 * K >= 2^24)
+    with pytest.raises(ValueError, match="1..64 channels"):
+        mk.qgroup_report(72, 8, 4, 5, bits)
 
 
 def test_qmega_sizes_at_full_width():
-    assert mk.qgroup_report(54, 32, 4, 5, 10)["smem_bytes"] == 215_712
-    assert mk.qgroup_report(54, 32, 4, 5, 8)["smem_bytes"] == 122_976
+    assert mk.qgroup_report(54, 32, 4, 5, 10)["smem_bytes"] == 212_608     # 8 blocks x 4 rows
+    assert mk.qgroup_report(54, 32, 4, 5, 8)["smem_bytes"] == 222_592      # 4 blocks x 8 rows
+    # a patch whose 4-block strips do not fit takes 8 blocks, the last one idle
+    rep = mk.qgroup_report(54, (25, 32), 4, 5, 10)
+    assert (rep["cluster"], rep["rows_per_cta"]) == (8, 4) and 7 * 4 >= 25
 
 
 @pytest.mark.parametrize("mode", ["int8", "fxp10"])
@@ -214,5 +261,9 @@ def test_build_keys_of_the_new_kernels():
     assert len(set(keys.values())) == 4
     src = (_build.CSRC / "qmega.cu").read_text()
     assert '#include "qmath.cuh"' in src and 'extern "C" int qmega_forward(' in src
-    assert '#include "cluster.cuh"' in src
+    assert '#include "cluster.cuh"' in src and '#include "qmma.cuh"' in src
+    # the 1x1 dots on the tensor cores (qmma.cuh's dot_stage), no CUDA-core dot4;
+    # the division skipped on ReLU zeros
+    assert "dot_stage<T, 1, 4>(" in src and "dot_stage<T, 2, 4>(" in src and "dot4(" not in src
+    assert "relu_requant<T>(" in src and "cp_async16(" in (_build.CSRC / "qmma.cuh").read_text()
     assert 'extern "C" int edge_forward(' in (_build.CSRC / "edge.cu").read_text()

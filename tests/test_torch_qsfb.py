@@ -127,16 +127,16 @@ def _fp32_dot(x: torch.Tensor, w: torch.Tensor, kstep: int) -> torch.Tensor:
     return acc
 
 
-def test_fxp10_dot_route_is_exact_at_extreme_codes():
+@pytest.mark.parametrize("c", [3, 54, 64])     # the depths of qSFB and qmega's dots
+def test_fxp10_dot_route_is_exact_at_extreme_codes(c):
     r = np.random.default_rng(64)
-    c = 64
     sign = lambda *s: torch.from_numpy(r.integers(0, 2, s) * 2 - 1)
     x = sign(512, c) * 511
     x[:128] = 511                                   # rows of all +511
     w = sign(c, c) * 511
     w[:, 0::3], w[:, 1::3] = 511, -511              # columns of one sign
     exact = x.long() @ w.long()
-    assert exact.abs().max().item() == 511 * 511 * 64 < 2 ** 24
+    assert exact.abs().max().item() == 511 * 511 * c < 2 ** 24
     xf, wf = x.float(), w.float()
     # TF32 keeps 10 mantissa bits: a code up to 2^11 loses none of them
     assert ((xf.view(torch.int32) & 0x1FFF) == 0).all()
@@ -144,10 +144,12 @@ def test_fxp10_dot_route_is_exact_at_extreme_codes():
     for kstep in (8, 1, 64):                        # the TF32 k-step, FFMA order, one step
         got = _fp32_dot(xf, wf, kstep)
         assert torch.equal(got.to(torch.int64), exact)
-    # the bound is what makes it exact: at +-2047 the sums pass 2^24 and round
+    # the bound is what makes it exact: at +-2047 the sums of a depth past 3
+    # pass 2^24 and round (at depth 3 they stay below it)
     big_x, big_w = (x // 511 * 2047).float(), (w // 511 * 2047).float()
-    assert not torch.equal(_fp32_dot(big_x, big_w, 8).to(torch.int64),
-                           big_x.long() @ big_w.long())
+    big = big_x.long() @ big_w.long()
+    assert (big.abs().max().item() >= 2 ** 24) == (c > 3)
+    assert torch.equal(_fp32_dot(big_x, big_w, 8).to(torch.int64), big) == (c <= 3)
 
 
 def test_build_key_of_the_qsfb_kernel():
@@ -155,9 +157,12 @@ def test_build_key_of_the_qsfb_kernel():
     key = _build.source_key("qsfb")
     assert len(key) == 16 and _build.library_path("qsfb").name == f"qsfb-{key}.so"
     assert key not in {_build.source_key(n) for n in ("qconv", "qmega", "sfb")}
-    src = (_build.CSRC / "qsfb.cu").read_text()
-    assert 'extern "C" int qsfb_forward(' in src and 'extern "C" long long qsfb_smem_bytes(' in src
-    assert '#include "qmath.cuh"' in src
+    kernel = (_build.CSRC / "qsfb.cu").read_text()
+    assert 'extern "C" int qsfb_forward(' in kernel
+    assert 'extern "C" long long qsfb_smem_bytes(' in kernel
+    assert '#include "qmath.cuh"' in kernel and '#include "qmma.cuh"' in kernel
+    # the tensor-core pieces live in qmma.cuh, shared with the quantized megakernel
+    src = kernel + (_build.CSRC / "qmma.cuh").read_text()
     # the dots on the tensor cores: int8 exact integer mma, fxp10 TF32 on codes as floats
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
