@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 15, 11, 4, 8,
-12, 5, 6, 9 with 13 after each mode, 14, 10; any failure exits non-zero
+12, 5, 6, 9 with 13 after each mode, 16, 14, 10; any failure exits non-zero
 before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
@@ -12,21 +12,25 @@ before the last line:
      The SFB kernel's dynamic shared memory must equal sfb_report's at the
      main path's 32x32 patches and at the phase-3 shapes, and the qSFB
      kernel's (csrc/qsfb.cu) qsfb_report's at 32x32 and the phase-15 shapes,
-     both modes;
+     both modes, and the two megakernels' group_report's and qgroup_report's
+     at their checked shapes;
   3. hold each kernel against its plain PyTorch version on the card, at C54
      and C27 (bsconv also at Cin = 3) and N in {1, 7, 512}, rtol 1e-4 /
      atol 1e-5 (TF32 off for the plain versions); SFB also at shapes that cut
      a patch into column bands or end on a ragged step (2x40x72 C54,
      3x13x21 C27, 1x33x32 C54); the subnet-group megakernel (the whole
-     12-layer chain) against its plain version and against the layer chain
-     of kernels at C54 and C27, N in {1, 7, 512} and at an odd 13x21 patch,
-     rtol 1e-3 / atol 1e-3, and torch.equal to the layer chain at N = 7
-     (both sum every output in the same order);
+     12-layer chain, csrc/mega.cu) against its plain version (rtol 1e-3 /
+     atol 1e-3) and torch.equal to the layer chain of kernels (both sum
+     every output in the same order) at C54 and C27, with non-zero biases,
+     at the shapes of MEGA_SHAPES: Table I's patches 16, 32, 48 and 64,
+     N in {1, 7, 512} at 32x32, an odd 13x21 patch, ragged last strips
+     and an idle last block;
   4. time each kernel at N = 1024 C54 32x32 patches (CUDA events, median of
      25 launches) beside its plain version, a cuDNN composition of the same
      function (a yardstick only: the port never calls it) and its bound;
      the megakernel also beside the layer chain (the sum of the per-op
-     kernels' times);
+     kernels' times), torch.equal to it at N = 1024, and both through their
+     entry points (pixel shuffle included) at C54 and C27;
   5. the main path: SREngine.from_config(ESSRConfig(scale=4)) on the card
      with the default plan and backend "cuda", warm-up, then three
      synthetic 1920x1080 LR frames to 7680x4320 with every routing bucket
@@ -88,7 +92,11 @@ before the last line:
      patch into column bands or end on a ragged step (QSFB_SHAPES), on the
      calibrated model's operands at C54 and C27 and on synthetic extreme
      operands at C64 (every code and weight at +-qmax, so fxp10 sums reach
-     511^2 * 64), for "int8" and "fxp10".
+     511^2 * 64), for "int8" and "fxp10";
+ 16. a larger patch of Table I: one frame under ExecutionPlan(patch=48,
+     fusion="group"), fp32 and "int8", torch.equal to the same frame under
+     fusion="layer" at patch 48 with equal ids, one megakernel launch per
+     non-empty conv bucket.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -135,6 +143,13 @@ QSFB_SHAPES = ((2, 40, 72), (3, 13, 21), (1, 33, 32), (2, 17, 9))
 #: at C54, its last block idle) and a patch whose last block is idle (5 rows).
 QMEGA_SHAPES = ((1, 32, 32), (7, 32, 32), (512, 32, 32), (1024, 32, 32), (3, 13, 21),
                 (2, 17, 9), (1, 25, 32), (2, 5, 9))
+#: fp32 megakernel checks (N, H, W): the main path's 32x32 at three batch
+#: sizes, Table I's other patches (16: one block a patch; 48: 16 blocks at
+#: C54; 64: 16 blocks, unpadded pixels at C54), an odd patch in one block,
+#: ragged last strips (17x9; 25x32: 4 blocks of 7 rows), a patch shorter than
+#: its blocks (5x9) and idle last blocks (33x32: 16 blocks of 3 rows at C54).
+MEGA_SHAPES = ((1, 32, 32), (7, 32, 32), (512, 32, 32), (4, 16, 16), (4, 48, 48), (2, 64, 64),
+               (3, 13, 21), (2, 17, 9), (1, 25, 32), (2, 5, 9), (1, 33, 32))
 
 #: Every TPU kernel of the JAX package (each function reaching pl.pallas_call).
 TPU_KERNELS = (
@@ -614,6 +629,18 @@ def main() -> None:
                     f"{qrep['rows_per_cta']} rows, {qrep['threads']} threads)")
                 if got != qrep["smem_bytes"]:
                     fail("qgroup_report disagrees with the kernel's shared-memory size")
+    msmem = _build.load("mega").mega_smem_bytes
+    msmem.argtypes, msmem.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    for c in (54, 27):
+        for h, w in tuple((h, w) for _, h, w in MEGA_SHAPES[2:]):
+            mrep = mk.group_report(c, (h, w), 4, 5)
+            got = msmem(w, 3, c, 48, 5, mrep["rows_per_cta"], mrep["pixel_pad"])
+            say(f"  mega C{c} {h}x{w}: {got} B of dynamic shared memory per block "
+                f"(group_report {mrep['smem_bytes']} B, clusters of {mrep['cluster']}, "
+                f"{mrep['rows_per_cta']} rows, {mrep['threads']} threads, pixel pad "
+                f"{mrep['pixel_pad']})")
+            if got != mrep["smem_bytes"]:
+                fail("group_report disagrees with the megakernel's shared-memory size")
     sfb_lib = _build.load("sfb")
     sfb_lib.sfb_smem_bytes.argtypes, sfb_lib.sfb_smem_bytes.restype = [ctypes.c_int] * 3, \
         ctypes.c_longlong
@@ -659,7 +686,7 @@ def main() -> None:
     for width in (54, 27):
         tree, wbuf = mega_operands(width, g, torch)
         lay = mk.WeightLayout(3, width, cfg.out_channels, cfg.n_sfb)
-        for n, h, w in ((1, 32, 32), (7, 32, 32), (512, 32, 32), (3, 13, 21)):
+        for n, h, w in MEGA_SHAPES:
             x = torch.rand((n, h, w, 3), generator=g).cuda()
             got = mk.mega_fused(x, wbuf, width=width, n_sfb=cfg.n_sfb,
                                 out_channels=cfg.out_channels)
@@ -671,13 +698,12 @@ def main() -> None:
             mega = mk.essr_forward_megakernel(tree, x, cfg, width=width)
             torch.cuda.synchronize()
             err_layer = (mega - layer).abs().max().item()
-            ok_layer = torch.allclose(mega, layer, **CHAIN_TOL)
-            if n == 7:               # the same order of every sum: bit for bit
-                ok_layer = ok_layer and torch.equal(mega, layer)
-            say(f"phase check mega C={width} N={n} {h}x{w}: max_abs vs plain {err:.3e}, "
-                f"vs layer chain {err_layer:.3e} (rtol {CHAIN_TOL['rtol']:g} "
-                f"atol {CHAIN_TOL['atol']:g}{', torch.equal' if n == 7 else ''}) "
-                f"{'ok' if ok and ok_layer else 'MISMATCH'}")
+            ok_layer = torch.equal(mega, layer)     # the same order of every sum: bit for bit
+            mrep = mk.group_report(width, (h, w), cfg.scale, cfg.n_sfb)
+            say(f"phase check mega C={width} N={n} {h}x{w} ({mrep['cluster']} x "
+                f"{mrep['rows_per_cta']} rows): max_abs vs plain {err:.3e} (rtol "
+                f"{CHAIN_TOL['rtol']:g} atol {CHAIN_TOL['atol']:g}), vs layer chain "
+                f"{err_layer:.3e} (torch.equal) {'ok' if ok and ok_layer else 'MISMATCH'}")
             if not (ok and ok_layer):
                 fail("the megakernel disagrees with its plain version or the layer chain")
             max_err["mega"] = max(max_err["mega"], err)
@@ -843,6 +869,9 @@ def main() -> None:
     torch.cuda.synchronize()
     if not torch.allclose(got, want, **CHAIN_TOL):
         fail(f"mega disagrees with its plain version at N={TIMING_N}")
+    if not torch.equal(mk.essr_forward_megakernel(tree, x, cfg, width=54),
+                       essr_forward_kernels(tree, x, cfg, width=54)):
+        fail(f"mega is not torch.equal to the layer chain at N={TIMING_N}")
     max_err["mega"] = max(max_err["mega"], (got - want).abs().max().item())
     ms = median_ms(mega, torch)
     plain_ms = median_ms(lambda: mega_ref(x, wts), torch)
@@ -862,6 +891,13 @@ def main() -> None:
         f"by {timing['mega']['bound_by']} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
         f"sizing {json.dumps(sizing)}, resident clusters "
         f"{mk.resident_clusters(54, 32, cfg.scale, cfg.n_sfb)}")
+    timing["mega"]["layer_chain_ms"] = sum_ms
+    for width in (54, 27):           # both through their entry points, pixel shuffle included
+        ms_group = median_ms(lambda: mk.essr_forward_megakernel(tree, x, cfg, width=width), torch)
+        ms_layer = median_ms(lambda: essr_forward_kernels(tree, x, cfg, width=width), torch)
+        say(f"phase time mega vs layer chain N={TIMING_N} C{width} 32x32: "
+            f"essr_forward_megakernel {ms_group:.4f} ms, essr_forward_kernels {ms_layer:.4f} ms "
+            f"({ms_group / ms_layer:.3f}x)")
     del tree, wbuf, wts, x, got, want, yard
 
     # 8. the quantized kernels' times at N = 1024 C54
@@ -1114,6 +1150,31 @@ def main() -> None:
         del qeng, geng, qimgs, out, patches
         torch.cuda.empty_cache()
     del refs
+
+    # 16. a larger patch of Table I: group frames at patch 48 against layer frames
+    for quant in (None, "int8"):
+        kw = dict(patch=48, overlap=2, quant=quant)
+        layer48 = SREngine(engine.model, plan=ExecutionPlan(**kw), device="cuda")
+        group48 = SREngine(engine.model, plan=ExecutionPlan(**kw, fusion="group"), device="cuda")
+        a = layer48.upscale(frames[0])
+        reset_launch_counts()
+        b = group48.upscale(frames[0])
+        counts = launch_counts()
+        kern = "qmega" if quant else "mega"
+        buckets = sum(1 for k in (1, 2) if b.counts[k] > 0)
+        same, ids_equal = torch.equal(a.image, b.image), bool(np.array_equal(a.ids, b.ids))
+        sizing = (mk.qgroup_report(54, 48, cfg.scale, cfg.n_sfb, 8) if quant
+                  else mk.group_report(54, 48, cfg.scale, cfg.n_sfb))
+        say(f"phase patch48 {quant or 'fp32'}: group frame {b.latency_s * 1e3:.2f} ms (first "
+            f"call), layer frame {a.latency_s * 1e3:.2f} ms, counts {b.counts}, {kern} launches "
+            f"{counts[kern]} (expected {buckets}), ids equal {ids_equal}, image torch.equal "
+            f"{same}; C54 sizing {json.dumps(sizing)}")
+        if not (same and ids_equal and buckets > 0 and counts[kern] == buckets
+                and sum(counts.values()) == buckets):
+            fail(f"the patch-48 group frame ({quant or 'fp32'}) disagrees with the layer frame "
+                 f"or did not launch {kern} once per non-empty conv bucket")
+        del layer48, group48, a, b
+    torch.cuda.empty_cache()
 
     # 14. the edge-score kernel through its own entry point, on the frames' patches
     from repro_torch.core import subnet_policy as sp

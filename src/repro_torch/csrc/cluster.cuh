@@ -1,12 +1,14 @@
 // Thread-block-cluster plumbing of the subnet-group megakernels (mega.cu,
-// fp32; qmega.cu, integer codes): a persistent cluster launch, and mega.cu's
-// halo-row exchange over distributed shared memory (qmega.cu pushes its halo
-// rows instead, push_halo).
+// fp32; qmega.cu, integer codes): a persistent cluster launch, the two
+// halves of a cluster barrier, and the halo rows a block pushes into its
+// neighbours' shared memory.
 //
 // Layout they share: each patch belongs to one cluster, each block of the
-// cluster owns a strip of `rows` consecutive rows, and a depthwise layer's
-// input sits in a block's buffer A with one halo row above (row 0) and one
-// below (row rows + 1) its interior rows 1..rows.
+// cluster owns a strip of `rows` consecutive rows, and a depthwise layer
+// reads, besides its strip, one halo row above and one below it: the last
+// row of the block above and the first row of the block below, which those
+// blocks push (push_halo: remote stores and a cluster barrier, qmega.cu;
+// push_halo_bulk: bulk copies on the receiver's mbarrier, mega.cu).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -17,45 +19,147 @@ namespace essr {
 
 namespace cg = cooperative_groups;
 
+// The two halves of a cluster barrier: every thread of the cluster
+// alternates them, arrive first. Between the two a block may work on what no
+// other block touches. arrive has release semantics (a fence at GPU scope),
+// arrive_relaxed none: it suits an arrive that only says "I have read",
+// every value read having been consumed before it issues. wait has acquire
+// semantics.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// An mbarrier in shared memory, and bulk copies from this block's shared
+// memory into another block's that complete on that block's mbarrier: the
+// receiver learns that the bytes have landed by waiting on its own barrier,
+// with no fence at GPU scope and no cluster barrier.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// The shared::cluster address of `p`'s counterpart in block `rank`.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(shared_addr(p)), "r"(rank));
+  return d;
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_addr(bar)), "r"(count)
+               : "memory");
+}
+// Makes initialised mbarriers visible to the cluster (before a cluster barrier).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` of bulk copies in this phase.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(shared_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT:\n mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT;\n}\n" ::"r"(shared_addr(bar)), "r"(parity)
+      : "memory");
+}
+// Orders this thread's earlier shared-memory writes before later bulk copies
+// that read them (the copies run in the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// `bytes` (a multiple of 16) from my shared memory at `src` to the
+// shared::cluster address `dst`, completing on the mbarrier at `bar` (in
+// dst's block); the caller commits.
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, int bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(shared_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A depthwise layer's halo rows as two bulk copies, issued by one thread:
+// my first row into the `bot` of rank - 1, my last into the `top` of rank +
+// 1 when that block's strip lies inside the patch (a neighbour's halo rows
+// lie at the same offsets of its shared memory as mine), each completing on
+// the receiver's `bar`. The halo rows no neighbour fills are not touched: the
+// caller zeroes them once. The receiver expects halo_bytes(...) a phase;
+// the sender waits for its copies to have read their rows
+// (bulk_wait_read) before it writes those rows again.
+__device__ __forceinline__ void push_halo_bulk(const char* first, const char* last, char* top,
+                                               char* bot, uint64_t* bar, int rank, int cs,
+                                               int r0, int rows, int H, int row_bytes) {
+  if (rank > 0)
+    bulk_copy(cluster_addr(bot, rank - 1), first, row_bytes, cluster_addr(bar, rank - 1));
+  if (rank + 1 < cs && r0 + rows < H)
+    bulk_copy(cluster_addr(top, rank + 1), last, row_bytes, cluster_addr(bar, rank + 1));
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Bytes of halo rows a block receives a layer under push_halo_bulk: from
+// rank - 1 when my strip lies inside the patch, from rank + 1 when its does.
+__device__ __forceinline__ unsigned halo_bytes(int rank, int cs, int r0, int rows, int H,
+                                               int row_bytes) {
+  return (unsigned)row_bytes * ((rank > 0 && r0 < H) + (rank + 1 < cs && r0 + rows < H));
+}
+
 template <class V>
-__device__ __forceinline__ void copy_halo(const V* top_src, const V* bot_src, V* top, V* bot,
-                                          int n) {
+__device__ __forceinline__ void push_rows(const V* first, const V* last, V* up, V* down, V* top,
+                                          V* bot, int n) {
   const V zero{};
   for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
-    if (i < n)
-      top[i] = top_src ? top_src[i] : zero;
-    else
-      bot[i - n] = bot_src ? bot_src[i - n] : zero;
+    if (i < n) {
+      if (up) up[i] = first[i];
+      else top[i] = zero;
+    } else {
+      if (down) down[i - n] = last[i - n];
+      else bot[i - n] = zero;
+    }
   }
 }
 
-// Fill the halo rows of A (`row_bytes` each: fp32 rows or code rows alike,
-// a multiple of 4) from the neighbours' strips: the row above is the last
-// interior row of the block of rank - 1, the row below the first interior
-// row of the block of rank + 1; zero at the patch border and past H. The
-// cluster barrier first makes every block's interior rows visible; blocks
-// whose strip lies past H (`active` false) keep the barrier and copy
-// nothing.
-__device__ __forceinline__ void exchange(cg::cluster_group& cl, unsigned char* A, int rank,
-                                         int cs, int r0, int rows, int H, int row_bytes,
-                                         bool active) {
-  cl.sync();
-  if (!active) return;
-  const bool has_top = rank > 0 && r0 - 1 < H;
-  const bool has_bot = rank + 1 < cs && r0 + rows < H;
-  const unsigned char* ts =
-      has_top ? cl.map_shared_rank(A, rank - 1) + (size_t)rows * row_bytes : nullptr;
-  const unsigned char* bs = has_bot ? cl.map_shared_rank(A, rank + 1) + row_bytes : nullptr;
-  unsigned char* top = A;
-  unsigned char* bot = A + (size_t)(rows + 1) * row_bytes;
-  if (row_bytes % 16 == 0)
-    copy_halo(reinterpret_cast<const uint4*>(ts), reinterpret_cast<const uint4*>(bs),
-              reinterpret_cast<uint4*>(top), reinterpret_cast<uint4*>(bot), row_bytes / 16);
-  else
-    copy_halo(reinterpret_cast<const uint32_t*>(ts), reinterpret_cast<const uint32_t*>(bs),
-              reinterpret_cast<uint32_t*>(top), reinterpret_cast<uint32_t*>(bot),
-              row_bytes / 4);
+// The halo rows of a map A whose halo rows sit in the map (row 0 above,
+// row rows + 1 below the interior rows 1..rows; `row_bytes` each, fp32 rows
+// or code rows alike, a multiple of 8), pushed by remote stores once its
+// interior rows are written: my first interior row goes to the bottom halo
+// row of rank - 1, my last to the top halo row of rank + 1 when that block's
+// strip lies inside the patch; a halo row of mine that no neighbour fills
+// (the patch border, rows past H) is zeroed. The cluster barrier then makes
+// every row visible. Only the halo rows of the map of the layer at hand are
+// written remotely, so a block may use the rest of its buffers between the
+// barriers; blocks whose strip lies past H (`active` false) keep the
+// barrier and send nothing.
+__device__ __forceinline__ void push_halo(cg::cluster_group& cl, char* A, int rank, int cs, int r0,
+                                          int rows, int H, int row_bytes, bool active) {
   __syncthreads();
+  if (active) {
+    char* top = A;
+    char* bot = A + (size_t)(rows + 1) * row_bytes;
+    char* up = rank > 0 ? cl.map_shared_rank(bot, rank - 1) : nullptr;
+    char* down = rank + 1 < cs && r0 + rows < H ? cl.map_shared_rank(top, rank + 1) : nullptr;
+    const char* first = A + row_bytes;
+    const char* last = A + (size_t)rows * row_bytes;
+    if (row_bytes % 16 == 0)
+      push_rows(reinterpret_cast<const uint4*>(first), reinterpret_cast<const uint4*>(last),
+                reinterpret_cast<uint4*>(up), reinterpret_cast<uint4*>(down),
+                reinterpret_cast<uint4*>(top), reinterpret_cast<uint4*>(bot), row_bytes / 16);
+    else
+      push_rows(reinterpret_cast<const uint2*>(first), reinterpret_cast<const uint2*>(last),
+                reinterpret_cast<uint2*>(up), reinterpret_cast<uint2*>(down),
+                reinterpret_cast<uint2*>(top), reinterpret_cast<uint2*>(bot), row_bytes / 8);
+  }
+  cl.sync();
 }
 
 // Launch configuration of a cluster kernel taking one argument struct:
@@ -79,12 +183,17 @@ struct ClusterLaunch {
     cfg.stream = stream;
     cfg.numAttrs = 1;
   }
-  // Clusters resident on the card at once (0: none fits).
+  // Clusters resident on the card at once (0: none fits). Clusters of more
+  // than 8 blocks (the portable limit; the H100 takes 16) are allowed.
   cudaError_t max_clusters(int* n) {
     cfg.attrs = attr;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)cfg.dynamicSmemBytes);
     if (e != cudaSuccess) return e;
+    if (attr[0].val.clusterDim.x > 8 &&
+        (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+            cudaSuccess)
+      return e;
     return cudaOccupancyMaxActiveClusters(n, (const void*)kernel, &cfg);
   }
   // A persistent grid of as many clusters as the card holds at once (at

@@ -174,52 +174,6 @@ __device__ __forceinline__ void fetch(const unsigned char* src, int bytes, char*
     cp_async16(dst + 16 * i, reinterpret_cast<const char*>(src) + 16 * i);
 }
 
-// The halo rows of this layer's map A (`row_bytes` each, fp32 rows or code
-// rows alike, a multiple of 8), pushed once its interior rows are written:
-// my first interior row goes to the bottom halo row of rank - 1, my last to
-// the top halo row of rank + 1 when that block's strip lies inside the
-// patch; a halo row of mine that no neighbour fills (the patch border, rows
-// past H) is zeroed. The cluster barrier then makes every row visible. Only
-// the halo rows of the map of the layer at hand are written remotely, so a
-// block may use the rest of its buffers between the barriers; blocks whose
-// strip lies past H (`active` false) keep the barrier and send nothing.
-template <class V>
-__device__ __forceinline__ void push_rows(const V* first, const V* last, V* up, V* down, V* top,
-                                          V* bot, int n) {
-  const V zero{};
-  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
-    if (i < n) {
-      if (up) up[i] = first[i];
-      else top[i] = zero;
-    } else {
-      if (down) down[i - n] = last[i - n];
-      else bot[i - n] = zero;
-    }
-  }
-}
-
-__device__ __forceinline__ void push_halo(cg::cluster_group& cl, char* A, int rank, int cs, int r0,
-                                          int rows, int H, int row_bytes, bool active) {
-  __syncthreads();
-  if (active) {
-    char* top = A;
-    char* bot = A + (size_t)(rows + 1) * row_bytes;
-    char* up = rank > 0 ? cl.map_shared_rank(bot, rank - 1) : nullptr;
-    char* down = rank + 1 < cs && r0 + rows < H ? cl.map_shared_rank(top, rank + 1) : nullptr;
-    const char* first = A + row_bytes;
-    const char* last = A + (size_t)rows * row_bytes;
-    if (row_bytes % 16 == 0)
-      push_rows(reinterpret_cast<const uint4*>(first), reinterpret_cast<const uint4*>(last),
-                reinterpret_cast<uint4*>(up), reinterpret_cast<uint4*>(down),
-                reinterpret_cast<uint4*>(top), reinterpret_cast<uint4*>(bot), row_bytes / 16);
-    else
-      push_rows(reinterpret_cast<const uint2*>(first), reinterpret_cast<const uint2*>(last),
-                reinterpret_cast<uint2*>(up), reinterpret_cast<uint2*>(down),
-                reinterpret_cast<uint2*>(top), reinterpret_cast<uint2*>(bot), row_bytes / 8);
-  }
-  cl.sync();
-}
-
 // Integer 1x1 over the strip's first `valid` pixels of operand buffer X into
 // the interior rows of the fp32 map A: dequant(X[p] . w) + bias; the interior
 // pixels from `valid` to P (rows past H) get 0, the SAME padding of the

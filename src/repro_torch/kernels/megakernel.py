@@ -8,19 +8,25 @@ feature in shared memory from entry to exit; pixel shuffle follows outside.
 
 The TPU kernel's sizing (a VMEM budget and MXU rows, ``autotune_report``)
 does not carry over: on the H100 a patch is spread over a thread-block
-cluster, one strip of rows per block, sized by :func:`group_report` from the
-shared-memory limit of a block. The weights of one (param tree, width) are
-packed once into a single zero-padded buffer (:func:`pack_weights`, cached).
-``mega_fused.launches`` counts launches.
+cluster of 1 to 16 blocks, one strip of full-width rows per block, sized by
+:func:`group_report` from the shared-memory limit of a block. It serves
+every patch of the paper's Table I (16, 32, 48 and 64) at C27 and C54. The
+weights of one (param tree, width) are packed once into a single zero-padded
+buffer of per-layer pieces (:func:`pack_weights`, cached), which the kernel
+stages one layer ahead. ``mega_fused.launches`` counts launches.
 
 The quantized twin (``essr_forward_qmegakernel``, ``csrc/qmega.cu``) serves
 ``ExecutionPlan(quant=..., fusion="group")``: quantize once, the whole
 integer chain with the codes in shared memory, the recon codes out; one
 launch per routed bucket, ``qmega_fused.launches``. It keeps the cluster
-layout (4 or 8 blocks a cluster, sized by :func:`qgroup_report`) and runs its
-1x1 dots on the tensor cores, with the prepared integer operands packed once
-into one byte buffer in the dots' operand layout (:func:`pack_qweights`,
+layout (4, 8 or 16 blocks a cluster, sized by :func:`qgroup_report`) and runs
+its 1x1 dots on the tensor cores, with the prepared integer operands packed
+once into one byte buffer in the dots' operand layout (:func:`pack_qweights`,
 cached).
+
+Both wrappers take their plain versions for CPU tensors at any patch size;
+the launch shape is sized, and a shape no layout holds refused, only for a
+CUDA tensor.
 """
 from __future__ import annotations
 
@@ -38,13 +44,26 @@ from repro_torch.models.essr import ESSRConfig, slice_width
 from repro_torch.models.layers import pixel_shuffle
 from repro_torch.quant.pams import QuantPack, code_dtype
 
-#: Blocks of one cluster, each owning a strip of a patch's rows (the portable
-#: maximum cluster size).
-CLUSTER = 8
+#: Cluster sizes of the fp32 megakernel, in the order tried; more than 8
+#: blocks is a non-portable cluster size, which the H100 takes.
+MEGA_CLUSTERS = (1, 2, 4, 8, 16)
+#: Floats a pixel of the fp32 megakernel's maps takes past its channels
+#: (padded to 8), in the order tried: 4 puts the 16-byte loads of
+#: consecutive pixels on distinct banks; 0 where nothing else fits.
+MEGA_PIXEL_PADS = (4, 0)
+#: Threads of an fp32 megakernel block at most (csrc/mega.cu ``MAX_THREADS``).
+MEGA_MAX_THREADS = 448
+#: Largest patch edge the megakernels serve (Table I's largest).
+MAX_PATCH = 64
 #: Shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232_448
-#: Threads of a block at most (csrc/mega.cu ``MAX_THREADS``).
-MAX_THREADS = 512
+#: H100 SM: shared memory (228 KB, of which the runtime reserves 1 KB a
+#: block), threads and 32-bit registers; the megakernel's threads hold at
+#: most 128 registers (csrc/mega.cu's launch bounds).
+SM_SMEM, SMEM_RESERVED, SM_THREADS, SM_REGISTERS, MEGA_REGISTERS = \
+    233_472, 1_024, 2_048, 65_536, 128
+#: Threads of a quantized megakernel block at most (csrc/qmega.cu ``MAX_THREADS``).
+QMEGA_MAX_THREADS = 512
 #: H100 SXM data sheet: fp32 outside the tensor cores, and device memory.
 H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
 #: H100 SXM data sheet: dense int8 and TF32 on the tensor cores.
@@ -55,40 +74,64 @@ QMEGA_MAX_WIDTH = 64
 #: Cluster sizes of the quantized megakernel, in the order tried: the first
 #: whose strip fits a block. Taller strips pay fewer halo barriers a row, and
 #: the card holds more 4-block clusters than 8-block ones.
-QMEGA_CLUSTERS = (4, 8)
+QMEGA_CLUSTERS = (4, 8, 16)
 
 
 def _round4(c: int) -> int:
     return (c + 3) & ~3
 
 
+def _round8(c: int) -> int:
+    return (c + 7) & ~7
+
+
 @dataclasses.dataclass(frozen=True)
 class WeightLayout:
-    """Float sizes of the packed weight buffer's three parts (the same sums
-    as ``Layout`` in csrc/mega.cu). Channels pad to multiples of 4."""
+    """Float sizes of the packed weight buffer (the same sums as ``Shape`` in
+    csrc/mega.cu). It is a sequence of pieces in the TPU kernel's operand
+    order: a 1x1 (its depth padded to 4, its outputs to 8) with its bias, or
+    a 3x3 (9 taps, channels padded to 8) with its bias."""
     cin: int
     width: int
     cout: int
     n_sfb: int
 
     @property
-    def padded(self) -> Tuple[int, int, int]:
-        return _round4(self.cin), _round4(self.width), _round4(self.cout)
+    def padded(self) -> Tuple[int, int, int, int]:
+        """(Cin to 4, C to 4: the dot depth, C to 8, Cout to 8)."""
+        return (_round4(self.cin), _round4(self.width), _round8(self.width),
+                _round8(self.cout))
 
     @property
-    def first(self) -> int:          # pw (cpi, cp), pw_b, dw (9, cp), dw_b
-        cpi, cp, _ = self.padded
-        return cpi * cp + 11 * cp
+    def first_pw(self) -> int:       # pw (cpi, cp8), pw_b
+        cpi, _, cp8, _ = self.padded
+        return cpi * cp8 + cp8
 
     @property
-    def sfb(self) -> int:            # 2 x (pw (cp, cp), pw_b, dw, dw_b), fuse, fuse_b
-        _, cp, _ = self.padded
-        return 3 * cp * cp + 23 * cp
+    def dw(self) -> int:             # dw (9, cp8), dw_b
+        return 10 * self.padded[2]
 
     @property
-    def recon(self) -> int:          # dw (9, cp), dw_b, pw (cp, cpo), pw_b
-        _, cp, cpo = self.padded
-        return 10 * cp + cp * cpo + cpo
+    def pw(self) -> int:             # pw (cp4, cp8), pw_b
+        _, cp4, cp8, _ = self.padded
+        return cp4 * cp8 + cp8
+
+    @property
+    def recon_pw(self) -> int:       # pw (cp4, cpo8), pw_b
+        _, cp4, _, cpo8 = self.padded
+        return cp4 * cpo8 + cpo8
+
+    @property
+    def first(self) -> int:
+        return self.first_pw + self.dw
+
+    @property
+    def sfb(self) -> int:            # b1 (pw, dw), b2 (pw, dw), fuse (pw)
+        return 3 * self.pw + 2 * self.dw
+
+    @property
+    def recon(self) -> int:          # dw, then pw
+        return self.dw + self.recon_pw
 
     @property
     def size(self) -> int:
@@ -96,37 +139,77 @@ class WeightLayout:
 
     @property
     def stage(self) -> int:
-        """Floats of the largest layer group a block stages at once."""
-        return max(self.first, self.recon, self.sfb if self.n_sfb else 0)
+        """Floats of the largest piece: one slot of the kernel's two-slot ring."""
+        return max(self.first_pw, self.dw, self.recon_pw, self.pw if self.n_sfb else 0)
+
+
+def _mega_smem(lay: WeightLayout, rows: int, w: int, pad: int) -> int:
+    """Shared-memory bytes of one block: F and A (the output stage too), B,
+    the two halo rows, the two ring slots and the halo rows' mbarrier (16
+    bytes) (csrc/mega.cu ``Shape``)."""
+    st = lay.padded[2] + pad
+    m = rows * w * st
+    fa = max(2 * m, _round4(rows * w * lay.cout))
+    return 4 * (fa + m + 2 * w * st + 2 * lay.stage + 4)
+
+
+def _check_patch(what: str, h: int, w: int) -> None:
+    if max(h, w) > MAX_PATCH:
+        raise ValueError(f"{what}: patch {h}x{w}: the megakernels serve patches up to "
+                         f"{MAX_PATCH}x{MAX_PATCH} (Table I's largest); a larger one is "
+                         f"ROADMAP queue 3's open fault")
+
+
+def _mega_shape(lay: WeightLayout, cluster: int, h: int, w: int, pad: int) -> Dict[str, int]:
+    """A launch shape: rows a block, its shared memory, threads (one per 8
+    output channels of 4 pixels of a C -> C pointwise layer) and the blocks
+    an SM holds at once."""
+    rows = -(-h // cluster)
+    smem = _mega_smem(lay, rows, w, pad)
+    items = lay.padded[2] // 8 * -(-rows * w // 4)
+    threads = min(MEGA_MAX_THREADS, max(64, 32 * -(-items // 32)))
+    per_sm = min(SM_SMEM // (smem + SMEM_RESERVED), SM_THREADS // threads,
+                 SM_REGISTERS // (threads * MEGA_REGISTERS))
+    return {"cluster": cluster, "rows": rows, "smem": smem, "threads": threads,
+            "pad": pad, "per_sm": per_sm}
 
 
 def _sizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int) -> Dict[str, Any]:
-    """The launch shape and work of one patch; raises ValueError when a block's
-    share of the patch does not fit in shared memory."""
+    """The launch shape and work of one patch. Of the cluster sizes whose
+    strip fits a block (padded pixels where any does, else unpadded), the one
+    that keeps the most strip rows resident on an SM (blocks an SM x rows a
+    block), the fewer blocks a cluster on a tie: taller strips pay fewer
+    cluster barriers a row, more blocks an SM hide one block's barriers and
+    latencies behind another's work. Raises ValueError when no strip fits,
+    or for a patch past 64."""
     if min(width, h, w, cin, cout) < 1 or n_sfb < 0:
         raise ValueError(f"group_report: width {width}, patch {h}x{w}, cin {cin}, "
                          f"cout {cout}, n_sfb {n_sfb}: every size must be positive")
+    _check_patch("group_report", h, w)
     lay = WeightLayout(cin, width, cout, n_sfb)
-    cpi, cp, _ = lay.padded
-    rows = -(-h // CLUSTER)
-    pp = _round4(rows * w)
-    smem = 4 * (pp * cp + 2 * (rows + 2) * w * cp + pp * max(cp, cpi) + lay.stage)
-    if smem > SMEM_LIMIT:
+    for pad in MEGA_PIXEL_PADS:
+        fits = [sh for sh in (_mega_shape(lay, c, h, w, pad) for c in MEGA_CLUSTERS)
+                if sh["smem"] <= SMEM_LIMIT]
+        if fits:
+            break
+    else:
+        c = MEGA_CLUSTERS[-1]
         raise ValueError(
-            f"group_report: width {width}, patch {h}x{w}: a block of the {CLUSTER}-block "
-            f"cluster ({rows} rows) needs {smem} B of shared memory, over the H100's "
-            f"{SMEM_LIMIT} B per block")
-    # one thread per (4 output channels, 4 pixels) of a C -> C pointwise layer
-    threads = min(MAX_THREADS, max(64, 32 * -(-(cp // 4) * (pp // 4) // 32)))
+            f"group_report: width {width}, patch {h}x{w}: a block of the {c}-block cluster "
+            f"({-(-h // c)} rows) needs {_mega_smem(lay, -(-h // c), w, pad)} B of shared "
+            f"memory, over the H100's {SMEM_LIMIT} B per block")
+    best = max(fits, key=lambda f: (f["per_sm"] * f["rows"], -f["cluster"]))
+    cluster, rows, smem, threads = best["cluster"], best["rows"], best["smem"], best["threads"]
     macs = cin * width + 9 * width + n_sfb * (3 * width * width + 18 * width) \
         + 9 * width + width * cout
     flops = 2 * macs * h * w
     nbytes = 4 * h * w * (cin + cout)
     weight_bytes = 4 * (cin * width + 11 * width + n_sfb * (3 * width * width + 23 * width)
                         + 10 * width + width * cout + cout)
-    return {"cluster": CLUSTER, "rows_per_cta": rows, "threads": threads,
-            "smem_bytes": smem, "smem_limit": SMEM_LIMIT, "weight_floats": lay.size,
-            "flops_per_patch": flops, "bytes_per_patch": nbytes,
+    return {"cluster": cluster, "rows_per_cta": rows, "threads": threads,
+            "pixel_pad": best["pad"], "blocks_per_sm": best["per_sm"], "smem_bytes": smem,
+            "smem_limit": SMEM_LIMIT,
+            "weight_floats": lay.size, "flops_per_patch": flops, "bytes_per_patch": nbytes,
             "weight_bytes": weight_bytes,
             "bound": "operations" if flops / H100_FP32_FLOPS >= nbytes / H100_HBM_BYTES
             else "bytes"}
@@ -135,13 +218,16 @@ def _sizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int) -> Dict
 def group_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
                  n_sfb: int = 5, *, in_channels: int = 3) -> Dict[str, Any]:
     """Static sizing of the megakernel on the H100 at one (width, patch)
-    point: cluster size, rows per block (CTA), threads, shared-memory bytes
-    per block against the 232,448 B limit, fp32 FLOP and device-memory bytes
-    per patch (each input read once, each pre-shuffle output written once;
-    the weights once per launch, in ``weight_bytes``), and which of the two
-    bounds the launch on the data sheet's 67 TFLOP/s and 3.35 TB/s
-    ("operations" / "bytes"). ``patch``: an edge or (h, w). Raises
-    ValueError for a shape whose strip does not fit a block."""
+    point: cluster size (of 1, 2, 4, 8, 16 blocks, the one that keeps the
+    most strip rows resident on an SM), rows per block (CTA), threads, the
+    floats a pixel takes past its channels (``pixel_pad``), the blocks an SM
+    holds at once (``blocks_per_sm``), shared-memory bytes per block against the
+    232,448 B limit, fp32 FLOP and device-memory bytes per patch (each input
+    read once, each pre-shuffle output written once; the weights once per
+    launch, in ``weight_bytes``), and which of the two bounds the launch on
+    the data sheet's 67 TFLOP/s and 3.35 TB/s ("operations" / "bytes").
+    ``patch``: an edge or (h, w). Raises ValueError for a patch past 64 and
+    for a shape whose strip fits no block."""
     h, w = (patch, patch) if isinstance(patch, int) else (int(patch[0]), int(patch[1]))
     return _sizing(width, h, w, in_channels, in_channels * scale * scale, n_sfb)
 
@@ -162,28 +248,30 @@ def _operands(params: Dict[str, Any]) -> List[Tuple[torch.Tensor, Tuple[int, int
     first, recon = params["first"], params["recon"]
     cin, c = first["pw"].shape[2], first["pw"].shape[3]
     cout = recon["pw"].shape[-1]
-    cpi, cp, cpo = _round4(cin), _round4(c), _round4(cout)
+    cpi, cp4, cp8, cpo8 = WeightLayout(cin, c, cout, len(params["sfbs"])).padded
 
     def bs(p, rows):
-        return [(p["pw"][0, 0], (rows, cp)), (_bias(p, "pw_b", c, p["pw"])[None], (1, cp)),
-                (p["dw"][:, :, 0, :].reshape(9, c), (9, cp)),
-                (_bias(p, "dw_b", c, p["dw"])[None], (1, cp))]
+        return [(p["pw"][0, 0], (rows, cp8)), (_bias(p, "pw_b", c, p["pw"])[None], (1, cp8)),
+                (p["dw"][:, :, 0, :].reshape(9, c), (9, cp8)),
+                (_bias(p, "dw_b", c, p["dw"])[None], (1, cp8))]
 
     ops = bs(first, cpi)
     for s in params["sfbs"]:
-        ops += bs(s["b1"], cp) + bs(s["b2"], cp)
-        ops += [(s["fuse"][0, 0], (cp, cp)), (_bias(s, "fuse_b", c, s["fuse"])[None], (1, cp))]
-    ops += [(recon["dw"][:, :, 0, :].reshape(9, c), (9, cp)),
-            (_bias(recon, "dw_b", c, recon["dw"])[None], (1, cp)),
-            (recon["pw"][0, 0], (cp, cpo)),
-            (_bias(recon, "pw_b", cout, recon["pw"])[None], (1, cpo))]
+        ops += bs(s["b1"], cp4) + bs(s["b2"], cp4)
+        ops += [(s["fuse"][0, 0], (cp4, cp8)),
+                (_bias(s, "fuse_b", c, s["fuse"])[None], (1, cp8))]
+    ops += [(recon["dw"][:, :, 0, :].reshape(9, c), (9, cp8)),
+            (_bias(recon, "dw_b", c, recon["dw"])[None], (1, cp8)),
+            (recon["pw"][0, 0], (cp4, cpo8)),
+            (_bias(recon, "pw_b", cout, recon["pw"])[None], (1, cpo8))]
     return ops
 
 
 def pack_weights(params: Dict[str, Any], width: int) -> torch.Tensor:
     """The param tree at ``width`` -> one contiguous fp32 buffer on the
     weights' device: the 58 operands (at 5 SFBs) in the TPU kernel's order,
-    each zero-padded to channel counts that are multiples of 4."""
+    each zero-padded: a 1x1's depth to a multiple of 4, every output channel
+    count to a multiple of 8 (:class:`WeightLayout`)."""
     if width != params["first"]["pw"].shape[-1]:
         params = slice_width(params, width)
     parts = []
@@ -197,7 +285,7 @@ def pack_weights(params: Dict[str, Any], width: int) -> torch.Tensor:
 def unpack_weights(wbuf: torch.Tensor, lay: WeightLayout) -> Dict[str, Any]:
     """Views of a packed buffer at the real channel counts, in the form
     `kernels.ref.mega_ref` takes."""
-    cpi, cp, cpo = lay.padded
+    cpi, cp4, cp8, cpo8 = lay.padded
     c, off = lay.width, 0
 
     def take(rows, cols, r, k):
@@ -206,19 +294,19 @@ def unpack_weights(wbuf: torch.Tensor, lay: WeightLayout) -> Dict[str, Any]:
         off += rows * cols
         return v
 
-    first = {"pw": take(cpi, cp, lay.cin, c), "pw_b": take(1, cp, 1, c)[0],
-             "dw": take(9, cp, 9, c).reshape(3, 3, c), "dw_b": take(1, cp, 1, c)[0]}
+    first = {"pw": take(cpi, cp8, lay.cin, c), "pw_b": take(1, cp8, 1, c)[0],
+             "dw": take(9, cp8, 9, c).reshape(3, 3, c), "dw_b": take(1, cp8, 1, c)[0]}
     sfbs = []
     for _ in range(lay.n_sfb):
         p = {}
         for b in ("b1", "b2"):
-            p.update({f"{b}_pw": take(cp, cp, c, c), f"{b}_pwb": take(1, cp, 1, c)[0],
-                      f"{b}_dw": take(9, cp, 9, c).reshape(3, 3, c),
-                      f"{b}_dwb": take(1, cp, 1, c)[0]})
-        p["fuse"], p["fuse_b"] = take(cp, cp, c, c), take(1, cp, 1, c)[0]
+            p.update({f"{b}_pw": take(cp4, cp8, c, c), f"{b}_pwb": take(1, cp8, 1, c)[0],
+                      f"{b}_dw": take(9, cp8, 9, c).reshape(3, 3, c),
+                      f"{b}_dwb": take(1, cp8, 1, c)[0]})
+        p["fuse"], p["fuse_b"] = take(cp4, cp8, c, c), take(1, cp8, 1, c)[0]
         sfbs.append(p)
-    recon = {"dw": take(9, cp, 9, c).reshape(3, 3, c), "dw_b": take(1, cp, 1, c)[0],
-             "pw": take(cp, cpo, c, lay.cout), "pw_b": take(1, cpo, 1, lay.cout)[0]}
+    recon = {"dw": take(9, cp8, 9, c).reshape(3, 3, c), "dw_b": take(1, cp8, 1, c)[0],
+             "pw": take(cp4, cpo8, c, lay.cout), "pw_b": take(1, cpo8, 1, lay.cout)[0]}
     return {"first": first, "sfbs": sfbs, "recon": recon}
 
 
@@ -261,27 +349,29 @@ def mega_fused(x: torch.Tensor, wbuf: torch.Tensor, *, width: int, n_sfb: int,
     (Cin, width, out_channels, n_sfb) -> the pre-shuffle (N,H,W,out_channels).
 
     CPU tensors take the plain version (`kernels.ref.mega_ref` on the
-    unpacked views); CUDA tensors launch the kernel or raise. N = 0 returns
-    an empty output, no launch. A patch whose strip does not fit a block's
-    shared memory raises ValueError on either device."""
+    unpacked views) at any patch size; CUDA tensors launch the kernel or
+    raise. N = 0 returns an empty output, no launch. On the card a patch
+    past 64, or whose strip fits no block's shared memory, raises
+    ValueError before any launch."""
     check_operands("mega_fused", x, {})
     n, h, w, cin = x.shape
     check_channels("mega_fused", Cin=cin, C=width, Cout=out_channels)
-    rep = _sizing(width, h, w, cin, out_channels, n_sfb)
     lay = WeightLayout(cin, width, out_channels, n_sfb)
     check_operands("mega_fused", x, {"wbuf": (wbuf, (lay.size,))})
     if x.device.type == "cpu":
         return mega_ref(x, unpack_weights(wbuf, lay))
     if x.device.type != "cuda":
         raise ValueError(f"mega_fused: no kernel for device {x.device}")
+    rep = _sizing(width, h, w, cin, out_channels, n_sfb)
     if wbuf.data_ptr() % 16:
-        raise ValueError("mega_fused: wbuf must be 16-byte aligned (the kernel copies float4s)")
+        raise ValueError("mega_fused: wbuf must be 16-byte aligned (the kernel copies 16 B)")
     out = torch.empty((n, h, w, out_channels), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    launch = _build.entry("mega", "mega_forward", 3, 10)
+    launch = _build.entry("mega", "mega_forward", 3, 11)
     launch(x.data_ptr(), wbuf.data_ptr(), out.data_ptr(), n, h, w, cin, width, out_channels,
-           n_sfb, rep["rows_per_cta"], rep["cluster"], rep["threads"], stream_of(x))
+           n_sfb, rep["rows_per_cta"], rep["cluster"], rep["threads"], rep["pixel_pad"],
+           stream_of(x))
     mega_fused.launches += 1
     return out
 
@@ -296,9 +386,9 @@ def resident_clusters(width: int, patch: Union[int, Tuple[int, int]], scale: int
     rep = group_report(width, patch, scale, n_sfb, in_channels=in_channels)
     w = patch if isinstance(patch, int) else int(patch[1])
     fn = _build.load("mega").mega_resident_clusters
-    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_int
+    fn.argtypes, fn.restype = [ctypes.c_int] * 9, ctypes.c_int
     return int(fn(w, in_channels, width, in_channels * scale * scale, n_sfb,
-                  rep["rows_per_cta"], rep["cluster"], rep["threads"]))
+                  rep["rows_per_cta"], rep["cluster"], rep["threads"], rep["pixel_pad"]))
 
 
 def essr_forward_megakernel(params: Dict[str, Any], x: torch.Tensor, cfg: ESSRConfig,
@@ -422,6 +512,7 @@ def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
         # only while 511^2 * K < 2^24, K <= 64
         raise ValueError(f"qgroup_report: width {width}, cin {cin}: the quantized megakernel's "
                          f"tensor-core dots take 1..{QMEGA_MAX_WIDTH} channels")
+    _check_patch("qgroup_report", h, w)
     cb = 1 if bits <= 8 else 4
     lay = QWeightLayout(cin, width, cout, n_sfb, cb)
     ost = max(lay.ast, lay.ast1)
@@ -437,9 +528,10 @@ def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
         raise ValueError(
             f"qgroup_report: width {width}, patch {h}x{w}, {bits}-bit codes: a block of the "
             f"{cluster}-block cluster ({rows} rows) needs {smem} B of shared memory, over the "
-            f"H100's {SMEM_LIMIT} B per block")
+            f"H100's {SMEM_LIMIT} B per block; this shape waits on qmega's own layout rework "
+            f"(ROADMAP queue 3)")
     # one thread per (pixel, 4 channels) of a depthwise layer
-    threads = min(MAX_THREADS, max(64, 32 * -(-(lay.cp8 // 4) * p // 32)))
+    threads = min(QMEGA_MAX_THREADS, max(64, 32 * -(-(lay.cp8 // 4) * p // 32)))
     int_ops = 2 * (cin * width + n_sfb * 4 * width * width + 9 * width) * h * w
     fp_ops = (3 * cin + 24 * width + n_sfb * 58 * width + 2 * width + 2 * width * cout
               + 4 * cout) * h * w
@@ -460,7 +552,8 @@ def qgroup_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
                   n_sfb: int = 5, bits: int = 8, *, in_channels: int = 3) -> Dict[str, Any]:
     """Static sizing of the quantized megakernel on the H100 at one (width,
     patch, code width) point, the twin of :func:`group_report`: cluster size
-    (4 blocks where a block's strip fits, else 8), rows per block (CTA), threads, shared-memory bytes per block against the
+    (the fewest of 4, 8 and 16 blocks whose strip fits), rows per block
+    (CTA), threads, shared-memory bytes per block against the
     232,448 B limit (two fp32 halo maps, two code buffers in the dots'
     operand layout, the first layer's, the recon's and one qSFB's packed
     weights), the packed weights' bytes, and per patch the integer and fp32
@@ -468,9 +561,10 @@ def qgroup_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
     written once), with which of the two bounds the launch at the data
     sheet's rates (int8 dots at 1,979 TOPS, fxp10 dots at the TF32 rate of
     495 TFLOP/s, fp32 at 67 TFLOP/s; 3.35 TB/s). ``bits``: 8 for int8 codes,
-    anything wider int32. Raises ValueError for a strip that does not fit and
-    for a width past 64 channels (fxp10's TF32 dots are exact only up to
-    K = 64)."""
+    anything wider int32. Raises ValueError for a strip that fits no block
+    (fxp10 at 48x48 C54, both modes at 64x64 C54: ROADMAP queue 3), for a
+    patch past 64 and for a width past 64 channels (fxp10's TF32 dots are
+    exact only up to K = 64)."""
     h, w = (patch, patch) if isinstance(patch, int) else (int(patch[0]), int(patch[1]))
     return _qsizing(width, h, w, in_channels, in_channels * scale * scale, n_sfb, bits)
 
@@ -584,14 +678,14 @@ def qmega_fused(x: torch.Tensor, wbuf: torch.Tensor, qc: torch.Tensor, *, width:
     (N,H,W,out_channels) codes, int8 for ``bits`` <= 8 else int32.
 
     CPU tensors take the plain version (`kernels.ref.qmega_ref` on the
-    unpacked operands); CUDA tensors launch the kernel or raise. N = 0
-    returns an empty output, no launch. A patch whose strip does not fit a
-    block's shared memory raises ValueError on either device."""
+    unpacked operands) at any patch size; CUDA tensors launch the kernel or
+    raise. N = 0 returns an empty output, no launch. On the card a patch past
+    64, or whose strip fits no block's shared memory, raises ValueError
+    before any launch."""
     check_operands("qmega_fused", x, {})
     n, h, w, cin = x.shape
     check_channels("qmega_fused", Cin=cin, C=width, Cout=out_channels)
-    rep = _qsizing(width, h, w, cin, out_channels, n_sfb, bits)
-    lay = QWeightLayout(cin, width, out_channels, n_sfb, rep["code_bytes"])
+    lay = QWeightLayout(cin, width, out_channels, n_sfb, 1 if bits <= 8 else 4)
     check_operands("qmega_fused", x, {"wbuf": (wbuf, (lay.size,), torch.uint8),
                                       "qc": (qc, (6 + 6 * n_sfb,))})
     dtype = code_dtype(bits)
@@ -599,6 +693,7 @@ def qmega_fused(x: torch.Tensor, wbuf: torch.Tensor, qc: torch.Tensor, *, width:
         return qmega_ref(x, unpack_qweights(wbuf, lay), qc, dtype)
     if x.device.type != "cuda":
         raise ValueError(f"qmega_fused: no kernel for device {x.device}")
+    rep = _qsizing(width, h, w, cin, out_channels, n_sfb, bits)
     if wbuf.data_ptr() % 16:
         raise ValueError("qmega_fused: wbuf must be 16-byte aligned (the kernel copies 16 B)")
     out = torch.empty((n, h, w, out_channels), dtype=dtype, device=x.device)

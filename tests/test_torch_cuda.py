@@ -8,7 +8,9 @@ skipped where no CUDA device is visible. Run on a machine with a card:
 
 Tolerances: one kernel rtol 1e-4 / atol 1e-5 (fp32 FFMA against fp32
 PyTorch with TF32 off); the megakernel's whole chain and whole frames
-rtol 1e-3 / atol 1e-3 (12 fp32 layers sum in different orders). The
+rtol 1e-3 / atol 1e-3 against the plain model (12 fp32 layers sum in
+different orders), and torch.equal against the layer chain of kernels,
+which sums every output in the megakernel's order. The
 quantized kernels (the quantized megakernel too) put out integer codes and
 are held to their plain versions with ``torch.equal`` (qSFB also at extreme
 codes, C64 and every code and weight at +-qmax, and across column bands); the edge kernel sums
@@ -102,16 +104,32 @@ def test_engine_frame_on_card_matches_ref(cuda):
     torch.testing.assert_close(got.image, want.image, rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize("n,h,w,width", [(0, 32, 32, 54), (1, 32, 32, 54), (7, 32, 32, 54),
-                                         (1, 32, 32, 27), (7, 32, 32, 27), (3, 13, 21, 54)])
-def test_megakernel_matches_plain(cuda, n, h, w, width):
-    cfg = ESSRConfig(scale=4)
-    g = torch.Generator().manual_seed(n + width)
+#: Megakernel checks (N, H, W, C): Table I's patches (16x16 at C54 in one
+#: block, 48 at C54 in 16, 64 at C54 with unpadded pixels), an odd patch in one
+#: block, ragged last strips (17x9, 25x32: 4 blocks of 7 rows), a patch
+#: shorter than its blocks (5x9) and idle last blocks (33x32: 16 x 3 rows).
+MEGA_CASES = [(0, 32, 32, 54), (1, 32, 32, 54), (7, 32, 32, 54), (1, 32, 32, 27),
+              (7, 32, 32, 27), (3, 13, 21, 54), (2, 16, 16, 54), (2, 16, 16, 27),
+              (2, 48, 48, 54), (2, 48, 48, 27), (2, 64, 64, 54), (2, 64, 64, 27),
+              (2, 17, 9, 54), (1, 25, 32, 54), (2, 5, 9, 27), (1, 33, 32, 54)]
+
+
+def _mega_tree(cfg, seed):
+    g = torch.Generator().manual_seed(seed)
     tree = ESSR(cfg, generator=g).to("cuda").tree()
     with torch.no_grad():
         for leaf in mk._leaves(tree):          # non-zero biases: a halo that read
             if leaf.ndim == 1:                 # pw(0) + b instead of 0 would show
                 leaf.copy_(0.1 * torch.randn(leaf.shape, generator=g).cuda())
+    return tree, g
+
+
+@pytest.mark.parametrize("n,h,w,width", MEGA_CASES)
+def test_megakernel_matches_plain(cuda, n, h, w, width):
+    import ctypes
+    from repro_torch.kernels import _build
+    cfg = ESSRConfig(scale=4)
+    tree, g = _mega_tree(cfg, n + width + h)
     x = torch.rand((n, h, w, 3), generator=g).cuda()
     wbuf = mk.pack_weights(tree, width)
     lay = mk.WeightLayout(3, width, cfg.out_channels, cfg.n_sfb)
@@ -121,6 +139,46 @@ def test_megakernel_matches_plain(cuda, n, h, w, width):
     assert mk.mega_fused.launches == before + (n > 0)
     assert tuple(got.shape) == (n, h, w, cfg.out_channels)
     torch.testing.assert_close(got, ref.mega_ref(x, mk.unpack_weights(wbuf, lay)), **CHAIN_TOL)
+    # every sum in the layer chain's order: bit for bit
+    with torch.no_grad():
+        layer = ops.essr_forward_kernels(tree, x, cfg, width=width)
+        assert torch.equal(mk.essr_forward_megakernel(tree, x, cfg, width=width), layer)
+    # the launch's shared memory is group_report's
+    rep = mk.group_report(width, (h, w), cfg.scale, cfg.n_sfb)
+    smem = _build.load("mega").mega_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    assert smem(w, 3, width, 48, 5, rep["rows_per_cta"], rep["pixel_pad"]) == rep["smem_bytes"]
+
+
+def test_megakernel_refuses_on_card_without_fallback(cuda):
+    cfg = ESSRConfig(scale=4)
+    tree, g = _mega_tree(cfg, 5)
+    before = mk.mega_fused.launches
+    for width, hw in ((54, 72), (64, 64)):     # past Table I; no layout holds C64 at 64x64
+        x = torch.rand((1, hw, hw, 3), generator=g).cuda()
+        wbuf = mk.pack_weights(tree, width) if width <= 54 else torch.zeros(
+            mk.WeightLayout(3, width, 48, 5).size, device="cuda")
+        with pytest.raises(ValueError, match="group_report"):
+            mk.mega_fused(x, wbuf, width=width, n_sfb=5, out_channels=48)
+    assert mk.mega_fused.launches == before
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_engine_group_frame_at_patch_48_equals_layer_frame(cuda, quant):
+    r = np.random.default_rng(2)
+    frame = np.clip(np.linspace(0, 1, 96 * 160 * 3, dtype=np.float32).reshape(96, 160, 3)
+                    + (np.arange(160) > 80)[None, :, None] * (r.random((96, 160, 3)) - 0.5),
+                    0, 1).astype(np.float32)
+    kw = dict(patch=48, overlap=2, quant=quant)
+    layer = SREngine.from_config(ESSRConfig(scale=2), seed=4, plan=ExecutionPlan(**kw))
+    group = SREngine(layer.model, plan=ExecutionPlan(**kw, fusion="group"))
+    a = layer.upscale(frame)
+    ops.reset_launch_counts()
+    b = group.upscale(frame)
+    buckets = sum(1 for k in (1, 2) if b.counts[k] > 0)
+    assert buckets > 0 and ops.launch_counts()["qmega" if quant else "mega"] == buckets
+    np.testing.assert_array_equal(a.ids, b.ids)
+    assert torch.equal(a.image, b.image)
 
 
 def test_engine_group_frame_on_card_matches_ref(cuda):

@@ -101,6 +101,39 @@ def test_group_engine_golden_frame_matches_reference():
     assert eng.upscale(frame, plan=ExecutionPlan()).compiled is False
 
 
+@pytest.mark.parametrize("patch", [48, 64])
+def test_group_engine_serves_table1_patches_like_reference(patch):
+    # Table I's larger patches: the port's group plan serves them on the CPU
+    # (its plain version) as the reference's group plan does
+    jplan = JPlan(patch=patch, overlap=2, fusion="group")
+    ref = JEngine.from_config(JCfg(scale=2), seed=2, backend="ref", plan=jplan)
+    tree = jax.tree_util.tree_map(np.asarray, ref.params)
+    eng = SREngine.from_params(tree, ESSRConfig(scale=2), device="cpu",
+                               plan=ExecutionPlan(patch=patch, overlap=2, fusion="group"))
+    frame = _golden_frame(hw=96 if patch == 48 else 128, seed=patch)
+    ops.reset_launch_counts()
+    rj, rp = ref.upscale(frame), eng.upscale(frame)
+    assert rp.counts == rj.counts and sum(rp.counts[1:]) > 0
+    assert rp.backend == "cuda-plain" and set(ops.launch_counts().values()) == {0}
+    np.testing.assert_array_equal(rp.ids, np.asarray(rj.ids))
+    np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **CHAIN_TOL)
+
+
+def test_int8_group_engine_at_patch_48_equals_layer_engine():
+    ref = JEngine.from_config(JCfg(scale=2), seed=3, backend="ref")
+    tree = jax.tree_util.tree_map(np.asarray, ref.params)
+    frame = _golden_frame(hw=96, seed=48)
+    kw = dict(patch=48, overlap=2, quant="int8")
+    layer = SREngine.from_params(tree, ESSRConfig(scale=2), plan=ExecutionPlan(**kw),
+                                 device="cpu")
+    group = SREngine.from_params(tree, ESSRConfig(scale=2), device="cpu",
+                                 plan=ExecutionPlan(**kw, fusion="group"))
+    a, b = layer.upscale(frame), group.upscale(frame)
+    assert b.backend == a.backend == "cuda-plain-int8" and sum(b.counts[1:]) > 0
+    np.testing.assert_array_equal(a.ids, b.ids)
+    assert torch.equal(a.image, b.image)
+
+
 def test_resolve_forward_fusion():
     # (backend, quant, fusion): the reference's argument order
     assert pipeline.resolve_forward("cuda", fusion="group") is pipeline._forward_width_mega
@@ -115,29 +148,72 @@ def test_resolve_forward_fusion():
         pipeline.resolve_forward("pallas", fusion="group")
 
 
+#: group_report's launch shape at Table I's patches, both widths and scales
+#: (cluster, rows per block, threads, floats of pixel padding, blocks an SM):
+#: the most strip rows resident on an SM, padded pixels where they fit.
+SIZING = {(27, 16): (2, 8, 128, 4, 3), (27, 32): (8, 4, 128, 4, 3), (27, 48): (8, 6, 288, 4, 1),
+          (27, 64): (16, 4, 256, 4, 1), (54, 16): (1, 16, 448, 4, 1), (54, 32): (4, 8, 448, 4, 1),
+          (54, 48): (16, 3, 256, 4, 1), (54, 64): (16, 4, 448, 0, 1)}
+
+
+@pytest.mark.parametrize("patch", [16, 32, 48, 64])
 @pytest.mark.parametrize("width", [27, 54])
 @pytest.mark.parametrize("scale", [2, 4])
-def test_group_report_fits_a_block(width, scale):
-    rep = mk.group_report(width, 32, scale)
+def test_group_report_fits_a_block(width, scale, patch):
+    rep = mk.group_report(width, patch, scale)
     assert rep["smem_bytes"] <= mk.SMEM_LIMIT == 232_448
-    assert (rep["cluster"], rep["rows_per_cta"]) == (8, 4)
-    assert 64 <= rep["threads"] <= 512 and rep["threads"] % 32 == 0
+    cluster, rows, threads, pad, per_sm = SIZING[width, patch]
+    assert (rep["cluster"], rep["rows_per_cta"], rep["threads"], rep["pixel_pad"],
+            rep["blocks_per_sm"]) == (cluster, rows, threads, pad, per_sm)
+    assert cluster * rows >= patch > (cluster - 1) * rows
+    # no other cluster size whose strip fits keeps more rows resident on an
+    # SM, and none with padded pixels fits where the pad is 0
+    lay = mk.WeightLayout(3, width, 3 * scale * scale, 5)
+    for c in mk.MEGA_CLUSTERS:
+        other = mk._mega_shape(lay, c, patch, patch, pad)
+        assert other["smem"] > mk.SMEM_LIMIT or \
+            other["per_sm"] * other["rows"] <= per_sm * rows
+        # the SM's shared memory, threads and registers bound the blocks an SM
+        if c == cluster:
+            assert other["per_sm"] == per_sm >= 1
+            assert per_sm * (rep["smem_bytes"] + 1024) <= 233_472
+            assert per_sm * threads * 128 <= 65_536
+    if pad == 0:
+        assert mk._mega_smem(lay, rows, patch, 4) > mk.SMEM_LIMIT
     macs = essr_macs_per_lr_pixel(JCfg(scale=scale, channels=width))
-    assert rep["flops_per_patch"] == 2 * macs * 32 * 32
-    assert rep["bytes_per_patch"] == 4 * 32 * 32 * (3 + 3 * scale * scale)
+    assert rep["flops_per_patch"] == 2 * macs * patch * patch
+    assert rep["bytes_per_patch"] == 4 * patch * patch * (3 + 3 * scale * scale)
     assert rep["bound"] == "operations"
-    assert rep["weight_floats"] == mk.WeightLayout(3, width, 3 * scale * scale, 5).size
+    assert rep["weight_floats"] == lay.size
 
 
 def test_group_report_sizes_and_limits():
     # C54 x4 at 32x32 is ~1.64 ms of fp32 operations for 1024 patches at 67 TFLOP/s
     rep = mk.group_report(54, 32, 4)
     assert rep["flops_per_patch"] * 1024 / 67e12 * 1e3 == pytest.approx(1.638, abs=1e-3)
-    assert rep["smem_bytes"] == 186_144 and rep["weight_bytes"] == 4 * 53_886
-    odd = mk.group_report(54, (13, 21), 4)
-    assert odd["rows_per_cta"] == 2 and odd["smem_bytes"] < rep["smem_bytes"]
+    assert rep["weight_bytes"] == 4 * 53_886
+    # F and A, B (8 rows x 32 px x (56 + 4) floats each), two halo rows, two
+    # ring slots of the largest piece (a C54 1x1: 56 x 56 + 56 floats), the
+    # halo rows' mbarrier (16 bytes)
+    assert rep["smem_bytes"] == 4 * (3 * 8 * 32 * 60 + 2 * 32 * 60 + 2 * (56 * 56 + 56)) + 16 \
+        == 225_232
+    big = mk.group_report(54, 64, 4)                # unpadded 56-float pixels, 16 blocks
+    assert big["smem_bytes"] == 4 * (3 * 4 * 64 * 56 + 2 * 64 * 56 + 2 * (56 * 56 + 56)) + 16 \
+        == 226_256
+    odd = mk.group_report(54, (13, 21), 4)          # one block holds the whole patch
+    assert (odd["cluster"], odd["rows_per_cta"]) == (1, 13) and odd["smem_bytes"] <= 232_448
+    idle = mk.group_report(54, (33, 32), 4)         # 16 blocks of 3 rows: the last five idle
+    assert (idle["cluster"], idle["rows_per_cta"], idle["blocks_per_sm"]) == (16, 3, 2)
+    assert 11 * 3 >= 33
+    # at C27 x4 the recon's 1x1 (28 x 48 + 48 floats) is the largest piece, and
+    # the unpadded output (48 floats a pixel) fits in F and A (2 x 36)
+    lay = mk.WeightLayout(3, 27, 48, 5)
+    assert lay.stage == lay.recon_pw == 28 * 48 + 48
+    for patch in (65, (64, 65), (80, 32)):
+        with pytest.raises(ValueError, match="up to 64x64.*queue 3"):
+            mk.group_report(54, patch, 4)
     with pytest.raises(ValueError, match="232448 B"):
-        mk.group_report(54, 64, 4)
+        mk.group_report(64, 64, 4)                  # C64: no layout holds a 64x64 strip
     with pytest.raises(ValueError, match="positive"):
         mk.group_report(0, 32, 4)
 
@@ -159,9 +235,16 @@ def test_pack_unpack_round_trip_and_cache():
                                       s["fuse_b"][:width].detach().numpy())
         np.testing.assert_array_equal(w["recon"]["pw"].numpy(),
                                       tree["recon"]["pw"][0, 0, :width].detach().numpy())
-        cp = (width + 3) // 4 * 4
-        pad = wbuf[lay.first:lay.first + cp * cp].view(cp, cp)
+        cp4, cp8 = (width + 3) // 4 * 4, (width + 7) // 8 * 8
+        assert lay.padded == (4, cp4, cp8, 48)
+        pad = wbuf[lay.first:lay.first + cp4 * cp8].view(cp4, cp8)   # the first SFB's b1 1x1
         assert not pad[width:].any() and not pad[:, width:].any()
+        np.testing.assert_array_equal(pad[:width, :width].numpy(),
+                                      tree["sfbs"][0]["b1"]["pw"][0, 0, :width, :width]
+                                      .detach().numpy())
+        # pieces of 16-byte units, the ring's slot the largest of them
+        for piece in (lay.first_pw, lay.dw, lay.pw, lay.recon_pw):
+            assert piece % 4 == 0 and piece <= lay.stage
     a = mk.packed_weights(mk._TreeKey(tree), 54)
     assert mk.packed_weights(mk._TreeKey(tree), 54) is a
     assert mk.packed_weights(mk._TreeKey(tree), 27) is not a
@@ -192,9 +275,12 @@ def test_mega_wrapper_checks_and_launches_nothing_on_cpu():
         mk.mega_fused(x, wbuf, width=54, n_sfb=5, out_channels=48)
     with pytest.raises(ValueError, match="1..64"):
         mk.mega_fused(x, wbuf, width=72, n_sfb=5, out_channels=48)
-    with pytest.raises(ValueError, match="232448 B"):
-        mk.mega_fused(torch.rand((1, 64, 64, 3)), mk.pack_weights(tree, 54), width=54,
-                      n_sfb=5, out_channels=48)
+    # the plain version serves any patch on the CPU, also one no launch shape holds
+    w54 = mk.pack_weights(tree, 54)
+    for hw in (64, 72):
+        big = torch.rand((1, hw, hw, 3))
+        assert torch.equal(mk.mega_fused(big, w54, width=54, n_sfb=5, out_channels=48),
+                           mega_ref(big, mk.unpack_weights(w54, mk.WeightLayout(3, 54, 48, 5))))
     with torch.no_grad():
         empty = mk.essr_forward_megakernel(tree, torch.zeros((0, 32, 32, 3)), T_X4, width=54)
         assert tuple(empty.shape) == (0, 128, 128, 3)

@@ -197,8 +197,10 @@ def test_qgroup_report_fits_and_raises(width, bits):
     assert rep["smem_bytes"] == 2 * a_map + 2 * rows * 32 * ost + lay.stage
     assert lay.stage == lay.first + lay.recon + lay.sfb
     assert rep["int_ops_per_patch"] == 2 * 1024 * (3 * width + 20 * width * width + 9 * width)
-    with pytest.raises(ValueError, match="232448 B"):
+    with pytest.raises(ValueError, match="up to 64x64"):
         mk.qgroup_report(width, 96, 4, 5, bits)
+    with pytest.raises(ValueError, match="232448 B.*queue 3"):
+        mk.qgroup_report(54, 64, 4, 5, bits)     # no layout of qmega's holds 64x64 at C54
     with pytest.raises(ValueError, match="positive"):
         mk.qgroup_report(0, 32, 4, 5, bits)
     # past K = 64 the TF32 dots of fxp10 are no longer exact (511^2 * K >= 2^24)
@@ -212,6 +214,15 @@ def test_qmega_sizes_at_full_width():
     # a patch whose 4-block strips do not fit takes 8 blocks, the last one idle
     rep = mk.qgroup_report(54, (25, 32), 4, 5, 10)
     assert (rep["cluster"], rep["rows_per_cta"]) == (8, 4) and 7 * 4 >= 25
+    # 16-block clusters serve the larger Table I patches a 16-block strip holds
+    for width, patch, bits, rows in ((54, 48, 8, 3), (27, 64, 8, 4), (27, 64, 10, 4),
+                                     (27, 48, 10, 3)):
+        rep = mk.qgroup_report(width, patch, 4, 5, bits)
+        assert (rep["cluster"], rep["rows_per_cta"]) == (16, rows)
+        assert rep["smem_bytes"] <= 232_448
+    assert mk.qgroup_report(54, 48, 4, 5, 8)["smem_bytes"] == 168_832
+    with pytest.raises(ValueError, match="16-block cluster .3 rows. needs 241792 B"):
+        mk.qgroup_report(54, 48, 4, 5, 10)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fxp10"])
