@@ -3,17 +3,18 @@
 
     python3 chip_smoke.py
 
-Phases, one line or more each, run in this order: 1, 2, 3, 7, 15, 11, 4, 8,
-12, 5, 6, 9 with 13 after each mode, 16, 14, 10; any failure exits non-zero
-before the last line:
+Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 15, 11, 4,
+8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 10; any failure exits
+non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
      The SFB kernel's dynamic shared memory must equal sfb_report's at the
      main path's 32x32 patches and at the phase-3 shapes, and the qSFB
      kernel's (csrc/qsfb.cu) qsfb_report's at 32x32 and the phase-15 shapes,
-     both modes, and the two megakernels' group_report's and qgroup_report's
-     at their checked shapes;
+     both modes, the DSConv walker's (csrc/dsconv.cu, fp32 and both code
+     types) dsconv_report's at the phase-17 shapes, and the two megakernels'
+     group_report's and qgroup_report's at their checked shapes;
   3. hold each kernel against its plain PyTorch version on the card, at C54
      and C27 (bsconv also at Cin = 3) and N in {1, 7, 512}, rtol 1e-4 /
      atol 1e-5 (TF32 off for the plain versions); SFB also at shapes that cut
@@ -67,8 +68,9 @@ before the last line:
      cores) against its plain version (recon codes), and its images against
      the qconv kernel chain and the integer reference essr_forward_qref on
      the card, all with torch.equal, for "int8" and "fxp10", C54 and C27, N in
-     {1, 7, 512, 1024} and the ragged patches of QMEGA_SHAPES (ragged last
-     strips, idle blocks, both cluster sizes), with non-zero biases; and on
+     {1, 7, 512, 1024} and the patches of QMEGA_SHAPES (ragged last strips,
+     an idle block, Table I's 48x48 and 64x64: 8- and 16-block clusters at
+     C54), with non-zero biases; and on
      synthetic extreme operands
      at C54 (every weight code at +-qmax, site steps that saturate the codes,
      so the fxp10 sums reach 511^2 * 54), its codes against the plain version
@@ -93,10 +95,16 @@ before the last line:
      calibrated model's operands at C54 and C27 and on synthetic extreme
      operands at C64 (every code and weight at +-qmax, so fxp10 sums reach
      511^2 * 64), for "int8" and "fxp10";
- 16. a larger patch of Table I: one frame under ExecutionPlan(patch=48,
-     fusion="group"), fp32 and "int8", torch.equal to the same frame under
-     fusion="layer" at patch 48 with equal ids, one megakernel launch per
-     non-empty conv bucket.
+ 16. Table I's larger patches: one frame under ExecutionPlan(patch=48 and
+     64, fusion="group"), fp32, "int8" and "fxp10", torch.equal to the same
+     frame under fusion="layer" at that patch with equal ids, one megakernel
+     launch per non-empty conv bucket;
+ 17. the DSConv band walker (csrc/dsconv.cu) at DSCONV_SHAPES (N in {1, 7,
+     1024} at 32x32, 13x21, 17x9, 64x64 and 80x80 cut into three column
+     bands), C54 and C27, non-zero biases: fp32 DSConv against its plain
+     version (rtol 1e-4 / atol 1e-5), qDSConv (its codes datapath, the
+     calibrated model's recon operands on codes spread over the lattice)
+     torch.equal to its plain version, both modes.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -127,9 +135,13 @@ PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
 INT8_PEAKS = (("H100 PCIe", 1513e12), ("H100 NVL", 1671e12), ("H200", 1979e12),
               ("H100", 1979e12))
 #: Dense TF32 tensor-core peak of the same parts (data sheets), by name: the
-#: rate of the fxp10 integer dots, exact there (csrc/qsfb.cu).
+#: rate of qSFB's fxp10 integer dots, exact there (csrc/qsfb.cu).
 TF32_PEAKS = (("H100 PCIe", 378e12), ("H100 NVL", 418e12), ("H200", 495e12),
               ("H100", 495e12))
+#: Dense fp16 tensor-core peak of the same parts (data sheets), by name: the
+#: rate of qmega's fxp10 integer dots, exact there (csrc/qmma.cuh).
+FP16_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H200", 989e12),
+              ("H100", 989e12))
 QUANT_MODES = ("int8", "fxp10")
 #: SFB checks beyond the main path's 32x32 (N, H, W, C): column bands with a
 #: recomputed halo (72 wide), ragged last steps (13 and 33 rows).
@@ -139,10 +151,15 @@ QKERNELS = ("quantize", "qbsconv", "qsfb", "qdsconv")
 #: recomputed halo (72 wide), ragged last steps (13, 17 and 33 rows), odd widths.
 QSFB_SHAPES = ((2, 40, 72), (3, 13, 21), (1, 33, 32), (2, 17, 9))
 #: qmega checks (N, H, W): the main path's 32x32 at four batch sizes, then
-#: ragged last strips (13, 17 and 25 rows; 25 takes 8-block clusters in fxp10
-#: at C54, its last block idle) and a patch whose last block is idle (5 rows).
+#: ragged last strips (13, 17 and 25 rows), a patch whose last block is idle
+#: (5 rows) and Table I's 48 and 64 (at C54 8 blocks of 6 rows and 16 of 4).
 QMEGA_SHAPES = ((1, 32, 32), (7, 32, 32), (512, 32, 32), (1024, 32, 32), (3, 13, 21),
-                (2, 17, 9), (1, 25, 32), (2, 5, 9))
+                (2, 17, 9), (1, 25, 32), (2, 5, 9), (4, 48, 48), (2, 64, 64))
+#: DSConv / qDSConv walker checks (N, H, W): the main path's 32x32 at three
+#: batch sizes, ragged steps and odd widths, Table I's 64 and an 80x80 patch
+#: cut into three column bands.
+DSCONV_SHAPES = ((1, 32, 32), (7, 32, 32), (1024, 32, 32), (3, 13, 21), (2, 17, 9),
+                 (2, 64, 64), (1, 80, 80))
 #: fp32 megakernel checks (N, H, W): the main path's 32x32 at three batch
 #: sizes, Table I's other patches (16: one block a patch; 48: 16 blocks at
 #: C54; 64: 16 blocks, unpadded pixels at C54), an odd patch in one block,
@@ -195,15 +212,15 @@ def int8_peak_for(name: str) -> float:
     return next((ops for key, ops in INT8_PEAKS if key in name), INT8_PEAKS[-1][1])
 
 
-def tf32_peak_for(name: str) -> float:
-    return next((ops for key, ops in TF32_PEAKS if key in name), TF32_PEAKS[-1][1])
-
-
-def int_peak_for(name: str, bits: int) -> float:
+def int_peak_for(name: str, bits: int, fp16: bool = False) -> float:
     """The rate of a quantized kernel's integer operations: the int8 tensor
-    cores for int8 codes, the TF32 tensor cores for fxp10 codes (integers up
-    to 2^11 are exact in TF32, and the sums stay below 2^24)."""
-    return int8_peak_for(name) if bits <= 8 else tf32_peak_for(name)
+    cores for int8 codes, for fxp10 codes the TF32 tensor cores (qSFB) or,
+    with ``fp16``, the fp16 ones (qmega): integers up to 2^11 are exact in
+    both, and the sums stay below 2^24."""
+    if bits <= 8:
+        return int8_peak_for(name)
+    table = FP16_PEAKS if fp16 else TF32_PEAKS
+    return next((ops for key, ops in table if key in name), table[-1][1])
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +586,7 @@ def main() -> None:
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels.ops import essr_forward_kernels, launch_counts, reset_launch_counts
     from repro_torch.kernels.ref import mega_ref
+    from repro_torch.kernels.dsconv import dsconv_report
     from repro_torch.kernels.qconv import qsfb_report
     from repro_torch.kernels.sfb import sfb_report
     from repro_torch.models.essr import ESSRConfig
@@ -595,9 +613,26 @@ def main() -> None:
     smem = _build.load("qconv").qconv_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
     say("  qconv dynamic shared memory per block (bytes): " + ", ".join(
-        f"{k} C{c} {m}: {smem(i, 3 if k == 'qbsconv' else c, c if i < 2 else 48, b)}"
-        for i, k in ((0, "qbsconv"), (2, "qdsconv")) for c in (54, 27)
+        f"qbsconv C{c} {m}: {smem(0, 3, c, b)}" for c in (54, 27)
         for m, b in (("int8", 8), ("fxp10", 10))))
+    ds_lib = _build.load("dsconv")
+    ds_lib.dsconv_smem_bytes.argtypes = [ctypes.c_int] * 5
+    ds_lib.dsconv_smem_bytes.restype = ctypes.c_longlong
+    ds_lib.dsconv_blocks_per_sm.argtypes = [ctypes.c_int] * 6
+    for m, b in (("fp32", None), ("int8", 8), ("fxp10", 10)):
+        for c in (54, 27):
+            for h, w in sorted({(h, w) for _, h, w in DSCONV_SHAPES}):
+                rep = dsconv_report(c, 48, h, w, b)
+                got = ds_lib.dsconv_smem_bytes(w, c, 48, b or 0, rep["rows_per_step"])
+                say(f"  dsconv {m} C{c} {h}x{w}: {got} B of dynamic shared memory per block "
+                    f"(dsconv_report {rep['smem_bytes']} B: {rep['bands']} band(s) of "
+                    f"{rep['band_width']} px, {rep['rows_per_step']} rows a step, "
+                    f"{rep['threads']} threads, depthwise busy {rep['depthwise_busy']:.3f}, "
+                    f"pointwise busy {rep['pointwise_busy']:.3f}); "
+                    f"{ds_lib.dsconv_blocks_per_sm(w, c, 48, b or 0, rep['rows_per_step'], rep['threads'])}"
+                    f" block(s) per SM (report: {rep['blocks_per_sm']})")
+                if got != rep["smem_bytes"]:
+                    fail("dsconv_report disagrees with the DSConv walker's shared-memory size")
     qsfb_lib = _build.load("qsfb")
     qsfb_lib.qsfb_smem_bytes.argtypes = [ctypes.c_int] * 4
     qsfb_lib.qsfb_smem_bytes.restype = ctypes.c_longlong
@@ -744,8 +779,46 @@ def main() -> None:
             f"the same on the CPU")
     del x, got, want, inp
 
-    # 15. the qSFB kernel at banded and ragged shapes and at extreme codes
+    # 17. the DSConv walker (csrc/dsconv.cu) at every DSCONV_SHAPES shape, C54
+    # and C27, non-zero biases: fp32 against its plain version (TOL), the codes
+    # datapath (qDSConv, the calibrated model's recon operands) torch.equal
     from repro_torch.kernels import qconv as tq
+    from repro_torch.kernels.ref import qdsconv_ref
+    ds_kern, ds_plain, _ = runners("dsconv", torch)
+    for width in (54, 27):
+        for n, h, w in DSCONV_SHAPES:
+            x, wts = operands("dsconv", n, width, g, torch, hw=(h, w))
+            got, want = ds_kern(x, wts), ds_plain(x, wts)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, **TOL)
+            max_err["dsconv"] = max(max_err["dsconv"], err)
+            seen = []
+            for mode in QUANT_MODES:
+                _, pack, qs, _ = quant[mode]
+                r = qs[width]["recon"]
+                qmax = 127 if pack.bits <= 8 else 511
+                xq = torch.randint(-qmax, qmax + 1, (n, h, w, width), generator=g).to(
+                    torch.int8 if pack.bits <= 8 else torch.int32).cuda()
+                args = (r["dwq"], r["dw_scale"], r["dwb"], r["pw_fq"], r["pwb"], r["qc"])
+                qgot, qwant = tq.qdsconv_fused(xq, *args), qdsconv_ref(xq, *args)
+                torch.cuda.synchronize()
+                qerr["qdsconv"] = max(qerr["qdsconv"],
+                                      (qgot.long() - qwant.long()).abs().max().item())
+                eq = torch.equal(qgot, qwant) and qwant.abs().max().item() > 0
+                seen.append(f"qdsconv {mode} torch.equal {eq}")
+                if not eq:
+                    fail(f"qdsconv ({mode}, C{width}, N={n} {h}x{w}) differs from its plain "
+                         f"version or every code is 0")
+            say(f"phase check dsconv walker C{width} N={n} {h}x{w} "
+                f"({dsconv_report(width, 48, h, w)['bands']} band(s)): fp32 max_abs {err:.3e} "
+                f"(rtol {TOL['rtol']:g} atol {TOL['atol']:g}) {'ok' if ok else 'MISMATCH'}; "
+                + ", ".join(seen))
+            if not ok:
+                fail(f"dsconv (C{width}, N={n} {h}x{w}) disagrees with its plain version")
+    del x, wts, got, want, xq, qgot, qwant
+
+    # 15. the qSFB kernel at banded and ragged shapes and at extreme codes
     from repro_torch.kernels.ref import qsfb_ref
     for mode in QUANT_MODES:
         _, pack, qs, _ = quant[mode]
@@ -783,8 +856,7 @@ def main() -> None:
         for width in (54, 27):
             q = qs[width]
             wbuf = mk.pack_qweights(q, pack.bits)
-            lay = mk.QWeightLayout(3, width, qcfg.out_channels, qcfg.n_sfb,
-                                   1 if pack.bits <= 8 else 4)
+            lay = mk.QWeightLayout(3, width, qcfg.out_channels, qcfg.n_sfb, pack.bits)
             plain_w = mk.unpack_qweights(wbuf, lay)
             for n, h, w in QMEGA_SHAPES:
                 x = torch.rand((n, h, w, 3), generator=g).cuda()
@@ -811,7 +883,7 @@ def main() -> None:
         ext = qmega_extreme_operands(54, pack.bits, g, torch)
         wbuf = mk.pack_qweights(ext, pack.bits)
         plain_w = mk.unpack_qweights(wbuf, mk.QWeightLayout(3, 54, qcfg.out_channels,
-                                                            qcfg.n_sfb, 1 if pack.bits <= 8 else 4))
+                                                            qcfg.n_sfb, pack.bits))
         for n, h, w in ((7, 32, 32), (3, 13, 21), (2, 17, 9), (1, 25, 32)):
             x = torch.rand((n, h, w, 3), generator=g).cuda()
             codes = mk.qmega_fused(x, wbuf, ext["consts"], width=54, n_sfb=qcfg.n_sfb,
@@ -917,14 +989,17 @@ def main() -> None:
             nbytes, iops, fops = qwork(kind, TIMING_N, 54, pack.bits)
             int_peak = int_peak_for(name, pack.bits)
             t_bytes = nbytes / peak_bw * 1e3
-            t_ops = (iops / int_peak + fops / peak_flops) * 1e3
+            # each rounded fp32 operation is one instruction: half the fp32
+            # peak, which counts an FFMA as two
+            t_ops = (iops / int_peak + fops / (peak_flops / 2)) * 1e3
             qtiming[mode][kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                                        library_ms=None)
             say(f"phase time q* {kind} {mode} N={TIMING_N} C54: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, library none, bound {max(t_bytes, t_ops):.4f} ms by "
                 f"{qtiming[mode][kind]['bound_by']} ({nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G "
-                f"integer ops at {int_peak / 1e12:g} T/s, {fops / 1e9:.2f} GFLOP fp32)")
+                f"integer ops at {int_peak / 1e12:g} T/s, {fops / 1e9:.2f} G rounded fp32 ops "
+                f"at {peak_flops / 2e12:g} T/s)")
         del x, stages, kern, plain, inp, got, want
     torch.cuda.empty_cache()
 
@@ -935,7 +1010,7 @@ def main() -> None:
         q = qs[54]
         wbuf = mk.pack_qweights(q, pack.bits)
         plain_w = mk.unpack_qweights(wbuf, mk.QWeightLayout(3, 54, qcfg.out_channels, qcfg.n_sfb,
-                                                            1 if pack.bits <= 8 else 4))
+                                                            pack.bits))
         x = torch.rand((TIMING_N, 32, 32, 3), generator=g).cuda()
 
         def kern():
@@ -951,9 +1026,9 @@ def main() -> None:
         qrep = mk.qgroup_report(54, 32, qcfg.scale, qcfg.n_sfb, pack.bits)
         iops, fops = TIMING_N * qrep["int_ops_per_patch"], TIMING_N * qrep["fp_ops_per_patch"]
         nbytes = TIMING_N * qrep["bytes_per_patch"] + qrep["weight_bytes"]
-        int_peak = int_peak_for(name, pack.bits)
+        int_peak = int_peak_for(name, pack.bits, fp16=True)
         t_bytes = nbytes / peak_bw * 1e3
-        t_ops = (iops / int_peak + fops / peak_flops) * 1e3
+        t_ops = (iops / int_peak + fops / (peak_flops / 2)) * 1e3
         chain_ms = sum(qtiming[mode][k]["ms"] * (qcfg.n_sfb if k == "qsfb" else 1)
                        for k in QKERNELS)
         clusters = mk.qresident_clusters(54, 32, qcfg.scale, qcfg.n_sfb, pack.bits)
@@ -965,7 +1040,7 @@ def main() -> None:
             f"{qcfg.n_sfb} x qsfb + qdsconv, phase 8 of this run), library none, bound "
             f"{max(t_bytes, t_ops):.4f} ms by {qmega_timing[mode]['bound_by']} ("
             f"{nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G integer ops at {int_peak / 1e12:g} T/s, "
-            f"{fops / 1e9:.2f} GFLOP fp32); resident clusters "
+            f"{fops / 1e9:.2f} G rounded fp32 ops at {peak_flops / 2e12:g} T/s); resident clusters "
             f"{clusters}, {qrep['smem_bytes']} B of shared memory per block, "
             f"{qrep['threads']} threads")
         del x, got, want, wbuf, plain_w
@@ -1151,30 +1226,34 @@ def main() -> None:
         torch.cuda.empty_cache()
     del refs
 
-    # 16. a larger patch of Table I: group frames at patch 48 against layer frames
-    for quant in (None, "int8"):
-        kw = dict(patch=48, overlap=2, quant=quant)
-        layer48 = SREngine(engine.model, plan=ExecutionPlan(**kw), device="cuda")
-        group48 = SREngine(engine.model, plan=ExecutionPlan(**kw, fusion="group"), device="cuda")
-        a = layer48.upscale(frames[0])
-        reset_launch_counts()
-        b = group48.upscale(frames[0])
-        counts = launch_counts()
-        kern = "qmega" if quant else "mega"
-        buckets = sum(1 for k in (1, 2) if b.counts[k] > 0)
-        same, ids_equal = torch.equal(a.image, b.image), bool(np.array_equal(a.ids, b.ids))
-        sizing = (mk.qgroup_report(54, 48, cfg.scale, cfg.n_sfb, 8) if quant
-                  else mk.group_report(54, 48, cfg.scale, cfg.n_sfb))
-        say(f"phase patch48 {quant or 'fp32'}: group frame {b.latency_s * 1e3:.2f} ms (first "
-            f"call), layer frame {a.latency_s * 1e3:.2f} ms, counts {b.counts}, {kern} launches "
-            f"{counts[kern]} (expected {buckets}), ids equal {ids_equal}, image torch.equal "
-            f"{same}; C54 sizing {json.dumps(sizing)}")
-        if not (same and ids_equal and buckets > 0 and counts[kern] == buckets
-                and sum(counts.values()) == buckets):
-            fail(f"the patch-48 group frame ({quant or 'fp32'}) disagrees with the layer frame "
-                 f"or did not launch {kern} once per non-empty conv bucket")
-        del layer48, group48, a, b
-    torch.cuda.empty_cache()
+    # 16. Table I's larger patches: group frames at patches 48 and 64 against
+    # layer frames, fp32 and both quant modes
+    for patch in (48, 64):
+        for quant in (None,) + QUANT_MODES:
+            kw = dict(patch=patch, overlap=2, quant=quant)
+            layer_p = SREngine(engine.model, plan=ExecutionPlan(**kw), device="cuda")
+            group_p = SREngine(engine.model, plan=ExecutionPlan(**kw, fusion="group"),
+                               device="cuda")
+            a = layer_p.upscale(frames[0])
+            reset_launch_counts()
+            b = group_p.upscale(frames[0])
+            counts = launch_counts()
+            kern = "qmega" if quant else "mega"
+            buckets = sum(1 for k in (1, 2) if b.counts[k] > 0)
+            same, ids_equal = torch.equal(a.image, b.image), bool(np.array_equal(a.ids, b.ids))
+            sizing = (mk.qgroup_report(54, patch, cfg.scale, cfg.n_sfb,
+                                       8 if quant == "int8" else 10) if quant
+                      else mk.group_report(54, patch, cfg.scale, cfg.n_sfb))
+            say(f"phase patch{patch} {quant or 'fp32'}: group frame {b.latency_s * 1e3:.2f} ms "
+                f"(first call), layer frame {a.latency_s * 1e3:.2f} ms, counts {b.counts}, "
+                f"{kern} launches {counts[kern]} (expected {buckets}), ids equal {ids_equal}, "
+                f"image torch.equal {same}; C54 sizing {json.dumps(sizing)}")
+            if not (same and ids_equal and buckets > 0 and counts[kern] == buckets
+                    and sum(counts.values()) == buckets):
+                fail(f"the patch-{patch} group frame ({quant or 'fp32'}) disagrees with the "
+                     f"layer frame or did not launch {kern} once per non-empty conv bucket")
+            del layer_p, group_p, a, b
+        torch.cuda.empty_cache()
 
     # 14. the edge-score kernel through its own entry point, on the frames' patches
     from repro_torch.core import subnet_policy as sp
@@ -1235,7 +1314,8 @@ def main() -> None:
                      **timing["mega"]))
     for k in QKERNELS:               # timed per mode; the row's own keys are int8's
         row = dict(name=f"{k}_fused", route="cuda",
-                   source=f"src/repro_torch/csrc/{'qsfb' if k == 'qsfb' else 'qconv'}.cu",
+                   source=f"src/repro_torch/csrc/"
+                          f"{dict(qsfb='qsfb', qdsconv='dsconv').get(k, 'qconv')}.cu",
                    replaces=replaces[f"{k}_fused"], launches=qlaunches["int8"][k],
                    max_abs_err=qerr[k], **qtiming["int8"][k])
         row.update({f"fxp10_{key}": v for key, v in qtiming["fxp10"][k].items()})

@@ -2,15 +2,18 @@
 """A/B of the port's quantized megakernel (src/repro_torch/csrc/qmega.cu)
 against an earlier version, on one NVIDIA card, in one process.
 
-    mkdir -p build/ab && git show 37fe4f7:src/repro_torch/csrc/qmega.cu > build/ab/qmega_base.cu
-    python3 scripts/torch_qmega_ab.py build/ab/qmega_base.cu [--variant V.cu[@THREADS[:CLUSTER]] ...]
-        [--time] [--frames]
+    mkdir -p build/base/q20
+    git show abc345d:src/repro_torch/csrc/qmega.cu > build/base/q20/qmega_base.cu
+    git show abc345d:src/repro_torch/csrc/cluster.cuh > build/base/q20/cluster.cuh
+    git show abc345d:src/repro_torch/csrc/qmma.cuh > build/base/q20/qmma.cuh
+    python3 scripts/torch_qmega_ab.py build/base/q20/qmega_base.cu
+        [--variant V.cu[@THREADS[:CLUSTER]] ...] [--time] [--frames]
 
 The base source is built with nvcc into build/ab/ under its own library name
-and bound with ctypes; its weights are packed by ``base_pack``, a copy of
-the packer of its own tree (channels padded to 4, int8 code weights as
-__dp4a words), and it launches at the sizing of its own tree
-(``base_sizing``). The tree's kernel is built as the port builds it and
+and bound with ctypes (a header beside it is taken before the tree's); its
+weights are packed by ``base_pack``, a copy of the packer of its own tree
+(abc345d: fxp10 code weights as fp32 B rows), and it launches at the sizing
+of its own tree (``base_sizing``). The tree's kernel is built as the port builds it and
 launched through the wrapper ``qmega_fused``. A variant is a probe: a copy of
 the tree's source with one stage cut, packed and sized as the tree's kernel;
 it is timed beside the others and its agreement is reported, not required;
@@ -54,8 +57,8 @@ SHAPES = ((7, 32, 32, 54), (7, 32, 32, 27), (1024, 32, 32, 54), (1024, 32, 32, 2
           (3, 13, 21, 54), (2, 17, 9, 54), (2, 17, 9, 27), (1, 25, 32, 54), (2, 5, 9, 27))
 #: (N, H, W) of the checks on synthetic extreme operands at C54.
 EXTREME = ((7, 32, 32), (3, 13, 21), (2, 17, 9), (1, 25, 32))
-#: The base tree's launch: clusters of 8 blocks, at most 512 threads a block.
-BASE_CLUSTER, BASE_MAX_THREADS = 8, 512
+#: The base tree's launch: clusters of 4, 8 or 16 blocks, at most 512 threads a block.
+BASE_CLUSTERS, BASE_MAX_THREADS = (4, 8, 16), 512
 
 
 def build_source(src: Path):
@@ -77,56 +80,82 @@ def build_source(src: Path):
     return raw, dll, out.stdout + out.stderr
 
 
-def _r4(c: int) -> int:
-    return (c + 3) & ~3
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
-def base_sizing(width: int, h: int, w: int, cin: int = 3) -> tuple:
-    """(rows a block, threads) of the base tree's _qsizing."""
-    rows = -(-h // BASE_CLUSTER)
-    pp = _r4(rows * w)
-    return rows, min(BASE_MAX_THREADS, max(64, 32 * -(-(_r4(width) // 4) * pp // 32)))
+def base_layout(cin: int, c: int, cout: int, n_sfb: int, bits: int) -> dict:
+    """The base tree's QWeightLayout and QShape (abc345d): code weights as B
+    rows of int8 codes or fxp10 codes as fp32 (the depth to 32 or 8 codes),
+    each row an odd multiple of 16 bytes."""
+    from repro_torch.kernels.megakernel import _operand_stride
+    cb = 1 if bits <= 8 else 4
+    cp8, cpo = _up(c, 8), _up(cout, 4)
+    kp, kp1 = _up(c, 32 if cb == 1 else 8), _up(cin, 32 if cb == 1 else 8)
+    ast, ast1 = _operand_stride(kp * cb), _operand_stride(kp1 * cb)
+    first, bs, fuse = cp8 * ast1 + 48 * cp8, cp8 * ast + 48 * cp8, cp8 * ast + 12 * cp8
+    recon = 44 * cp8 + 4 * cp8 * cpo + 4 * cpo
+    return dict(cb=cb, cp8=cp8, cpo=cpo, ast=ast, ast1=ast1,
+                stage=first + recon + (2 * bs + fuse if n_sfb else 0))
+
+
+def base_sizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int, bits: int) -> tuple:
+    """(rows a block, cluster, threads) of the base tree's _qsizing: the
+    first of 4, 8 and 16 blocks whose strip (two fp32 maps with halo rows,
+    F, Y and the weights of the first layer, the recon and one qSFB) fits."""
+    lay = base_layout(cin, width, cout, n_sfb, bits)
+    ost = max(lay["ast"], lay["ast1"])
+    pst = lay["cp8"] + 8 if lay["cp8"] % 16 == 0 else lay["cp8"]
+    for cluster in BASE_CLUSTERS:
+        rows = -(-h // cluster)
+        p = rows * w
+        smem = 2 * max(4 * (rows + 2) * w * pst, p * ost) + 2 * p * ost + lay["stage"]
+        if smem <= 232_448:
+            break
+    else:
+        sys.exit(f"FAIL: the base's layout holds no strip of {width} channels at {h}x{w}")
+    return rows, cluster, min(BASE_MAX_THREADS, max(64, 32 * -(-(lay["cp8"] // 4) * p // 32)))
 
 
 def base_pack(q, bits: int, torch):
-    """The base tree's pack_qweights: channels padded to 4, code weights
-    zero-padded (kp, cop), int8 as __dp4a words (input channels k..k+3 of one
-    output channel in one word), int32 row-major; fp operands row-major."""
+    """The base tree's pack_qweights: the same operand order and fp operands
+    as the tree's, the code weights as B rows of int8 codes or fp32 floats."""
     first, recon = q["first"], q["recon"]
     cin, c = first["pwq"].shape
     cout = recon["pw_fq"].shape[-1]
-    cpi, cp, cpo = _r4(cin), _r4(c), _r4(cout)
+    lay = base_layout(cin, c, cout, len(q["sfbs"]), bits)
+    cp8, cpo = lay["cp8"], lay["cpo"]
 
-    def codes(t, kp):
-        m = t.new_zeros((kp, cp))
-        m[: t.shape[0], : t.shape[1]] = t
-        if bits <= 8:
-            m = m.reshape(kp // 4, 4, cp).transpose(1, 2)
-        return m.contiguous().view(torch.uint8).reshape(-1)
+    def rows(t, stride):
+        dt = torch.int8 if bits <= 8 else torch.float32
+        m = torch.zeros((cp8, stride // dt.itemsize), dtype=dt, device=t.device)
+        m[: t.shape[1], : t.shape[0]] = t.t().to(dt)
+        return m.view(torch.uint8).reshape(-1)
 
-    def fp(t, rows, cols):
-        m = torch.zeros((rows, cols), dtype=torch.float32, device=t.device)
+    def fp(t, r, k):
+        m = torch.zeros((r, k), dtype=torch.float32, device=t.device)
         m[: t.shape[0], : t.shape[1]] = t
         return m.view(torch.uint8).reshape(-1)
 
-    def vec(v, n=cp):
+    def vec(v, n=cp8):
         return fp(v.reshape(1, -1), 1, n)
 
-    def bs(pwq, scale, pwb, dw, dwb, kp):
-        return [codes(pwq, kp), vec(scale), vec(pwb), fp(dw.reshape(9, c), 9, cp), vec(dwb)]
+    def bs(pwq, scale, pwb, dw, dwb, stride):
+        return [rows(pwq, stride), vec(scale), vec(pwb), fp(dw.reshape(9, c), 9, cp8), vec(dwb)]
 
-    parts = bs(first["pwq"], first["pw_scale"], first["pwb"], first["dw_fq"], first["dwb"], cpi)
+    parts = bs(first["pwq"], first["pw_scale"], first["pwb"], first["dw_fq"], first["dwb"],
+               lay["ast1"])
     for s in q["sfbs"]:
         for b in ("b1", "b2"):
             parts += bs(s[f"{b}_pwq"], s[f"{b}_pw_scale"], s[f"{b}_pwb"], s[f"{b}_dw_fq"],
-                        s[f"{b}_dwb"], cp)
-        parts += [codes(s["fuseq"], cp), vec(s["fuse_scale_y"]), vec(s["fuse_scale_x"]),
+                        s[f"{b}_dwb"], lay["ast"])
+        parts += [rows(s["fuseq"], lay["ast"]), vec(s["fuse_scale_y"]), vec(s["fuse_scale_x"]),
                   vec(s["fuseb"])]
     dwq = recon["dwq"].reshape(9, c)
-    m = dwq.new_zeros((9, cp))
+    m = dwq.new_zeros((9, cp8))
     m[:, :c] = dwq
     parts += [m.view(torch.uint8).reshape(-1), vec(recon["dw_scale"]), vec(recon["dwb"]),
-              fp(recon["pw_fq"], cp, cpo), vec(recon["pwb"], cpo)]
+              fp(recon["pw_fq"], cp8, cpo), vec(recon["pwb"], cpo)]
     return torch.cat(parts).contiguous()
 
 
@@ -185,13 +214,11 @@ def main() -> None:
             if base:
                 hit = repacked.get(id(wbuf))
                 if hit is None or hit[0] is not wbuf:
-                    lay = mk.QWeightLayout(cin, width, out_channels, n_sfb,
-                                           1 if bits <= 8 else 4)
+                    lay = mk.QWeightLayout(cin, width, out_channels, n_sfb, bits)
                     hit = repacked[id(wbuf)] = (wbuf, base_pack(mk.unpack_qweights(wbuf, lay),
                                                                 bits, torch))
                 wbuf = hit[1]
-                rows, threads = base_sizing(width, h, w, cin)
-                cluster = BASE_CLUSTER
+                rows, cluster, threads = base_sizing(width, h, w, cin, out_channels, n_sfb, bits)
             else:
                 rep = mk._qsizing(width, h, w, cin, out_channels, n_sfb, bits)
                 threads, cluster = variant_shape.get(tag, (None, None))
@@ -236,7 +263,7 @@ def main() -> None:
                    torch.rand((n, h, w, 3), generator=g).cuda(), mk.pack_qweights(ext, bits),
                    ext["consts"]) for n, h, w in EXTREME]
         for label, c, x, wbuf, qc in cases:
-            lay = mk.QWeightLayout(3, c, cfg.out_channels, cfg.n_sfb, 1 if bits <= 8 else 4)
+            lay = mk.QWeightLayout(3, c, cfg.out_channels, cfg.n_sfb, bits)
             a, b = kernels["base"](x, wbuf, qc, width=c, **kw), mk.qmega_fused(x, wbuf, qc,
                                                                                width=c, **kw)
             torch.cuda.synchronize()

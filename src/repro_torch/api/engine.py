@@ -33,9 +33,12 @@ convolution, always the plain model).
 from __future__ import annotations
 
 import collections
+import glob
 import os
+import re
 import time
 import warnings
+from pathlib import Path
 from typing import Any, Deque, Dict, Optional, Tuple
 
 import numpy as np
@@ -49,6 +52,19 @@ from repro_torch.models.essr import ESSR, ESSRConfig
 from repro_torch.runtime.guard import PoisonFrameError
 
 MODES = ("edge_select", "all_patches", "whole")
+#: Where `SREngine.from_checkpoint` looks for cached benchmark supernets
+#: without a checkpoint directory: ``$BENCH_CACHE``, else
+#: ``results/bench_models`` under the repository root.
+DEFAULT_BENCH_CACHE = os.environ.get(
+    "BENCH_CACHE", str(Path(__file__).resolve().parents[3] / "results" / "bench_models"))
+
+
+def _bench_steps(path: str) -> int:
+    """Steps of a bench-cache directory ``essr_x<s>_sfb<n>_<steps><tag>``:
+    the number leading its last ``_`` part (-1 without one), so "newest"
+    means most steps, not the last name in sorted order."""
+    m = re.match(r"(\d+)", path.rsplit("_", 1)[-1])
+    return int(m.group(1)) if m else -1
 
 
 def default_calibration_batch(patch: int, scale: int, n: int = 16,
@@ -115,26 +131,63 @@ class SREngine:
                    device=device, calibrate=calibrate, quant_cache=quant_cache)
 
     @classmethod
-    def from_checkpoint(cls, ckpt_dir: str, *, cfg: Optional[ESSRConfig] = None,
-                        scale: int = 4, prefer: str = "ema", step: Optional[int] = None,
+    def from_checkpoint(cls, ckpt_dir: Optional[str] = None, *,
+                        cfg: Optional[ESSRConfig] = None, scale: int = 4, prefer: str = "ema",
+                        step: Optional[int] = None,
+                        bench_cache: Optional[str] = DEFAULT_BENCH_CACHE,
                         plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
                         device=None, calibrate=None,
                         quant_cache: Optional[str] = None) -> "SREngine":
-        """Engine over a checkpoint the reference's ``CheckpointManager``
-        wrote, holding a ``{"params", "ema"}`` tree (or one of the two);
-        ``prefer`` picks the tree that serves."""
+        """Engine with trained weights, resolved in the reference's priority
+        order:
+
+        1. ``ckpt_dir``: a checkpoint the reference's ``CheckpointManager``
+           wrote, holding ``{"params", "ema"}`` (or either); ``prefer`` picks
+           the tree that serves, else "params", else the first tree by name
+           (warned). A checkpoint that fails to restore warns and serves
+           fresh init;
+        2. without ``ckpt_dir``: the cached benchmark supernet under
+           ``bench_cache`` with the most steps (``essr_x<scale>_sfb<n>_<steps>``),
+           warning on each candidate that fails to restore;
+        3. fresh init, the weights of ``from_config(cfg, seed=0)``.
+
+        ``quant_cache`` defaults to ``bench_cache``, as in the reference."""
         from repro_torch.ckpt.checkpoint import restore_numpy
         cfg = cfg if cfg is not None else ESSRConfig(scale=scale)
-        tree, _ = restore_numpy(ckpt_dir, step)
-        use = prefer
-        if use not in tree:
-            if "params" not in tree:
-                raise ValueError(f"checkpoint {ckpt_dir} holds {sorted(tree)}, "
-                                 f"neither {prefer!r} nor 'params'")
-            use = "params"
-            warnings.warn(f"checkpoint {ckpt_dir} has no {prefer!r} tree; serving 'params'")
-        return cls.from_params(tree[use], cfg, plan=plan, backend=backend, device=device,
-                               calibrate=calibrate, quant_cache=quant_cache)
+        quant_cache = quant_cache if quant_cache is not None else bench_cache
+        params = None
+        if ckpt_dir:
+            try:
+                tree, _ = restore_numpy(ckpt_dir, step)
+            except Exception as e:
+                tree = None
+                warnings.warn(f"checkpoint restore failed for {ckpt_dir}: {e!r}; "
+                              f"serving fresh random init")
+            if tree is not None:
+                use = prefer
+                if use not in tree:
+                    use = "params" if "params" in tree else sorted(tree)[0]
+                    warnings.warn(f"checkpoint {ckpt_dir} has no {prefer!r} tree (found "
+                                  f"{sorted(tree)}); serving {use!r} instead")
+                params = tree[use]
+        elif bench_cache:
+            pattern = os.path.join(bench_cache, f"essr_x{cfg.scale}_sfb{cfg.n_sfb}_*")
+            cands = sorted(glob.glob(pattern), key=_bench_steps, reverse=True)
+            for cand in cands:
+                try:
+                    params = restore_numpy(cand)[0]["params"]
+                    break
+                except Exception as e:
+                    warnings.warn(f"bench-cache restore failed for {cand}: {e!r}; "
+                                  f"trying next candidate")
+            if cands and params is None:
+                warnings.warn(f"no bench-cache candidate under {bench_cache} restored "
+                              f"cleanly; serving fresh random init")
+        kw = dict(plan=plan, backend=backend, device=device, calibrate=calibrate,
+                  quant_cache=quant_cache)
+        if params is None:
+            return cls.from_config(cfg, seed=0, **kw)
+        return cls.from_params(params, cfg, **kw)
 
     # -- quantized serving -----------------------------------------------------
 

@@ -7,8 +7,8 @@
 // cluster owns a strip of `rows` consecutive rows, and a depthwise layer
 // reads, besides its strip, one halo row above and one below it: the last
 // row of the block above and the first row of the block below, which those
-// blocks push (push_halo: remote stores and a cluster barrier, qmega.cu;
-// push_halo_bulk: bulk copies on the receiver's mbarrier, mega.cu).
+// blocks push as bulk copies that complete on the receiver's mbarrier
+// (push_halo_bulk).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -112,54 +112,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 __device__ __forceinline__ unsigned halo_bytes(int rank, int cs, int r0, int rows, int H,
                                                int row_bytes) {
   return (unsigned)row_bytes * ((rank > 0 && r0 < H) + (rank + 1 < cs && r0 + rows < H));
-}
-
-template <class V>
-__device__ __forceinline__ void push_rows(const V* first, const V* last, V* up, V* down, V* top,
-                                          V* bot, int n) {
-  const V zero{};
-  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
-    if (i < n) {
-      if (up) up[i] = first[i];
-      else top[i] = zero;
-    } else {
-      if (down) down[i - n] = last[i - n];
-      else bot[i - n] = zero;
-    }
-  }
-}
-
-// The halo rows of a map A whose halo rows sit in the map (row 0 above,
-// row rows + 1 below the interior rows 1..rows; `row_bytes` each, fp32 rows
-// or code rows alike, a multiple of 8), pushed by remote stores once its
-// interior rows are written: my first interior row goes to the bottom halo
-// row of rank - 1, my last to the top halo row of rank + 1 when that block's
-// strip lies inside the patch; a halo row of mine that no neighbour fills
-// (the patch border, rows past H) is zeroed. The cluster barrier then makes
-// every row visible. Only the halo rows of the map of the layer at hand are
-// written remotely, so a block may use the rest of its buffers between the
-// barriers; blocks whose strip lies past H (`active` false) keep the
-// barrier and send nothing.
-__device__ __forceinline__ void push_halo(cg::cluster_group& cl, char* A, int rank, int cs, int r0,
-                                          int rows, int H, int row_bytes, bool active) {
-  __syncthreads();
-  if (active) {
-    char* top = A;
-    char* bot = A + (size_t)(rows + 1) * row_bytes;
-    char* up = rank > 0 ? cl.map_shared_rank(bot, rank - 1) : nullptr;
-    char* down = rank + 1 < cs && r0 + rows < H ? cl.map_shared_rank(top, rank + 1) : nullptr;
-    const char* first = A + row_bytes;
-    const char* last = A + (size_t)rows * row_bytes;
-    if (row_bytes % 16 == 0)
-      push_rows(reinterpret_cast<const uint4*>(first), reinterpret_cast<const uint4*>(last),
-                reinterpret_cast<uint4*>(up), reinterpret_cast<uint4*>(down),
-                reinterpret_cast<uint4*>(top), reinterpret_cast<uint4*>(bot), row_bytes / 16);
-    else
-      push_rows(reinterpret_cast<const uint2*>(first), reinterpret_cast<const uint2*>(last),
-                reinterpret_cast<uint2*>(up), reinterpret_cast<uint2*>(down),
-                reinterpret_cast<uint2*>(top), reinterpret_cast<uint2*>(bot), row_bytes / 8);
-  }
-  cl.sync();
 }
 
 // Launch configuration of a cluster kernel taking one argument struct:

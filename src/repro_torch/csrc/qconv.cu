@@ -1,27 +1,26 @@
 // Integer-domain quantized ESSR kernels (PAMS serving path, paper Sec.
-// IV-H): quantize, qBSConv and qDSConv, NHWC, with the lattice codes between
-// groups as int8_t ("int8") or int32_t ("fxp10"). Each C entry takes an int
-// `bits`: 8 picks int8_t codes, anything wider int32_t. The fourth kernel of
-// the chain, qSFB, is a band walker of its own in qsfb.cu.
+// IV-H): quantize and qBSConv, NHWC, with the lattice codes between groups
+// as int8_t ("int8") or int32_t ("fxp10"). Each C entry takes an int `bits`:
+// 8 picks int8_t codes, anything wider int32_t. The chain's other two
+// kernels are band walkers of their own: qSFB in qsfb.cu, qDSConv in
+// dsconv.cu (the DSConv walker's codes datapath).
 //
 // Replaces the TPU kernels of repro/kernels/qconv.py: quantize_fused
-// (pallas_call at qconv.py:156), qbsconv_fused (:187) and qdsconv_fused
-// (:282).
+// (pallas_call at qconv.py:156) and qbsconv_fused (:187).
 //
 // Arithmetic contract: bit for bit the plain versions in
-// repro_torch/kernels/ref.py (quantize_ref, qbsconv_ref, qdsconv_ref). Every
-// rounded fp step, the integer dots and the staged layout of the code
-// weights live in qmath.cuh, shared with the quantized megakernel
-// (qmega.cu); see there for the order of every fp op.
+// repro_torch/kernels/ref.py (quantize_ref, qbsconv_ref). Every rounded fp
+// step, the integer dots and the staged layout of the code weights live in
+// qmath.cuh, shared with the quantized megakernel (qmega.cu); see there for
+// the order of every fp op.
 //
 // What bounds them, at N = 1024 C54 32x32 patches (x4) on an H100 SXM
-// (3.35 TB/s, 67 TFLOP/s fp32, 1,979 TOPS int8 dense); int8 / fxp10 codes
-// move 1 / 4 bytes each:
+// (3.35 TB/s, 1,979 TOPS int8 dense, each rounded fp32 operation one
+// instruction at 33.5 T a second); int8 / fxp10 codes move 1 / 4 bytes each:
 //   quantize  the bytes it moves: 15.7 / 25.2 MB, 0.0047 / 0.0075 ms;
-//   qBSConv   (first layer, 3 -> 54) the bytes of its output codes: 0.018 /
-//             0.071 ms;
-//   qDSConv   int8: its fp 1x1, 5.44 GFLOP at the fp32 rate, 0.081 ms;
-//             fxp10: its bytes, 0.128 ms.
+//   qBSConv   (first layer, 3 -> 54) int8: its 1.36 G rounded fp32
+//             operations (dequant, depthwise, requantize), 0.041 ms; fxp10:
+//             the bytes of its output codes, 0.071 ms.
 // These kernels keep the dots on the CUDA cores (no int8 mma yet).
 //
 // Design, simple and right first (speed is later work): as the fp kernels
@@ -31,12 +30,9 @@
 // maps of a tile never leave it). Channels pad to multiples of 4 with zero
 // codes and zero weights. Every pointwise result off the patch is 0, bias
 // included, before a depthwise layer (the SAME padding of the dequantized
-// map); the int32 depthwise of qDSConv reads zero codes off the patch. A
-// thread's integer dot covers 4 output channels of one pixel, with one
-// 16-byte shared-memory load of their weights per step (int8: per 4 input
-// channels, as 4-byte __dp4a words; int32: per input channel). qDSConv's fp
-// 1x1 gives a thread 4 output channels of 4 pixels, 16 independent ordered
-// sums.
+// map). A thread's integer dot covers 4 output channels of one pixel, with
+// one 16-byte shared-memory load of their weights per step (int8: per 4
+// input channels, as 4-byte __dp4a words; int32: per input channel).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -179,99 +175,6 @@ __global__ void __launch_bounds__(256) qbsconv_kernel(QBArgs<T> a) {
 // 1x1 as an ordered sum over input channels -> + bias -> requantize
 // ---------------------------------------------------------------------------
 
-template <class T>
-struct QDArgs {
-  const T* x;
-  const int32_t* dwq;
-  const float *dws, *dwb, *pw, *pwb, *qc;
-  T* out;
-  int N, H, W, Cin, Cout;
-};
-
-template <class T>
-size_t qdsconv_smem(int cpi, int cpo) {
-  return sizeof(float) * ((size_t)TILE * TILE * cpi + (size_t)cpi * cpo + 2 * cpi + cpo) +
-         sizeof(int32_t) * 9 * cpi + sizeof(T) * (size_t)R1 * R1 * cpi;
-}
-
-template <class T>
-__global__ void __launch_bounds__(256) qdsconv_kernel(QDArgs<T> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
-  const int cpi = round4(Cin), cpo = round4(Cout);
-  float* D = reinterpret_cast<float*>(smem);   // TILE*TILE x cpi
-  float* Pw = D + TILE * TILE * cpi;           // cpi x cpo
-  float* dws = Pw + cpi * cpo;                 // cpi
-  float* dwb = dws + cpi;                      // cpi
-  float* pwb = dwb + cpi;                      // cpo
-  int32_t* Dq = reinterpret_cast<int32_t*>(pwb + cpo);   // 9 x cpi codes
-  T* X = reinterpret_cast<T*>(Dq + 9 * cpi);   // R1*R1 x cpi codes
-
-  stage_codes(a.dwq, 9, Cin, 9, cpi, Dq);
-  stage_matrix(a.pw, Cin, Cout, cpi, cpo, Pw);
-  stage_matrix(a.dws, 1, Cin, 1, cpi, dws);
-  stage_matrix(a.dwb, 1, Cin, 1, cpi, dwb);
-  stage_matrix(a.pwb, 1, Cout, 1, cpo, pwb);
-  const float ao = a.qc[0], so = a.qc[1];
-
-  const int ty = (H + TILE - 1) / TILE, tx = (W + TILE - 1) / TILE;
-  const long long tiles = (long long)a.N * ty * tx;
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int n = (int)(t / (ty * tx));
-    const int r = (int)(t % (ty * tx));
-    const int y0 = (r / tx) * TILE, x0 = (r % tx) * TILE;
-    __syncthreads();
-    load_codes(a.x, n, H, W, Cin, y0 - 1, x0 - 1, R1, R1, cpi, X);
-    __syncthreads();
-    for (int item = threadIdx.x; item < TILE * TILE * cpi; item += blockDim.x) {
-      const int c = item % cpi, q = item / cpi;
-      const int i = q / TILE, j = q % TILE;
-      int acc = 0;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          acc += static_cast<int>(X[((i + dy) * R1 + j + dx) * cpi + c]) * Dq[(dy * 3 + dx) * cpi + c];
-      D[item] = dequant(acc, dws[c], dwb[c]);
-    }
-    __syncthreads();
-    // 4 output channels of the 4 pixels p, p + 16, p + 32, p + 48 per thread
-    constexpr int NPG = TILE * TILE / 4;
-    const int ng = cpo >> 2;
-    for (int item = threadIdx.x; item < ng * NPG; item += blockDim.x) {
-      const int g = item % ng, pg = item / ng;
-      float s[4][4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[k][j] = 0.f;
-      for (int ci = 0; ci < Cin; ++ci) {
-        const float4 wv = ld4(Pw + ci * cpo + 4 * g);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float d = D[(pg + k * NPG) * cpi + ci];
-          s[k][0] = mul_add_rn(s[k][0], d, wv.x);
-          s[k][1] = mul_add_rn(s[k][1], d, wv.y);
-          s[k][2] = mul_add_rn(s[k][2], d, wv.z);
-          s[k][3] = mul_add_rn(s[k][3], d, wv.w);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int p = pg + k * NPG;
-        const int y = y0 + p / TILE, xx = x0 + p % TILE;
-        if (y >= H || xx >= W) continue;
-        T* px = a.out + (((size_t)n * H + y) * W + xx) * Cout;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int co = 4 * g + j;
-          if (co < Cout) px[co] = requant<T>(__fadd_rn(s[k][j], pwb[co]), ao, so);
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -304,22 +207,15 @@ int qbsconv_launch(const QBArgs<T>& a, void* stream) {
                 tiles_of(a.N, a.H, a.W), a, stream);
 }
 
-template <class T>
-int qdsconv_launch(const QDArgs<T>& a, void* stream) {
-  return launch(qdsconv_kernel<T>, 256, qdsconv_smem<T>(round4(a.Cin), round4(a.Cout)),
-                tiles_of(a.N, a.H, a.W), a, stream);
-}
-
 }  // namespace
 
 // Dynamic shared memory of one block, in bytes: kernel 0 qBSConv (cin ->
-// cout), 2 qDSConv (cin -> cout); qSFB (1) lives in qsfb.cu.
+// cout); qSFB (1) lives in qsfb.cu, qDSConv (2) in dsconv.cu.
 extern "C" long long qconv_smem_bytes(int kernel, int cin, int cout, int bits) {
   const int cpi = round4(cin), cpo = round4(cout);
   const bool b8 = bits <= 8;
   switch (kernel) {
     case 0: return (long long)(b8 ? qbsconv_smem<int8_t>(cpi, cpo) : qbsconv_smem<int32_t>(cpi, cpo));
-    case 2: return (long long)(b8 ? qdsconv_smem<int8_t>(cpi, cpo) : qdsconv_smem<int32_t>(cpi, cpo));
     default: return -1;
   }
 }
@@ -342,18 +238,5 @@ extern "C" int qbsconv_forward(const void* x, const void* pwq, const float* pws,
   return qbsconv_launch(QBArgs<int32_t>{static_cast<const int32_t*>(x),
                                         static_cast<const int32_t*>(pwq), pws, pwb, dw, dwb, qc,
                                         static_cast<int32_t*>(out), N, H, W, Cin, Cout, relu},
-                        stream);
-}
-
-extern "C" int qdsconv_forward(const void* x, const int32_t* dwq, const float* dws,
-                               const float* dwb, const float* pw, const float* pwb,
-                               const float* qc, void* out, int N, int H, int W, int Cin,
-                               int Cout, int bits, void* stream) {
-  if (bits <= 8)
-    return qdsconv_launch(QDArgs<int8_t>{static_cast<const int8_t*>(x), dwq, dws, dwb, pw, pwb,
-                                         qc, static_cast<int8_t*>(out), N, H, W, Cin, Cout},
-                          stream);
-  return qdsconv_launch(QDArgs<int32_t>{static_cast<const int32_t*>(x), dwq, dws, dwb, pw, pwb,
-                                        qc, static_cast<int32_t*>(out), N, H, W, Cin, Cout},
                         stream);
 }

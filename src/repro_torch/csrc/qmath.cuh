@@ -1,6 +1,6 @@
 // Per-pixel arithmetic of the integer (PAMS lattice) kernels, shared by the
-// per-layer kernels (qconv.cu) and the quantized megakernel (qmega.cu), so
-// the two cannot drift apart.
+// per-layer kernels (qconv.cu, qsfb.cu, dsconv.cu's qDSConv) and the
+// quantized megakernel (qmega.cu), so they cannot drift apart.
 //
 // Contract: bit for bit the plain versions in repro_torch/kernels/ref.py.
 // Codes are integers, so a one-ulp difference in one fp step flips a code

@@ -8,17 +8,20 @@
 // - int8: mma.sync.m16n8k32.row.col.s32.s8.s8.s32, exact integer arithmetic.
 //   The depth pads to a multiple of 32 with zero codes and zero weights.
 // - fxp10: mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32 on the codes held as
-//   floats. It is exact. Codes and weight codes lie in [-511, 511] (qmax =
+//   floats (qsfb.cu), or m16n8k16 f16 on the codes held as fp16 (qmega.cu,
+//   Dot<__half>). Both are exact. Codes and weight codes lie in [-511, 511] (qmax =
 //   2^(bits-1) - 1, repro/quant/pams.py:44-45, and the int32 storage of the
 //   +-511 codes, :221-222), and TF32 holds every integer up to 2^11 exactly.
 //   With K <= 64 every product and every partial sum is an integer of
 //   magnitude at most 511^2 * 64 = 16,711,744 < 2^24, which fp32 holds
-//   exactly in any order and under any rounding of the accumulator. The
+//   exactly in any order and under any rounding of the accumulator. fp16 also
+//   holds every integer up to 2^11 exactly, so the same bound covers it. The
 //   epilogue takes the int back with __float2int_rn.
 // An operand pixel takes an odd multiple of 16 bytes (operand_stride), so the
 // eight rows of one ldmatrix fall on distinct banks.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -73,6 +76,12 @@ __device__ __forceinline__ void cp_async8(char* dst, const char* src) {
 }
 __device__ __forceinline__ void cp_async4(char* dst, const char* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+// The widest copy unit (16, 8, 4 or 1 bytes) that every row start, the row
+// stride and the row length allow.
+__device__ __forceinline__ int copy_unit(const void* p, size_t stride, int len) {
+  const size_t al = reinterpret_cast<size_t>(p) | stride | (size_t)len;
+  return (al & 15) == 0 ? 16 : (al & 7) == 0 ? 8 : (al & 3) == 0 ? 4 : 1;
 }
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_wait_all() {
@@ -133,6 +142,34 @@ struct Dot<int32_t> {
   }
   static __device__ __forceinline__ Op op(int v) { return __int2float_rn(v); }
   static __device__ __forceinline__ int code(Op v) { return __float2int_rn(v); }
+};
+
+// fxp10 codes held as fp16 (the quantized megakernel's operands): the same
+// bound makes mma.sync m16n8k16 f16 exact. fp16 holds every integer up to
+// 2^11 exactly, as TF32 does, so the +-511 codes and weight codes are exact
+// operands, their products exact in the fp32 accumulator, and every partial
+// sum an integer below 511^2 * 64 < 2^24. A k-step (32 bytes) is 16 codes,
+// half an fp32 operand's bytes.
+template <>
+struct Dot<__half> {
+  using Op = __half;
+  using Acc = float;
+  static __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ int value(float acc) { return __float2int_rn(acc); }
+  static __device__ __forceinline__ void put4(char* dst, const int (&v)[4]) {
+    __half2* h = reinterpret_cast<__half2*>(dst);
+    h[0] = __halves2half2(__int2half_rn(v[0]), __int2half_rn(v[1]));
+    h[1] = __halves2half2(__int2half_rn(v[2]), __int2half_rn(v[3]));
+  }
+  static __device__ __forceinline__ Op op(int v) { return __int2half_rn(v); }
+  static __device__ __forceinline__ int code(Op v) { return __half2int_rn(v); }
 };
 
 // acc[q][j] += A_q . B(n-tile nt0 + j) for j < ntc <= NT, over ks k-steps of

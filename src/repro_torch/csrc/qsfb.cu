@@ -19,11 +19,12 @@
 // fxp10 on m16n8k8 TF32 over codes held as floats.
 //
 // What bounds it, at N = 1024 C54 32x32 patches (x4) on an H100 SXM (3.35
-// TB/s; 1,979 TOPS int8 and 495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s
-// fp32 elsewhere): its bytes, codes in and out once (int8 113 MB, 0.034 ms;
-// fxp10 453 MB, 0.135 ms). Its operations are less: 24.5 G integer
-// operations of dots (0.012 ms int8, 0.050 ms at the TF32 rate) and 3.3 G
-// fp32 operations of dequant, depthwise, combine and requantize (0.049 ms).
+// TB/s; 1,979 TOPS int8 and 495 TFLOP/s TF32 on the tensor cores, and each
+// rounded fp32 operation one instruction at 33.5 T a second): its
+// operations, 24.5 G integer operations of dots (0.012 ms int8, 0.050 ms at
+// the TF32 rate) and 3.3 G rounded fp32 operations of dequant, depthwise,
+// combine and requantize (0.098 ms): 0.110 / 0.147 ms, against its bytes,
+// codes in and out once (int8 113 MB, 0.034 ms; fxp10 453 MB, 0.135 ms).
 //
 // Design: a band walker, sized by kernels/qconv.py::qsfb_report.
 // - A work item is one column band of one patch, at most BAND output pixels
@@ -248,13 +249,6 @@ __device__ __forceinline__ void ready_rows(const char* stg, char* X, const Shape
     }
     Dot<T>::put4(dst, v);
   }
-}
-
-// The widest copy unit (16, 8, 4 or 1 bytes) that every row start, the row
-// stride and the row length allow.
-__device__ __forceinline__ int copy_unit(const void* p, size_t stride, int len) {
-  const size_t al = reinterpret_cast<size_t>(p) | stride | (size_t)len;
-  return (al & 15) == 0 ? 16 : (al & 7) == 0 ? 8 : (al & 3) == 0 ? 4 : 1;
 }
 
 // Input rows [r0, r1) of band b on their way in, as cp.async copies; the

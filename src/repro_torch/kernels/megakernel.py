@@ -19,10 +19,11 @@ The quantized twin (``essr_forward_qmegakernel``, ``csrc/qmega.cu``) serves
 ``ExecutionPlan(quant=..., fusion="group")``: quantize once, the whole
 integer chain with the codes in shared memory, the recon codes out; one
 launch per routed bucket, ``qmega_fused.launches``. It keeps the cluster
-layout (4, 8 or 16 blocks a cluster, sized by :func:`qgroup_report`) and runs
-its 1x1 dots on the tensor cores, with the prepared integer operands packed
-once into one byte buffer in the dots' operand layout (:func:`pack_qweights`,
-cached).
+layout (4, 8 or 16 blocks a cluster, sized by :func:`qgroup_report`, every
+Table I patch at C27 and C54) and runs its 1x1 dots on the tensor cores, with
+the prepared integer operands packed once into one byte buffer in the dots'
+operand layout (:func:`pack_qweights`, cached), which the kernel stages one
+layer at a time.
 
 Both wrappers take their plain versions for CPU tensors at any patch size;
 the launch shape is sized, and a shape no layout holds refused, only for a
@@ -66,10 +67,14 @@ SM_SMEM, SMEM_RESERVED, SM_THREADS, SM_REGISTERS, MEGA_REGISTERS = \
 QMEGA_MAX_THREADS = 512
 #: H100 SXM data sheet: fp32 outside the tensor cores, and device memory.
 H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
-#: H100 SXM data sheet: dense int8 and TF32 on the tensor cores.
-H100_INT8_OPS, H100_TF32_FLOPS = 1979e12, 495e12
+#: H100 SXM data sheet: dense int8 and fp16 on the tensor cores.
+H100_INT8_OPS, H100_FP16_FLOPS = 1979e12, 989e12
+#: Rounded fp32 operations a second outside the tensor cores: each
+#: ``__fmul_rn``/``__fadd_rn`` is one instruction, and the fp32 peak counts an
+#: FFMA as two operations.
+H100_FP32_INSTRUCTIONS = H100_FP32_FLOPS / 2
 #: Widest subnet (and input) of the quantized megakernel: its dots hold 8
-#: n-tiles of 8 channels, and fxp10's TF32 dots are exact up to K = 64.
+#: n-tiles of 8 channels, and fxp10's fp16 dots are exact up to K = 64.
 QMEGA_MAX_WIDTH = 64
 #: Cluster sizes of the quantized megakernel, in the order tried: the first
 #: whose strip fits a block. Taller strips pay fewer halo barriers a row, and
@@ -429,17 +434,23 @@ def _operand_stride(nbytes: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class QWeightLayout:
     """Byte sizes of the packed integer weight buffer's groups (the same sums
-    as ``QShape`` in csrc/qmega.cu). Each 1x1's code weights are the
-    tensor-core dots' B operand: a row of ``ast`` bytes per output channel
-    (``ast1`` for the first layer's Cin-deep input), the depth zero-padded to
-    ``kp`` codes (int8: a multiple of 32, fxp10: of 8, as fp32); channels pad
-    to multiples of 8 (``cp8``), the recon's outputs to 4; every operand is a
+    as ``QShape`` in csrc/qmega.cu) for ``bits``-bit codes (8: int8, wider:
+    fxp10). Each 1x1's code weights are the tensor-core dots' B operand: a
+    row of ``ast`` bytes per output channel (``ast1`` for the first layer's
+    Cin-deep input), the depth zero-padded to ``kp`` codes (a multiple of one
+    32-byte k-step: 32 int8 codes, 16 fxp10 codes as fp16); channels pad to
+    multiples of 8 (``cp8``), the recon's outputs to 4; every operand is a
     multiple of 16 bytes."""
     cin: int
     width: int
     cout: int
     n_sfb: int
-    code_bytes: int
+    bits: int
+
+    @property
+    def code_bytes(self) -> int:
+        """Bytes of a code in the dots' operands: int8 1, fxp10 2 (fp16)."""
+        return 1 if self.bits <= 8 else 2
 
     @property
     def cp8(self) -> int:
@@ -450,7 +461,7 @@ class QWeightLayout:
         return _round4(self.cout)
 
     def _depth(self, k: int) -> int:
-        return _up(k, 32 if self.code_bytes == 1 else 8)
+        return _up(k, 32 // self.code_bytes)
 
     @property
     def kp(self) -> int:
@@ -493,53 +504,64 @@ class QWeightLayout:
         return self.first + self.n_sfb * self.sfb + self.recon
 
     @property
-    def stage(self) -> int:
-        """Bytes of weights a block holds at once: the first layer's and the
-        recon's for the whole launch, and one qSFB's, whose three parts roll."""
-        return self.first + self.recon + (self.sfb if self.n_sfb else 0)
+    def slot(self) -> int:
+        """Bytes of one slot of the kernel's two-slot weight ring: the largest
+        layer (the first qBSConv, a qSFB's b1, b2 or fuse, the recon)."""
+        return max(self.first, self.recon, *((self.bs, self.fuse) if self.n_sfb else ()))
+
+
+def _qmega_smem(lay: QWeightLayout, rows: int, w: int) -> int:
+    """Shared-memory bytes of one block (csrc/qmega.cu ``QShape``): the fp32
+    map A (pst floats a pixel; also the fuse's staged codes), the two halo
+    rows (an fp32 row or a code row of F), the operand buffers F and Y (ost
+    bytes a pixel), the two weight-ring slots and the halo rows' mbarrier
+    (16 bytes)."""
+    pst = lay.cp8 + 8 if lay.cp8 % 16 == 0 else lay.cp8
+    ost = max(lay.ast, lay.ast1)
+    p = rows * w
+    return (max(4 * p * pst, p * ost) + 2 * w * max(4 * pst, ost) + 2 * p * ost
+            + 2 * lay.slot + 16)
 
 
 def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
              bits: int) -> Dict[str, Any]:
     """The quantized megakernel's launch shape and work for one patch;
-    raises ValueError when a block's share does not fit in shared memory or
-    the width is past the dots' 64 channels."""
+    raises ValueError for a patch past 64 (no layout holds one: ROADMAP queue
+    3), a width past the dots' 64 channels, or a strip that fits no block."""
     if min(width, h, w, cin, cout) < 1 or n_sfb < 0:
         raise ValueError(f"qgroup_report: width {width}, patch {h}x{w}, cin {cin}, "
                          f"cout {cout}, n_sfb {n_sfb}: every size must be positive")
     if max(width, cin) > QMEGA_MAX_WIDTH:
-        # the dots hold 8 n-tiles of 8 channels; fxp10's TF32 dots are exact
+        # the dots hold 8 n-tiles of 8 channels; fxp10's fp16 dots are exact
         # only while 511^2 * K < 2^24, K <= 64
         raise ValueError(f"qgroup_report: width {width}, cin {cin}: the quantized megakernel's "
                          f"tensor-core dots take 1..{QMEGA_MAX_WIDTH} channels")
     _check_patch("qgroup_report", h, w)
-    cb = 1 if bits <= 8 else 4
-    lay = QWeightLayout(cin, width, cout, n_sfb, cb)
-    ost = max(lay.ast, lay.ast1)
-    pst = lay.cp8 + 8 if lay.cp8 % 16 == 0 else lay.cp8
+    lay = QWeightLayout(cin, width, cout, n_sfb, bits)
     for cluster in QMEGA_CLUSTERS:
         rows = -(-h // cluster)
-        p = rows * w
-        a_bytes = max(4 * (rows + 2) * w * pst, p * ost)
-        smem = 2 * a_bytes + 2 * p * ost + lay.stage
+        smem = _qmega_smem(lay, rows, w)
         if smem <= SMEM_LIMIT:
             break
     else:
         raise ValueError(
             f"qgroup_report: width {width}, patch {h}x{w}, {bits}-bit codes: a block of the "
             f"{cluster}-block cluster ({rows} rows) needs {smem} B of shared memory, over the "
-            f"H100's {SMEM_LIMIT} B per block; this shape waits on qmega's own layout rework "
-            f"(ROADMAP queue 3)")
+            f"H100's {SMEM_LIMIT} B per block")
+    p = rows * w
     # one thread per (pixel, 4 channels) of a depthwise layer
     threads = min(QMEGA_MAX_THREADS, max(64, 32 * -(-(lay.cp8 // 4) * p // 32)))
     int_ops = 2 * (cin * width + n_sfb * 4 * width * width + 9 * width) * h * w
     fp_ops = (3 * cin + 24 * width + n_sfb * 58 * width + 2 * width + 2 * width * cout
               + 4 * cout) * h * w
+    cb = 1 if bits <= 8 else 4
     nbytes = h * w * (4 * cin + cb * cout)
-    # int8 dots on the int8 tensor cores; fxp10 dots on the TF32 tensor cores,
-    # exact there (codes up to 2^11, sums below 2^24)
-    int_rate = H100_INT8_OPS if bits <= 8 else H100_TF32_FLOPS
-    t_ops = int_ops / int_rate + fp_ops / H100_FP32_FLOPS
+    # int8 dots on the int8 tensor cores; fxp10 dots on the fp16 tensor cores,
+    # exact there (codes up to 2^11, sums below 2^24); every rounded fp32
+    # operation (__fmul_rn, __fadd_rn, ...) is one instruction at half the
+    # FFMA-counted fp32 peak
+    int_rate = H100_INT8_OPS if bits <= 8 else H100_FP16_FLOPS
+    t_ops = int_ops / int_rate + fp_ops / H100_FP32_INSTRUCTIONS
     return {"cluster": cluster, "rows_per_cta": rows, "threads": threads,
             "smem_bytes": smem, "smem_limit": SMEM_LIMIT, "code_bytes": cb,
             "weight_bytes": lay.size + 4 * (6 + 6 * n_sfb),
@@ -553,18 +575,18 @@ def qgroup_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
     """Static sizing of the quantized megakernel on the H100 at one (width,
     patch, code width) point, the twin of :func:`group_report`: cluster size
     (the fewest of 4, 8 and 16 blocks whose strip fits), rows per block
-    (CTA), threads, shared-memory bytes per block against the
-    232,448 B limit (two fp32 halo maps, two code buffers in the dots'
-    operand layout, the first layer's, the recon's and one qSFB's packed
-    weights), the packed weights' bytes, and per patch the integer and fp32
-    operations and the device-memory bytes (fp32 input read once, recon codes
-    written once), with which of the two bounds the launch at the data
-    sheet's rates (int8 dots at 1,979 TOPS, fxp10 dots at the TF32 rate of
-    495 TFLOP/s, fp32 at 67 TFLOP/s; 3.35 TB/s). ``bits``: 8 for int8 codes,
-    anything wider int32. Raises ValueError for a strip that fits no block
-    (fxp10 at 48x48 C54, both modes at 64x64 C54: ROADMAP queue 3), for a
-    patch past 64 and for a width past 64 channels (fxp10's TF32 dots are
-    exact only up to K = 64)."""
+    (CTA), threads, shared-memory bytes per block against the 232,448 B
+    limit (one fp32 map, two halo rows, two code buffers in the dots' operand
+    layout, two weight-ring slots: :func:`_qmega_smem`), the packed weights'
+    bytes, and per patch the integer and rounded fp32 operations and the
+    device-memory bytes (fp32 input read once, recon codes written once),
+    with which of the two bounds the launch at the data sheet's rates (int8
+    dots at 1,979 TOPS, fxp10 dots at the fp16 rate of 989 TFLOP/s, each
+    rounded fp32 operation one instruction at 33.5 T a second; 3.35 TB/s).
+    ``bits``: 8 for int8 codes, anything wider int32. Every patch of Table I
+    (16 to 64) fits at widths up to 64 in both modes. Raises ValueError for a
+    patch past 64 (ROADMAP queue 3) and for a width past 64 channels (fxp10's
+    fp16 dots are exact only up to K = 64)."""
     h, w = (patch, patch) if isinstance(patch, int) else (int(patch[0]), int(patch[1]))
     return _qsizing(width, h, w, in_channels, in_channels * scale * scale, n_sfb, bits)
 
@@ -572,8 +594,9 @@ def qgroup_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
 def _b_rows(t: torch.Tensor, rows: int, stride: int, bits: int) -> torch.Tensor:
     """Code weights (K, Co) -> bytes of the dots' B operand: ``rows`` rows (one
     per output channel, zero past Co) of ``stride`` bytes, each holding the
-    channel's K codes, zero past K; int8 as bytes, fxp10 as fp32."""
-    dt = torch.int8 if bits <= 8 else torch.float32
+    channel's K codes, zero past K; int8 as bytes, fxp10 as fp16 (exact for
+    its +-511 codes)."""
+    dt = torch.int8 if bits <= 8 else torch.float16
     m = torch.zeros((rows, stride // dt.itemsize), dtype=dt, device=t.device)
     m[: t.shape[1], : t.shape[0]] = t.t().to(dt)
     return m.view(torch.uint8).reshape(-1)
@@ -596,7 +619,7 @@ def pack_qweights(q: Dict[str, Any], bits: int) -> torch.Tensor:
     first, recon = q["first"], q["recon"]
     cin, c = first["pwq"].shape
     cout = recon["pw_fq"].shape[-1]
-    lay = QWeightLayout(cin, c, cout, len(q["sfbs"]), 1 if bits <= 8 else 4)
+    lay = QWeightLayout(cin, c, cout, len(q["sfbs"]), bits)
     cp8, cpo = lay.cp8, lay.cpo
 
     def vec(v, n=cp8):
@@ -627,7 +650,7 @@ def unpack_qweights(wbuf: torch.Tensor, lay: QWeightLayout) -> Dict[str, Any]:
     form `prepare_qparams` gives them (what `kernels.ref.qmega_ref` takes)."""
     cp8, cpo = lay.cp8, lay.cpo
     c, off = lay.width, 0
-    cdt = torch.int8 if lay.code_bytes == 1 else torch.int32
+    cdt = code_dtype(lay.bits)
 
     def take(rows, cols, dtype, r, k):
         nonlocal off
@@ -637,7 +660,7 @@ def unpack_qweights(wbuf: torch.Tensor, lay: QWeightLayout) -> Dict[str, Any]:
         return v.reshape(rows, cols)[:r, :k]
 
     def codes(k, stride):            # B rows back to (K, C) codes
-        op = torch.int8 if lay.code_bytes == 1 else torch.float32
+        op = torch.int8 if lay.code_bytes == 1 else torch.float16
         return take(cp8, stride // op.itemsize, op, c, k).t().to(cdt)
 
     def vec(n=cp8, k=c):
@@ -685,7 +708,7 @@ def qmega_fused(x: torch.Tensor, wbuf: torch.Tensor, qc: torch.Tensor, *, width:
     check_operands("qmega_fused", x, {})
     n, h, w, cin = x.shape
     check_channels("qmega_fused", Cin=cin, C=width, Cout=out_channels)
-    lay = QWeightLayout(cin, width, out_channels, n_sfb, 1 if bits <= 8 else 4)
+    lay = QWeightLayout(cin, width, out_channels, n_sfb, bits)
     check_operands("qmega_fused", x, {"wbuf": (wbuf, (lay.size,), torch.uint8),
                                       "qc": (qc, (6 + 6 * n_sfb,))})
     dtype = code_dtype(bits)

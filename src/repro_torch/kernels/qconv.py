@@ -1,8 +1,9 @@
 """Integer-domain quantized ESSR kernels (PAMS serving path, Sec. IV-H):
 the host side of ``repro.kernels.qconv`` and the wrappers of the four CUDA
-kernels: quantize, qBSConv and qDSConv in ``csrc/qconv.cu``, qSFB in
-``csrc/qsfb.cu`` (a band walker with its 1x1 dots on the tensor cores, sized
-by :func:`qsfb_report`).
+kernels: quantize and qBSConv in ``csrc/qconv.cu``, qSFB in ``csrc/qsfb.cu``
+(a band walker with its 1x1 dots on the tensor cores, sized by
+:func:`qsfb_report`) and qDSConv in ``csrc/dsconv.cu`` (the DSConv band
+walker's codes datapath, sized by `kernels.dsconv.dsconv_report`).
 
 Activations travel between the fused groups as integer codes (int8 under
 ``"int8"``, int32 under ``"fxp10"``). A 1x1 whose input is a lattice is an
@@ -37,6 +38,7 @@ from repro_torch.core.caching import BoundedCache
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import (CODE_DTYPES, MAX_CHANNELS, check_channels,
                                         check_operands, stream_of)
+from repro_torch.kernels.dsconv import launch_shape as dsconv_launch_shape
 from repro_torch.kernels.megakernel import SMEM_LIMIT, _TreeKey
 from repro_torch.kernels.ref import qbsconv_ref, qdsconv_ref, qsfb_ref, quantize_ref
 from repro_torch.kernels.sfb import _busy, _up
@@ -380,7 +382,9 @@ def qdsconv_fused(xq: torch.Tensor, dwq: torch.Tensor, dw_scale: torch.Tensor,
                   qc: torch.Tensor) -> torch.Tensor:
     """xq: (N,H,W,Cin) codes; dwq: (3,3,Cin) int32 codes; dw_scale, dw_b:
     (Cin,); pw_fq: (Cin,Cout) fake-quant fp; ``qc``: the recon site's
-    (a, s). Returns (N,H,W,Cout) codes."""
+    (a, s). Returns (N,H,W,Cout) codes. The kernel is the DSConv band
+    walker's codes datapath (``csrc/dsconv.cu``), launched with
+    `kernels.dsconv.dsconv_report`'s rows and threads."""
     cin = int(xq.shape[-1]) if xq.ndim == 4 else -1
     cout = int(pw_fq.shape[-1]) if pw_fq.ndim == 2 else -1
     check_operands("qdsconv_fused", xq, {
@@ -394,10 +398,11 @@ def qdsconv_fused(xq: torch.Tensor, dwq: torch.Tensor, dw_scale: torch.Tensor,
     out = torch.empty((n, h, w, cout), dtype=xq.dtype, device=xq.device)
     if n == 0:
         return out
-    launch = _build.entry("qconv", "qdsconv_forward", 8, 6)
+    bits = _code_bits(xq.dtype)
+    launch = _build.entry("dsconv", "qdsconv_forward", 8, 8)
     launch(xq.data_ptr(), dwq.data_ptr(), dw_scale.data_ptr(), dw_b.data_ptr(),
            pw_fq.data_ptr(), pw_b.data_ptr(), qc.data_ptr(), out.data_ptr(),
-           n, h, w, cin, cout, _code_bits(xq.dtype), stream_of(xq))
+           n, h, w, cin, cout, bits, *dsconv_launch_shape(cin, cout, h, w, bits), stream_of(xq))
     qdsconv_fused.launches += 1
     return out
 

@@ -6,7 +6,8 @@ The wrappers take these on CPU tensors; on the card they are what each
 kernel is held against.
 
 The quantized versions (twins of ``repro.kernels.qconv``'s ``_*_math``) are
-the arithmetic contract of ``csrc/qconv.cu`` and ``csrc/qmega.cu``, which
+the arithmetic contract of ``csrc/qconv.cu``, ``csrc/qsfb.cu``,
+``csrc/dsconv.cu`` (qDSConv) and ``csrc/qmega.cu``, which
 must equal them bit for bit: every fp step is its own rounded op (no multiply-add contraction), the
 depthwise sums its 9 taps in (dy, dx) raster order from 0 before the bias,
 and the site constants ``qc`` (clip, step pairs) are 0-d tensors on the

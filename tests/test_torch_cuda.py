@@ -79,8 +79,26 @@ def test_sfb_kernel_matches_plain(cuda, n, h, w, c):
     torch.testing.assert_close(got, ref.sfb_ref(x, p), **TOL)
 
 
-@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 32, 32, 54, 48), (7, 32, 32, 27, 12),
-                                            (2, 10, 30, 12, 48)])
+#: DSConv / qDSConv shapes (N, H, W, Cin, Cout): the main path's 32x32 at
+#: three batch sizes, ragged steps and odd widths, Table I's 64 and an 80x80
+#: patch cut into three column bands.
+DSCONV_CASES = [(1, 32, 32, 54, 48), (7, 32, 32, 27, 12), (1024, 32, 32, 54, 48),
+                (2, 10, 30, 12, 48), (3, 13, 21, 54, 48), (2, 17, 9, 27, 48),
+                (2, 64, 64, 54, 48), (1, 80, 80, 27, 48), (1, 80, 80, 54, 12)]
+
+
+def _dsconv_smem(cin, cout, h, w, bits):
+    """The built walker's shared memory against dsconv_report's."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dsconv import dsconv_report
+    rep = dsconv_report(cin, cout, h, w, bits)
+    fn = _build.load("dsconv").dsconv_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    assert fn(w, cin, cout, bits or 0, rep["rows_per_step"]) == rep["smem_bytes"]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", DSCONV_CASES)
 def test_dsconv_kernel_matches_plain(cuda, n, h, w, cin, cout):
     g = torch.Generator().manual_seed(n + cin)
     x = torch.rand((n, h, w, cin), generator=g).cuda()
@@ -88,6 +106,28 @@ def test_dsconv_kernel_matches_plain(cuda, n, h, w, cin, cout):
     got = dsconv_fused(x, *ws)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref.dsconv_ref(x, *ws), **TOL)
+    _dsconv_smem(cin, cout, h, w, None)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("n,h,w,cin,cout", DSCONV_CASES)
+def test_qdsconv_kernel_equals_plain(cuda, n, h, w, cin, cout, bits):
+    """qDSConv (the walker's codes datapath) on codes spread over the whole
+    lattice, non-zero biases: torch.equal to its plain version."""
+    g = torch.Generator().manual_seed(n + cin + bits)
+    qmax = 127 if bits <= 8 else 511
+    dtype = torch.int8 if bits <= 8 else torch.int32
+    xq = torch.randint(-qmax, qmax + 1, (n, h, w, cin), generator=g).to(dtype).cuda()
+    dwq = torch.randint(-qmax, qmax + 1, (3, 3, cin), generator=g).to(torch.int32).cuda()
+    dws = ((torch.rand(cin, generator=g) + 0.5) / (qmax * qmax * 3)).cuda()
+    pw = (torch.randn((cin, cout), generator=g) * 4 / cin ** 0.5).cuda()
+    qc = torch.tensor([2.0, 2.0 / qmax]).cuda()
+    args = (dwq, dws, _w(g, cin, scale=0.1), pw, _w(g, cout, scale=0.1), qc)
+    got = tq.qdsconv_fused(xq, *args)
+    torch.cuda.synchronize()
+    want = ref.qdsconv_ref(xq, *args)
+    assert torch.equal(got, want) and want.abs().max().item() > 0
+    _dsconv_smem(cin, cout, h, w, bits)
 
 
 def test_engine_frame_on_card_matches_ref(cuda):
@@ -163,13 +203,12 @@ def test_megakernel_refuses_on_card_without_fallback(cuda):
     assert mk.mega_fused.launches == before
 
 
-@pytest.mark.parametrize("quant", [None, "int8"])
-def test_engine_group_frame_at_patch_48_equals_layer_frame(cuda, quant):
+def _group_equals_layer(quant, patch):
     r = np.random.default_rng(2)
     frame = np.clip(np.linspace(0, 1, 96 * 160 * 3, dtype=np.float32).reshape(96, 160, 3)
                     + (np.arange(160) > 80)[None, :, None] * (r.random((96, 160, 3)) - 0.5),
                     0, 1).astype(np.float32)
-    kw = dict(patch=48, overlap=2, quant=quant)
+    kw = dict(patch=patch, overlap=2, quant=quant)
     layer = SREngine.from_config(ESSRConfig(scale=2), seed=4, plan=ExecutionPlan(**kw))
     group = SREngine(layer.model, plan=ExecutionPlan(**kw, fusion="group"))
     a = layer.upscale(frame)
@@ -179,6 +218,18 @@ def test_engine_group_frame_at_patch_48_equals_layer_frame(cuda, quant):
     assert buckets > 0 and ops.launch_counts()["qmega" if quant else "mega"] == buckets
     np.testing.assert_array_equal(a.ids, b.ids)
     assert torch.equal(a.image, b.image)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "fxp10"])
+def test_engine_group_frame_at_patch_48_equals_layer_frame(cuda, quant):
+    _group_equals_layer(quant, 48)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "fxp10"])
+def test_engine_group_frame_at_patch_64_equals_layer_frame(cuda, quant):
+    """Table I's largest patch; qmega's 16-block clusters at C54 (ROADMAP
+    queue 3, fault 1)."""
+    _group_equals_layer(quant, 64)
 
 
 def test_engine_group_frame_on_card_matches_ref(cuda):
@@ -324,7 +375,7 @@ def test_quantized_megakernel_equals_chain_and_reference(cuda, mode, n, width):
     assert torch.equal(got, tq.essr_forward_qkernels(tree, x, cfg, width, pack=pack))
     assert torch.equal(got, tq.essr_forward_qref(tree, x, cfg, width, pack=pack))
     wbuf = mk.pack_qweights(q, pack.bits)
-    lay = mk.QWeightLayout(3, width, cfg.out_channels, cfg.n_sfb, 1 if pack.bits <= 8 else 4)
+    lay = mk.QWeightLayout(3, width, cfg.out_channels, cfg.n_sfb, pack.bits)
     codes = mk.qmega_fused(x, wbuf, q["consts"], width=width, n_sfb=cfg.n_sfb,
                            out_channels=cfg.out_channels, bits=pack.bits)
     plain = ref.qmega_ref(x, mk.unpack_qweights(wbuf, lay), q["consts"], codes.dtype)
@@ -334,22 +385,32 @@ def test_quantized_megakernel_equals_chain_and_reference(cuda, mode, n, width):
 
 @pytest.mark.parametrize("mode", ["int8", "fxp10"])
 @pytest.mark.parametrize("n,h,w,width", [(2, 17, 9, 54), (2, 17, 9, 27), (3, 13, 21, 54),
-                                         (1, 25, 32, 54), (2, 5, 9, 27)])
+                                         (1, 25, 32, 54), (2, 5, 9, 27), (2, 48, 48, 54),
+                                         (2, 64, 64, 54)])
 def test_quantized_megakernel_ragged_strips(cuda, mode, n, h, w, width):
-    """Ragged last strips (17, 13 and 25 rows; 25 rows at C54 take 8-block
-    clusters in fxp10) and an idle last block (5 rows)."""
+    """Ragged last strips (17, 13 and 25 rows), an idle last block (5 rows)
+    and the Table I shapes PR 20's layout refused (48x48 C54: 8 blocks of 6
+    rows; 64x64 C54: 16 blocks of 4); the launch's shared memory is
+    qgroup_report's."""
     cfg, tree, pack, q = _quant_setup(mode, width, seed=n + h + width)
     x = torch.rand((n, h, w, 3), generator=torch.Generator().manual_seed(h)).cuda()
     got = mk.essr_forward_qmegakernel(tree, x, cfg, width, pack=pack)
     assert torch.equal(got, tq.essr_forward_qkernels(tree, x, cfg, width, pack=pack))
     assert torch.equal(got, tq.essr_forward_qref(tree, x, cfg, width, pack=pack))
     wbuf = mk.pack_qweights(q, pack.bits)
-    lay = mk.QWeightLayout(3, width, cfg.out_channels, cfg.n_sfb, 1 if pack.bits <= 8 else 4)
+    lay = mk.QWeightLayout(3, width, cfg.out_channels, cfg.n_sfb, pack.bits)
     codes = mk.qmega_fused(x, wbuf, q["consts"], width=width, n_sfb=cfg.n_sfb,
                            out_channels=cfg.out_channels, bits=pack.bits)
     plain = ref.qmega_ref(x, mk.unpack_qweights(wbuf, lay), q["consts"], codes.dtype)
     torch.cuda.synchronize()
     assert torch.equal(codes, plain) and codes.abs().max().item() > 0
+    import ctypes
+    from repro_torch.kernels import _build
+    rep = mk.qgroup_report(width, (h, w), cfg.scale, cfg.n_sfb, pack.bits)
+    smem = _build.load("qmega").qmega_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+    assert smem(w, 3, width, cfg.out_channels, cfg.n_sfb, rep["rows_per_cta"],
+                pack.bits) == rep["smem_bytes"]
 
 
 def _chip_smoke():
@@ -366,13 +427,13 @@ def _chip_smoke():
 @pytest.mark.parametrize("n,h,w", [(7, 32, 32), (2, 17, 9), (3, 13, 21), (1, 25, 32)])
 def test_quantized_megakernel_at_extreme_codes(cuda, n, h, w, bits):
     """Every weight code at +-qmax and codes that saturate; one qSFB's sums
-    reach +-qmax^2 * 54 (fxp10: 511^2 * 54, below the TF32 route's 2^24)."""
+    reach +-qmax^2 * 54 (fxp10: 511^2 * 54, below the fp16 route's 2^24)."""
     cs = _chip_smoke()
     g = torch.Generator().manual_seed(n + bits)
     q = cs.qmega_extreme_operands(54, bits, g, torch)
     x = torch.rand((n, h, w, 3), generator=g).cuda()
     wbuf = mk.pack_qweights(q, bits)
-    lay = mk.QWeightLayout(3, 54, 48, 5, 1 if bits <= 8 else 4)
+    lay = mk.QWeightLayout(3, 54, 48, 5, bits)
     codes = mk.qmega_fused(x, wbuf, q["consts"], width=54, n_sfb=5, out_channels=48, bits=bits)
     plain = ref.qmega_ref(x, mk.unpack_qweights(wbuf, lay), q["consts"], codes.dtype)
     torch.cuda.synchronize()

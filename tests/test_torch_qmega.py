@@ -116,17 +116,20 @@ def _extreme_q(c: int, bits: int, cin: int = 3, cout: int = 12, n_sfb: int = 2, 
 def test_pack_unpack_round_trip_and_cache(qtoy, mode, width):
     _, params, x, packs = qtoy
     pack = _port_pack(packs[mode])
-    cb = 1 if pack.bits <= 8 else 4
     if width <= TOY.channels:       # the toy model's operands; wider: codes at +-qmax
         q, _ = tq.prepare_qparams(params, TOY, width, pack)
-        lay = mk.QWeightLayout(3, width, TOY.out_channels, TOY.n_sfb, cb)
+        lay = mk.QWeightLayout(3, width, TOY.out_channels, TOY.n_sfb, pack.bits)
     else:
         q = _extreme_q(width, pack.bits)
-        lay = mk.QWeightLayout(3, width, 12, 2, cb)
+        lay = mk.QWeightLayout(3, width, 12, 2, pack.bits)
     wbuf = mk.pack_qweights(q, pack.bits)
     assert wbuf.dtype == torch.uint8 and wbuf.numel() == lay.size
     for part in (lay.first, lay.bs, lay.fuse, lay.sfb, lay.recon, lay.ast, lay.ast1):
         assert part % 16 == 0
+    # fxp10 B rows hold the codes as fp16 (the first b1 row of the first qSFB)
+    if pack.bits > 8:
+        row = wbuf[lay.first: lay.first + lay.ast].view(torch.float16)[:width]
+        assert torch.equal(row.to(torch.int32), q["sfbs"][0]["b1_pwq"][:, 0])
     assert (lay.ast // 16) % 2 == 1 and (lay.ast1 // 16) % 2 == 1     # odd: no bank conflicts
     back = mk.unpack_qweights(wbuf, lay)
     for grp in ("first", "recon"):
@@ -178,51 +181,67 @@ def test_qmega_empty_bucket_width_checks_and_launches(qtoy):
     assert counts["qmega"] == 0 and counts["edge"] == 0 and set(counts.values()) == {0}
 
 
-@pytest.mark.parametrize("width", [27, 54])
+@pytest.mark.parametrize("scale", [2, 4])
 @pytest.mark.parametrize("bits", [8, 10])
-def test_qgroup_report_fits_and_raises(width, bits):
-    rep = mk.qgroup_report(width, 32, 4, 5, bits)
-    # 4-block clusters of 8-row strips where they fit (all but fxp10 at C54)
-    cluster = 8 if (width, bits) == (54, 10) else 4
-    rows = 32 // cluster
-    assert rep["rows_per_cta"] == rows and rep["cluster"] == cluster
+@pytest.mark.parametrize("width", [27, 54])
+@pytest.mark.parametrize("patch", [16, 32, 48, 64])
+def test_qgroup_report_fits_and_raises(patch, width, bits, scale):
+    """Every patch of Table I fits a block at C27 and C54, int8 and fxp10, x2
+    and x4 (ROADMAP queue 3, fault 1); past 64 it raises (fault 2)."""
+    rep = mk.qgroup_report(width, patch, scale, 5, bits)
+    cluster, rows = rep["cluster"], rep["rows_per_cta"]
+    assert cluster in mk.QMEGA_CLUSTERS and rows == -(-patch // cluster)
     assert rep["smem_bytes"] <= rep["smem_limit"] == 232_448 and rep["bound"] == "operations"
-    cb = 1 if bits <= 8 else 4
-    lay = mk.QWeightLayout(3, width, 48, 5, cb)
+    # the fewest blocks a cluster whose strip fits
+    lay = mk.QWeightLayout(3, width, 3 * scale * scale, 5, bits)
+    for fewer in mk.QMEGA_CLUSTERS[:mk.QMEGA_CLUSTERS.index(cluster)]:
+        assert mk._qmega_smem(lay, -(-patch // fewer), patch) > 232_448
     cp8 = -(-width // 8) * 8
     pst = cp8 + 8 if cp8 % 16 == 0 else cp8         # fp32 map pixel: 8 or 24 floats mod 32
     ost = max(lay.ast, lay.ast1)                    # operand pixel: an odd multiple of 16 B
-    # two fp32 maps of the strip's rows and two halo rows, F and Y, the weights
-    a_map = max(4 * (rows + 2) * 32 * pst, rows * 32 * ost)
-    assert rep["smem_bytes"] == 2 * a_map + 2 * rows * 32 * ost + lay.stage
-    assert lay.stage == lay.first + lay.recon + lay.sfb
-    assert rep["int_ops_per_patch"] == 2 * 1024 * (3 * width + 20 * width * width + 9 * width)
-    with pytest.raises(ValueError, match="up to 64x64"):
-        mk.qgroup_report(width, 96, 4, 5, bits)
-    with pytest.raises(ValueError, match="232448 B.*queue 3"):
-        mk.qgroup_report(54, 64, 4, 5, bits)     # no layout of qmega's holds 64x64 at C54
+    assert ost == {(54, 8): 80, (54, 10): 144, (27, 8): 48, (27, 10): 80}[width, bits]
+    # one fp32 map, two halo rows, F and Y, two weight slots (one layer
+    # each) and the halo mbarrier
+    p = rows * patch
+    assert rep["smem_bytes"] == (4 * p * pst + 2 * patch * 4 * pst + 2 * p * ost
+                                 + 2 * lay.slot + 16)
+    assert lay.slot == max(lay.first, lay.bs, lay.fuse, lay.recon)
+    assert rep["int_ops_per_patch"] == 2 * patch * patch * (3 * width + 20 * width * width
+                                                            + 9 * width)
+    with pytest.raises(ValueError, match="up to 64x64.*queue 3"):
+        mk.qgroup_report(width, patch + 64, scale, 5, bits)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+def test_qgroup_report_refuses_widths_and_sizes(bits):
     with pytest.raises(ValueError, match="positive"):
         mk.qgroup_report(0, 32, 4, 5, bits)
-    # past K = 64 the TF32 dots of fxp10 are no longer exact (511^2 * K >= 2^24)
+    # past K = 64 the fp16 dots of fxp10 are no longer exact (511^2 * K >= 2^24)
     with pytest.raises(ValueError, match="1..64 channels"):
         mk.qgroup_report(72, 8, 4, 5, bits)
 
 
 def test_qmega_sizes_at_full_width():
-    assert mk.qgroup_report(54, 32, 4, 5, 10)["smem_bytes"] == 212_608     # 8 blocks x 4 rows
-    assert mk.qgroup_report(54, 32, 4, 5, 8)["smem_bytes"] == 222_592      # 4 blocks x 8 rows
-    # a patch whose 4-block strips do not fit takes 8 blocks, the last one idle
-    rep = mk.qgroup_report(54, (25, 32), 4, 5, 10)
-    assert (rep["cluster"], rep["rows_per_cta"]) == (8, 4) and 7 * 4 >= 25
-    # 16-block clusters serve the larger Table I patches a 16-block strip holds
-    for width, patch, bits, rows in ((54, 48, 8, 3), (27, 64, 8, 4), (27, 64, 10, 4),
-                                     (27, 48, 10, 3)):
+    # C54 32x32: 4 blocks of 8 rows in both modes (PR 20's layout took 8
+    # blocks of 4 rows and 212,608 B in fxp10)
+    assert mk.qgroup_report(54, 32, 4, 5, 10)["smem_bytes"] == 172_240
+    assert mk.qgroup_report(54, 32, 4, 5, 8)["smem_bytes"] == 139_472
+    rep = mk.qgroup_report(54, (25, 32), 4, 5, 10)   # a ragged last strip: 4 rows of 7
+    assert (rep["cluster"], rep["rows_per_cta"]) == (4, 7)
+    # the shapes PR 20's layout refused: fxp10 48x48 C54 (233,584 / 241,792
+    # B), both modes at 64x64 C54 (int8 243,056 / 251,264, fxp10 351,856 /
+    # 360,064 B at x2 / x4)
+    for width, patch, bits, cluster, rows, smem in ((54, 48, 8, 8, 6, 158_928),
+                                                    (54, 48, 10, 8, 6, 195_792),
+                                                    (54, 64, 8, 16, 4, 153_808),
+                                                    (54, 64, 10, 16, 4, 186_576),
+                                                    (27, 64, 10, 8, 8, 199_824),
+                                                    (27, 48, 10, 4, 12, 215_184)):
         rep = mk.qgroup_report(width, patch, 4, 5, bits)
-        assert (rep["cluster"], rep["rows_per_cta"]) == (16, rows)
-        assert rep["smem_bytes"] <= 232_448
-    assert mk.qgroup_report(54, 48, 4, 5, 8)["smem_bytes"] == 168_832
-    with pytest.raises(ValueError, match="16-block cluster .3 rows. needs 241792 B"):
-        mk.qgroup_report(54, 48, 4, 5, 10)
+        assert (rep["cluster"], rep["rows_per_cta"], rep["smem_bytes"]) == (cluster, rows, smem)
+    # fxp10's operands are fp16 codes: 144 B a C54 pixel against 240 B as fp32
+    lay = mk.QWeightLayout(3, 54, 48, 5, 10)
+    assert (lay.code_bytes, lay.kp, lay.ast, lay.kp1, lay.ast1) == (2, 64, 144, 16, 48)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fxp10"])
@@ -273,8 +292,12 @@ def test_build_keys_of_the_new_kernels():
     src = (_build.CSRC / "qmega.cu").read_text()
     assert '#include "qmath.cuh"' in src and 'extern "C" int qmega_forward(' in src
     assert '#include "cluster.cuh"' in src and '#include "qmma.cuh"' in src
-    # the 1x1 dots on the tensor cores (qmma.cuh's dot_stage), no CUDA-core dot4;
-    # the division skipped on ReLU zeros
-    assert "dot_stage<T, 1, 4>(" in src and "dot_stage<T, 2, 4>(" in src and "dot4(" not in src
-    assert "relu_requant<T>(" in src and "cp_async16(" in (_build.CSRC / "qmma.cuh").read_text()
+    # the 1x1 dots on the tensor cores (qmma.cuh's dot_stage, fxp10 on fp16
+    # operands), no CUDA-core dot4; the division skipped on ReLU zeros; halo
+    # rows by bulk copies on the receiver's mbarrier, as in mega.cu
+    mma = (_build.CSRC / "qmma.cuh").read_text()
+    assert "dot_stage<O, 1, 4>(" in src and "dot_stage<O, 2, 4>(" in src and "dot4(" not in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32" in mma
+    assert "push_halo_bulk(" in src and "mbar_wait(" in src
+    assert "relu_requant<T>(" in src and "cp_async16(" in mma
     assert 'extern "C" int edge_forward(' in (_build.CSRC / "edge.cu").read_text()

@@ -360,11 +360,15 @@ def test_build_key_of_the_quantized_kernels():
     assert len(key) == 16 and _build.library_path("qconv").name == f"qconv-{key}.so"
     assert key not in {_build.source_key(n) for n in ("bsconv", "sfb", "dsconv", "mega")}
     src = (_build.CSRC / "qconv.cu").read_text()
-    for entry in ("quantize_forward", "qbsconv_forward", "qdsconv_forward"):
+    for entry in ("quantize_forward", "qbsconv_forward"):
         assert f'extern "C" int {entry}(' in src
     # qSFB is a band walker of its own, with its dots on the tensor cores
     qsfb = (_build.CSRC / "qsfb.cu").read_text()
     assert 'extern "C" int qsfb_forward(' in qsfb and 'extern "C" int qsfb_forward(' not in src
+    # qDSConv is the DSConv band walker's codes datapath
+    ds = (_build.CSRC / "dsconv.cu").read_text()
+    assert 'extern "C" int qdsconv_forward(' in ds and 'extern "C" int qdsconv_forward(' not in src
+    assert '#include "qmath.cuh"' in ds
     assert _build.source_key("qsfb") != key
     # the rounded fp steps and the CUDA-core integer dots live in the shared header
     math = (_build.CSRC / "qmath.cuh").read_text()

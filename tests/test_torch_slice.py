@@ -216,6 +216,63 @@ def test_checkpoint_written_by_reference_reads_back(engines, tmp_path):
         SREngine.from_checkpoint(str(tmp_path / "only"), cfg=CFG, device="cpu")
 
 
+def _ckpt_image(engine_or_result, frame):
+    return np.asarray(engine_or_result.upscale(frame).image)
+
+
+@pytest.mark.parametrize("case", ["ema_only", "truncated_leaf", "bench_cache"])
+def test_from_checkpoint_serves_where_the_reference_serves(engines, tmp_path, case):
+    """The reference's priority order (engine.py:587-678): a missing
+    preferred tree falls back with a warning, a corrupt leaf warns and serves
+    fresh init, and without a directory the bench cache's candidate with the
+    most steps serves, each failing candidate warned."""
+    pytest.importorskip("msgpack")
+    pytest.importorskip("zstandard")
+    from repro.ckpt.checkpoint import CheckpointManager
+    ref, tree = engines
+    frame = _golden_frame(64)
+    cache = str(tmp_path / "bench")
+    kw = dict(cfg=CFG, bench_cache=cache)
+    if case == "ema_only":
+        d = str(tmp_path / "ema")
+        CheckpointManager(d).save(1, {"ema": ref.params})
+        with pytest.warns(UserWarning, match=r"no 'params' tree \(found \['ema'\]\); "
+                                             r"serving 'ema' instead"):
+            port = SREngine.from_checkpoint(d, prefer="params", device="cpu", **kw)
+        with pytest.warns(UserWarning, match="no 'params' tree"):
+            want = JEngine.from_checkpoint(d, prefer="params", cfg=JCFG, bench_cache=cache)
+        np.testing.assert_allclose(_ckpt_image(port, frame), _ckpt_image(want, frame), **IMG_TOL)
+    elif case == "truncated_leaf":
+        d = tmp_path / "cut"
+        CheckpointManager(str(d)).save(3, {"params": ref.params, "ema": ref.params})
+        (d / "step_3" / "a_0.npy").write_bytes(b"\x93NUMPY junk")
+        with pytest.warns(UserWarning, match="checkpoint restore failed .* serving fresh "
+                                             "random init"):
+            port = SREngine.from_checkpoint(str(d), device="cpu", **kw)
+        with pytest.warns(UserWarning, match="checkpoint restore failed"):
+            JEngine.from_checkpoint(str(d), cfg=JCFG, bench_cache=cache)
+        fresh = SREngine.from_config(CFG, seed=0, device="cpu")
+        np.testing.assert_array_equal(_ckpt_image(port, frame), _ckpt_image(fresh, frame))
+    else:
+        for steps, f in (("800", 0.5), ("6000", 1.0), ("9000", 1.0)):
+            cm = CheckpointManager(os.path.join(cache, f"essr_x2_sfb{CFG.n_sfb}_{steps}"))
+            cm.save(1, {"params": jax.tree_util.tree_map(lambda v: v * f, ref.params)})
+        cut = Path(cache) / f"essr_x2_sfb{CFG.n_sfb}_9000" / "step_1" / "a_0.npy"
+        cut.write_bytes(b"junk")                      # the newest candidate is corrupt
+        with pytest.warns(UserWarning, match=r"bench-cache restore failed for .*_9000"):
+            port = SREngine.from_checkpoint(None, device="cpu", **kw)
+        np.testing.assert_allclose(_ckpt_image(port, frame), np.asarray(ref.upscale(frame).image),
+                                   **IMG_TOL)
+        # the alphas of a quantized engine are cached beside the bench cache
+        with pytest.warns(UserWarning, match="bench-cache restore failed"):
+            SREngine.from_checkpoint(None, plan=ExecutionPlan(quant="int8"), device="cpu", **kw)
+        assert len(list(Path(cache).glob("quant_alphas_int8_x2_*.json"))) == 1
+        empty = SREngine.from_checkpoint(None, cfg=CFG, bench_cache=str(tmp_path / "none"),
+                                         device="cpu")
+        fresh = SREngine.from_config(CFG, seed=0, device="cpu")
+        np.testing.assert_array_equal(_ckpt_image(empty, frame), _ckpt_image(fresh, frame))
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     """The port and chip_smoke.py run where JAX is not installed."""
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
