@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 15, 11, 4,
+Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
 8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 10; any failure exits
 non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
@@ -13,7 +13,9 @@ non-zero before the last line:
      main path's 32x32 patches and at the phase-3 shapes, and the qSFB
      kernel's (csrc/qsfb.cu) qsfb_report's at 32x32 and the phase-15 shapes,
      both modes, the DSConv walker's (csrc/dsconv.cu, fp32 and both code
-     types) dsconv_report's at the phase-17 shapes, and the two megakernels'
+     types) dsconv_report's at the phase-17 shapes, the BSConv walker's
+     (csrc/bsconv.cu, fp32 and both code types, Cin 3 and Cin = C)
+     bsconv_report's at the phase-18 shapes, and the two megakernels'
      group_report's and qgroup_report's at their checked shapes;
   3. hold each kernel against its plain PyTorch version on the card, at C54
      and C27 (bsconv also at Cin = 3) and N in {1, 7, 512}, rtol 1e-4 /
@@ -54,7 +56,10 @@ non-zero before the last line:
   8. each quantized kernel timed at N = 1024 C54 32x32 beside its plain
      version and its bound, per mode (no single PyTorch call computes any of
      them: library "none"); integer operations priced at the int8 tensor-core
-     rate for "int8" and at the TF32 rate for "fxp10", where they are exact;
+     rate for "int8" and at the TF32 rate for "fxp10", where they are exact,
+     each rounded fp32 operation as one instruction and each requantize
+     division as FDIV_RN_INSTRUCTIONS, counted on this run's data (a ReLU
+     site divides only where its value is > 0);
   9. quantized serving: ExecutionPlan(quant=mode) for both modes serves the
      same three frames; the label must be "cuda-<mode>", the ids equal to
      the fp32 layer frames', the launches 1 + 1 + 5 + 1 per non-empty conv
@@ -104,7 +109,15 @@ non-zero before the last line:
      bands), C54 and C27, non-zero biases: fp32 DSConv against its plain
      version (rtol 1e-4 / atol 1e-5), qDSConv (its codes datapath, the
      calibrated model's recon operands on codes spread over the lattice)
-     torch.equal to its plain version, both modes.
+     torch.equal to its plain version, both modes;
+ 18. the BSConv band walker (csrc/bsconv.cu) at BSCONV_SHAPES (N in {1, 7,
+     1024} at 32x32, 80x80 in three column bands, 40x72 in three, ragged
+     steps of 33 and 13 rows, odd widths), C54 and C27, non-zero biases:
+     fp32 BSConv at Cin 3 and Cin = C, with and without ReLU, against its
+     plain version (rtol 1e-4 / atol 1e-5); qBSConv (its codes datapath: the
+     calibrated model's first layer, and its first SFB's b1 group with ReLU,
+     on codes spread over the lattice) torch.equal to its plain version,
+     both modes.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -147,6 +160,10 @@ QUANT_MODES = ("int8", "fxp10")
 #: recomputed halo (72 wide), ragged last steps (13 and 33 rows).
 SFB_SHAPES = ((2, 40, 72, 54), (3, 13, 21, 27), (1, 33, 32, 54))
 QKERNELS = ("quantize", "qbsconv", "qsfb", "qdsconv")
+#: Instructions of one __fdiv_rn on sm_90a: its fast path as cuobjdump -sass
+#: shows it (scripts/torch_bsconv_ab.py --sass). The integer kernels' bounds
+#: price each requantize division at this count, not at one instruction.
+FDIV_RN_INSTRUCTIONS = 10
 #: qSFB checks beyond the main path's 32x32 (N, H, W): column bands with a
 #: recomputed halo (72 wide), ragged last steps (13, 17 and 33 rows), odd widths.
 QSFB_SHAPES = ((2, 40, 72), (3, 13, 21), (1, 33, 32), (2, 17, 9))
@@ -160,6 +177,11 @@ QMEGA_SHAPES = ((1, 32, 32), (7, 32, 32), (512, 32, 32), (1024, 32, 32), (3, 13,
 #: cut into three column bands.
 DSCONV_SHAPES = ((1, 32, 32), (7, 32, 32), (1024, 32, 32), (3, 13, 21), (2, 17, 9),
                  (2, 64, 64), (1, 80, 80))
+#: BSConv / qBSConv walker checks (N, H, W): the main path's 32x32 at three
+#: batch sizes, an 80x80 patch cut into three column bands, 72 wide in three
+#: bands, ragged last steps (33 and 13 rows) and odd widths.
+BSCONV_SHAPES = ((1, 32, 32), (7, 32, 32), (1024, 32, 32), (1, 80, 80), (2, 40, 72),
+                 (1, 33, 32), (3, 13, 21))
 #: fp32 megakernel checks (N, H, W): the main path's 32x32 at three batch
 #: sizes, Table I's other patches (16: one block a patch; 48: 16 blocks at
 #: C54; 64: 16 blocks, unpadded pixels at C54), an odd patch in one block,
@@ -508,6 +530,56 @@ def qwork(kind: str, n: int, c: int, bits: int, cin: int = 3, cout: int = 48):
             2 * px * 9 * c, px * (2 * c + 2 * c * cout + 4 * cout))
 
 
+def qsfb_divisions(xq, sfb, qc, torch) -> int:
+    """The requantize divisions of one qSFB on codes ``xq``: its three sites
+    (b1, b2, out) are ReLU sites, which divide only where the value is > 0
+    (relu_requant), so the count is this data's, from the plain version's
+    steps (kernels/ref.py::qsfb_ref)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import layers as L
+
+    def site(x, k):
+        y = ref._dequant(ref._idot(x, sfb[f"{k}_pwq"]), sfb[f"{k}_pw_scale"], sfb[f"{k}_pwb"])
+        return L._dw3_shift(y, sfb[f"{k}_dw_fq"]) + sfb[f"{k}_dwb"]
+
+    v1 = site(xq, "b1")
+    v2 = site(ref.quantize_ref(torch.relu(v1), qc[0:2], xq.dtype), "b2")
+    y2 = ref.quantize_ref(torch.relu(v2), qc[2:4], xq.dtype)
+    v3 = (ref._idot(y2, sfb["fuseq"]).to(torch.float32) * sfb["fuse_scale_y"]
+          + ref._idot(xq, sfb["fuseq"]).to(torch.float32) * sfb["fuse_scale_x"]) + sfb["fuseb"]
+    return sum(int((v > 0).sum().item()) for v in (v1, v2, v3))
+
+
+def qdivisions(kind: str, q, inp, bits: int, torch):
+    """(divisions taken, divisions counted): the requantize divisions one
+    quantized kernel takes on input ``inp`` (``q``: the prepared operands at
+    its width), one per output code where no ReLU precedes the site
+    (quantize, the first qBSConv, qDSConv) and for each ReLU site one per
+    value > 0 (qSFB; qmega, the whole chain); and the one per site and
+    output that qwork and qgroup_report count as one operation each."""
+    from repro_torch.kernels import ref
+    from repro_torch.quant.pams import code_dtype
+    px = inp.numel() // inp.shape[-1]
+    c, cout = q["first"]["pwq"].shape[-1], q["recon"]["pw_fq"].shape[-1]
+    if kind == "quantize":
+        return inp.numel(), inp.numel()
+    if kind == "qbsconv":
+        return px * c, px * c
+    if kind == "qdsconv":
+        return px * cout, px * cout
+    if kind == "qsfb":
+        return qsfb_divisions(inp, q["sfbs"][0], q["sfbs"][0]["qc"], torch), 3 * px * c
+    f = ref.quantize_ref(inp, q["in_qc"], code_dtype(bits))          # qmega, fp patches in
+    p = q["first"]
+    f = ref.qbsconv_ref(f, p["pwq"], p["pw_scale"], p["pwb"], p["dw_fq"], p["dwb"], p["qc"],
+                        relu=False)
+    n = inp.numel() + f.numel() + px * cout
+    for sfb in q["sfbs"]:
+        n += qsfb_divisions(f, sfb, sfb["qc"], torch)
+        f = ref.qsfb_ref(f, sfb, sfb["qc"])
+    return n, px * (inp.shape[-1] + c + 3 * c * len(q["sfbs"]) + cout)
+
+
 def psnr(a, b, torch) -> float:
     mse = torch.mean((a.clamp(0, 1) - b.clamp(0, 1)).double() ** 2).item()
     return float("inf") if mse == 0 else -10.0 * math.log10(mse)
@@ -545,8 +617,9 @@ def mixed_frame(seed: int, h: int = 1080, w: int = 1920):
 
 
 def profile_frame(engine, frame, wall_s: float, torch) -> None:
-    """One more frame under torch.profiler: device time by kernel, and the
-    device's busy share of the unprofiled frame's wall time."""
+    """One more frame under torch.profiler: device time by kernel (the ten
+    longest and every kernel of the port's sources), and the device's busy
+    share of the unprofiled frame's wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.upscale(frame)
@@ -566,8 +639,10 @@ def profile_frame(engine, frame, wall_s: float, torch) -> None:
     say(f"phase profile: device busy {busy:.3f} ms of an unprofiled frame's "
         f"{wall_s * 1e3:.3f} ms wall (idle share "
         f"{max(0.0, 1 - busy / (wall_s * 1e3)):.3f})")
-    for ms, count, key in sorted(rows, reverse=True)[:10]:
-        say(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
+    # the ten longest, and every kernel of the port's own sources besides
+    for k, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
+        if k < 10 or "(anonymous namespace)::" in key:
+            say(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
 
 
 def main() -> None:
@@ -586,6 +661,7 @@ def main() -> None:
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels.ops import essr_forward_kernels, launch_counts, reset_launch_counts
     from repro_torch.kernels.ref import mega_ref
+    from repro_torch.kernels.bsconv import bsconv_report
     from repro_torch.kernels.dsconv import dsconv_report
     from repro_torch.kernels.qconv import qsfb_report
     from repro_torch.kernels.sfb import sfb_report
@@ -610,11 +686,24 @@ def main() -> None:
                 say(f"  ptxas {lib}: {line.split(chr(39))[1][:90]}")
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {lib}: {line.strip()}")
-    smem = _build.load("qconv").qconv_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
-    say("  qconv dynamic shared memory per block (bytes): " + ", ".join(
-        f"qbsconv C{c} {m}: {smem(0, 3, c, b)}" for c in (54, 27)
-        for m, b in (("int8", 8), ("fxp10", 10))))
+    bs_lib = _build.load("bsconv")
+    bs_lib.bsconv_smem_bytes.argtypes = [ctypes.c_int] * 5
+    bs_lib.bsconv_smem_bytes.restype = ctypes.c_longlong
+    bs_lib.bsconv_blocks_per_sm.argtypes = [ctypes.c_int] * 6
+    for m, b in (("fp32", None), ("int8", 8), ("fxp10", 10)):
+        for cin, c in ((3, 54), (3, 27), (54, 54), (27, 27)):
+            for h, w in sorted({(h, w) for _, h, w in BSCONV_SHAPES}):
+                rep = bsconv_report(cin, c, h, w, b)
+                got = bs_lib.bsconv_smem_bytes(w, cin, c, b or 0, rep["rows_per_step"])
+                say(f"  bsconv {m} {cin}->{c} {h}x{w}: {got} B of dynamic shared memory per "
+                    f"block (bsconv_report {rep['smem_bytes']} B: {rep['bands']} band(s) of "
+                    f"{rep['band_width']} px, {rep['rows_per_step']} rows a step, "
+                    f"{rep['threads']} threads, pointwise busy {rep['pointwise_busy']:.3f}, "
+                    f"depthwise busy {rep['depthwise_busy']:.3f}); "
+                    f"{bs_lib.bsconv_blocks_per_sm(w, cin, c, b or 0, rep['rows_per_step'], rep['threads'])}"
+                    f" block(s) per SM (report: {rep['blocks_per_sm']})")
+                if got != rep["smem_bytes"]:
+                    fail("bsconv_report disagrees with the BSConv walker's shared-memory size")
     ds_lib = _build.load("dsconv")
     ds_lib.dsconv_smem_bytes.argtypes = [ctypes.c_int] * 5
     ds_lib.dsconv_smem_bytes.restype = ctypes.c_longlong
@@ -818,6 +907,55 @@ def main() -> None:
                 fail(f"dsconv (C{width}, N={n} {h}x{w}) disagrees with its plain version")
     del x, wts, got, want, xq, qgot, qwant
 
+    # 18. the BSConv walker (csrc/bsconv.cu) at every BSCONV_SHAPES shape, the
+    # first layer (Cin = 3) and Cin = C at C54 and C27, non-zero biases: fp32
+    # against its plain version (TOL), the codes datapath (qBSConv, the
+    # calibrated model's first layer and first SFB's b1 group) torch.equal
+    from repro_torch.kernels.bsconv import bsconv_fused
+    from repro_torch.kernels.ref import bsconv_ref, qbsconv_ref
+    from repro_torch.quant.pams import code_dtype
+    for width in (54, 27):
+        for n, h, w in BSCONV_SHAPES:
+            seen = []
+            for cin in (3, width):
+                x, wts = operands("bsconv", n, width, g, torch, cin=cin, hw=(h, w))
+                for relu in (False, True):
+                    args = (wts["pw"], wts["pw_b"], wts["dw"], wts["dw_b"])
+                    got = bsconv_fused(x, *args, relu=relu)
+                    want = bsconv_ref(x, *args, relu=relu)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    max_err["bsconv"] = max(max_err["bsconv"], err)
+                    if not torch.allclose(got, want, **TOL):
+                        fail(f"bsconv ({cin}->{width}, relu {relu}, N={n} {h}x{w}) disagrees with "
+                             f"its plain version: max_abs {err:.3e}")
+                    seen.append(f"fp32 {cin}->{width}{' relu' if relu else ''} max_abs {err:.3e}")
+            for mode in QUANT_MODES:
+                _, pack, qs, _ = quant[mode]
+                p, s0 = qs[width]["first"], qs[width]["sfbs"][0]
+                groups = ((3, (p["pwq"], p["pw_scale"], p["pwb"], p["dw_fq"], p["dwb"], p["qc"]),
+                           False),
+                          (width, (s0["b1_pwq"], s0["b1_pw_scale"], s0["b1_pwb"], s0["b1_dw_fq"],
+                                   s0["b1_dwb"], s0["qc"][0:2]), True))
+                qmax = 127 if pack.bits <= 8 else 511
+                for cin, args, relu in groups:
+                    xq = torch.randint(-qmax, qmax + 1, (n, h, w, cin), generator=g).to(
+                        code_dtype(pack.bits)).cuda()
+                    qgot = tq.qbsconv_fused(xq, *args, relu=relu)
+                    qwant = qbsconv_ref(xq, *args, relu=relu)
+                    torch.cuda.synchronize()
+                    qerr["qbsconv"] = max(qerr["qbsconv"],
+                                          (qgot.long() - qwant.long()).abs().max().item())
+                    eq = torch.equal(qgot, qwant) and qwant.abs().max().item() > 0
+                    seen.append(f"qbsconv {mode} {cin}->{width} torch.equal {eq}")
+                    if not eq:
+                        fail(f"qbsconv ({mode}, {cin}->{width}, N={n} {h}x{w}) differs from its "
+                             f"plain version or every code is 0")
+            say(f"phase check bsconv walker C{width} N={n} {h}x{w} "
+                f"({bsconv_report(3, width, h, w)['bands']} band(s)): " + ", ".join(seen)
+                + f" (rtol {TOL['rtol']:g} atol {TOL['atol']:g})")
+    del x, wts, got, want, xq, qgot, qwant
+
     # 15. the qSFB kernel at banded and ragged shapes and at extreme codes
     from repro_torch.kernels.ref import qsfb_ref
     for mode in QUANT_MODES:
@@ -987,6 +1125,8 @@ def main() -> None:
             ms = median_ms(lambda: kern(inp), torch)
             plain_ms = median_ms(lambda: plain(inp), torch)
             nbytes, iops, fops = qwork(kind, TIMING_N, 54, pack.bits)
+            divs, counted = qdivisions(kind, qs[54], inp, pack.bits, torch)
+            fops += divs * FDIV_RN_INSTRUCTIONS - counted
             int_peak = int_peak_for(name, pack.bits)
             t_bytes = nbytes / peak_bw * 1e3
             # each rounded fp32 operation is one instruction: half the fp32
@@ -999,7 +1139,8 @@ def main() -> None:
                 f"{plain_ms:.4f} ms, library none, bound {max(t_bytes, t_ops):.4f} ms by "
                 f"{qtiming[mode][kind]['bound_by']} ({nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G "
                 f"integer ops at {int_peak / 1e12:g} T/s, {fops / 1e9:.2f} G rounded fp32 ops "
-                f"at {peak_flops / 2e12:g} T/s)")
+                f"at {peak_flops / 2e12:g} T/s, of them {divs / 1e6:.1f} M divisions at "
+                f"{FDIV_RN_INSTRUCTIONS} instructions each)")
         del x, stages, kern, plain, inp, got, want
     torch.cuda.empty_cache()
 
@@ -1025,6 +1166,8 @@ def main() -> None:
         plain_ms = median_ms(lambda: qmega_ref(x, plain_w, q["consts"], got.dtype), torch)
         qrep = mk.qgroup_report(54, 32, qcfg.scale, qcfg.n_sfb, pack.bits)
         iops, fops = TIMING_N * qrep["int_ops_per_patch"], TIMING_N * qrep["fp_ops_per_patch"]
+        divs, counted = qdivisions("qmega", q, x, pack.bits, torch)
+        fops += divs * FDIV_RN_INSTRUCTIONS - counted
         nbytes = TIMING_N * qrep["bytes_per_patch"] + qrep["weight_bytes"]
         int_peak = int_peak_for(name, pack.bits, fp16=True)
         t_bytes = nbytes / peak_bw * 1e3
@@ -1040,7 +1183,9 @@ def main() -> None:
             f"{qcfg.n_sfb} x qsfb + qdsconv, phase 8 of this run), library none, bound "
             f"{max(t_bytes, t_ops):.4f} ms by {qmega_timing[mode]['bound_by']} ("
             f"{nbytes / 1e6:.1f} MB, {iops / 1e9:.2f} G integer ops at {int_peak / 1e12:g} T/s, "
-            f"{fops / 1e9:.2f} G rounded fp32 ops at {peak_flops / 2e12:g} T/s); resident clusters "
+            f"{fops / 1e9:.2f} G rounded fp32 ops at {peak_flops / 2e12:g} T/s, of them "
+            f"{divs / 1e6:.1f} M divisions at {FDIV_RN_INSTRUCTIONS} instructions each); "
+            f"resident clusters "
             f"{clusters}, {qrep['smem_bytes']} B of shared memory per block, "
             f"{qrep['threads']} threads")
         del x, got, want, wbuf, plain_w
@@ -1315,7 +1460,7 @@ def main() -> None:
     for k in QKERNELS:               # timed per mode; the row's own keys are int8's
         row = dict(name=f"{k}_fused", route="cuda",
                    source=f"src/repro_torch/csrc/"
-                          f"{dict(qsfb='qsfb', qdsconv='dsconv').get(k, 'qconv')}.cu",
+                          f"{dict(qbsconv='bsconv', qsfb='qsfb', qdsconv='dsconv').get(k, 'qconv')}.cu",
                    replaces=replaces[f"{k}_fused"], launches=qlaunches["int8"][k],
                    max_abs_err=qerr[k], **qtiming["int8"][k])
         row.update({f"fxp10_{key}": v for key, v in qtiming["fxp10"][k].items()})

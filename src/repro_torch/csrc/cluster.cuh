@@ -9,6 +9,9 @@
 // row of the block above and the first row of the block below, which those
 // blocks push as bulk copies that complete on the receiver's mbarrier
 // (push_halo_bulk).
+//
+// The BSConv band walker (bsconv.cu) uses the bulk copies alone: its staged
+// output rows leave shared memory for device memory as bulk stores.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -107,6 +110,31 @@ __device__ __forceinline__ void push_halo_bulk(const char* first, const char* la
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// Bulk copies from this block's shared memory to device memory, in the
+// issuing thread's bulk groups: `bytes` (a multiple of 16, both addresses on
+// 16 bytes) from `src` to `dst`. The threads that wrote `src` fence it
+// (fence_proxy_async) before a block barrier, after which one thread issues
+// the copies and commits them (bulk_commit); before `src` is written again,
+// that thread waits until at most N of its groups still read their sources
+// (bulk_wait_read_n<N>), then the block barriers. Before the block exits it
+// waits for every group to complete (bulk_wait_all).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   __cvta_generic_to_global(dst)),
+               "r"(shared_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read_n() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Bytes of halo rows a block receives a layer under push_halo_bulk: from
 // rank - 1 when my strip lies inside the patch, from rank + 1 when its does.
 __device__ __forceinline__ unsigned halo_bytes(int rank, int cs, int r0, int rows, int H,

@@ -12,12 +12,15 @@
 //
 // What bounds it, at N = 1024 C54 32x32 patches (x4, 54 -> 48) on an H100
 // SXM (3.35 TB/s; 67 TFLOP/s fp32, i.e. 33.5 T FFMA a second; every
-// __fmul_rn / __fadd_rn one instruction at the same 33.5 T a second):
+// __fmul_rn / __fadd_rn one instruction at the same 33.5 T a second; each
+// __fdiv_rn 10 instructions, its fast path as cuobjdump -sass shows it on
+// sm_90a, scripts/torch_bsconv_ab.py --sass):
 //   fp32: its bytes, 4 * (54 + 48) a pixel in and out, 427.8 MB, 0.1277 ms
 //         (its 2.72 G FFMA take 0.081 ms);
-//   int8: its rounded fp 1x1, 2 * 54 * 48 instructions a pixel, 5.44 G,
-//         0.162 ms (its bytes, 106.9 MB, 0.032 ms);
-//   fxp10: the same 0.162 ms of instructions (bytes 0.1277 ms).
+//   int8: its rounded fp32 operations, the 1x1's 2 * 54 * 48 a pixel, the
+//         dequant, biases and clips, and 48 divisions a pixel at 10: 6.20 G,
+//         0.185 ms (its bytes, 106.9 MB, 0.032 ms);
+//   fxp10: the same 0.185 ms of instructions (bytes 0.1277 ms).
 //
 // Arithmetic contract, bit for bit:
 // - fp32: the order of the 8x8-tile kernel this replaces, so the output is

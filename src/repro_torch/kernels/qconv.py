@@ -1,9 +1,11 @@
 """Integer-domain quantized ESSR kernels (PAMS serving path, Sec. IV-H):
 the host side of ``repro.kernels.qconv`` and the wrappers of the four CUDA
-kernels: quantize and qBSConv in ``csrc/qconv.cu``, qSFB in ``csrc/qsfb.cu``
-(a band walker with its 1x1 dots on the tensor cores, sized by
-:func:`qsfb_report`) and qDSConv in ``csrc/dsconv.cu`` (the DSConv band
-walker's codes datapath, sized by `kernels.dsconv.dsconv_report`).
+kernels: quantize in ``csrc/qconv.cu``, qBSConv in ``csrc/bsconv.cu`` (the
+BSConv band walker's codes datapath, sized by
+`kernels.bsconv.bsconv_report`), qSFB in ``csrc/qsfb.cu`` (a band walker
+with its 1x1 dots on the tensor cores, sized by :func:`qsfb_report`) and
+qDSConv in ``csrc/dsconv.cu`` (the DSConv band walker's codes datapath,
+sized by `kernels.dsconv.dsconv_report`).
 
 Activations travel between the fused groups as integer codes (int8 under
 ``"int8"``, int32 under ``"fxp10"``). A 1x1 whose input is a lattice is an
@@ -38,6 +40,7 @@ from repro_torch.core.caching import BoundedCache
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import (CODE_DTYPES, MAX_CHANNELS, check_channels,
                                         check_operands, stream_of)
+from repro_torch.kernels.bsconv import launch_shape as bsconv_launch_shape
 from repro_torch.kernels.dsconv import launch_shape as dsconv_launch_shape
 from repro_torch.kernels.megakernel import SMEM_LIMIT, _TreeKey
 from repro_torch.kernels.ref import qbsconv_ref, qdsconv_ref, qsfb_ref, quantize_ref
@@ -323,7 +326,9 @@ def qbsconv_fused(xq: torch.Tensor, pwq: torch.Tensor, pw_scale: torch.Tensor,
                   qc: torch.Tensor, *, relu: bool) -> torch.Tensor:
     """xq: (N,H,W,Cin) codes; pwq: (Cin,Cout) codes of the same dtype;
     pw_scale: (Cout,) folded step; dw_fq: (3,3,Cout) fake-quant fp; ``qc``:
-    the output site's (a, s). Returns (N,H,W,Cout) codes."""
+    the output site's (a, s). Returns (N,H,W,Cout) codes. The kernel is the
+    BSConv band walker's codes datapath (``csrc/bsconv.cu``), launched with
+    `kernels.bsconv.bsconv_report`'s rows and threads."""
     cin = int(xq.shape[-1]) if xq.ndim == 4 else -1
     cout = int(pwq.shape[-1]) if pwq.ndim == 2 else -1
     check_operands("qbsconv_fused", xq, {
@@ -335,12 +340,14 @@ def qbsconv_fused(xq: torch.Tensor, pwq: torch.Tensor, pw_scale: torch.Tensor,
         return qbsconv_ref(xq, pwq, pw_scale, pw_b, dw_fq, dw_b, qc, relu=relu)
     n, h, w, _ = xq.shape
     out = torch.empty((n, h, w, cout), dtype=xq.dtype, device=xq.device)
-    if n == 0:
+    if out.numel() == 0:
         return out
-    launch = _build.entry("qconv", "qbsconv_forward", 8, 7)
+    bits = _code_bits(xq.dtype)
+    launch = _build.entry("bsconv", "qbsconv_forward", 8, 9)
     launch(xq.data_ptr(), pwq.data_ptr(), pw_scale.data_ptr(), pw_b.data_ptr(),
            dw_fq.data_ptr(), dw_b.data_ptr(), qc.data_ptr(), out.data_ptr(),
-           n, h, w, cin, cout, int(relu), _code_bits(xq.dtype), stream_of(xq))
+           n, h, w, cin, cout, int(relu), bits, *bsconv_launch_shape(cin, cout, h, w, bits),
+           stream_of(xq))
     qbsconv_fused.launches += 1
     return out
 

@@ -51,17 +51,65 @@ def _w(g, *shape, scale=0.2):
     return (torch.randn(shape, generator=g) * scale).cuda()
 
 
-@pytest.mark.parametrize("n,h,w,cin,cout", [(0, 32, 32, 3, 54), (1, 32, 32, 3, 54),
-                                            (7, 32, 32, 27, 27), (3, 13, 21, 5, 18)])
-def test_bsconv_kernel_matches_plain(cuda, n, h, w, cin, cout):
+#: BSConv / qBSConv shapes (N, H, W, Cin, Cout): the main path's first layer
+#: at 32x32 (N 0, 1 and 1024), Cin = Cout, odd channel counts, an 80x80 patch
+#: cut into three column bands, 72 wide in three bands, ragged last steps
+#: (33 and 13 rows) and odd widths; Cin 3, 27 and 64.
+BSCONV_CASES = [(0, 32, 32, 3, 54), (1, 32, 32, 3, 54), (1024, 32, 32, 3, 54),
+                (7, 32, 32, 27, 27), (3, 13, 21, 5, 18), (1, 80, 80, 3, 54),
+                (1, 80, 80, 27, 27), (1, 80, 80, 64, 54), (2, 40, 72, 3, 54),
+                (2, 40, 72, 64, 27), (1, 33, 32, 3, 54), (1, 33, 32, 27, 54),
+                (3, 13, 21, 3, 27), (3, 13, 21, 64, 54)]
+
+
+def _bsconv_smem(cin, cout, h, w, bits):
+    """The built walker's shared memory against bsconv_report's."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bsconv import bsconv_report
+    rep = bsconv_report(cin, cout, h, w, bits)
+    fn = _build.load("bsconv").bsconv_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    assert fn(w, cin, cout, bits or 0, rep["rows_per_step"]) == rep["smem_bytes"]
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,h,w,cin,cout", BSCONV_CASES)
+def test_bsconv_kernel_matches_plain(cuda, n, h, w, cin, cout, relu):
     g = torch.Generator().manual_seed(n + cin)
     x = torch.rand((n, h, w, cin), generator=g).cuda()
     ws = (_w(g, cin, cout), _w(g, cout), _w(g, 3, 3, cout), _w(g, cout))
     before = bsconv_fused.launches
-    got = bsconv_fused(x, *ws, relu=True)
+    got = bsconv_fused(x, *ws, relu=relu)
     torch.cuda.synchronize()
     assert bsconv_fused.launches == before + (n > 0)
-    torch.testing.assert_close(got, ref.bsconv_ref(x, *ws, relu=True), **TOL)
+    torch.testing.assert_close(got, ref.bsconv_ref(x, *ws, relu=relu), **TOL)
+    _bsconv_smem(cin, cout, h, w, None)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("n,h,w,cin,cout", BSCONV_CASES)
+def test_qbsconv_kernel_equals_plain(cuda, n, h, w, cin, cout, bits, relu):
+    """qBSConv (the walker's codes datapath) on codes and weight codes spread
+    over the whole lattice, non-zero biases: torch.equal to its plain
+    version."""
+    g = torch.Generator().manual_seed(n + cin + bits + relu)
+    qmax = 127 if bits <= 8 else 511
+    dtype = torch.int8 if bits <= 8 else torch.int32
+    xq = torch.randint(-qmax, qmax + 1, (n, h, w, cin), generator=g).to(dtype).cuda()
+    pwq = torch.randint(-qmax, qmax + 1, (cin, cout), generator=g).to(dtype).cuda()
+    pws = ((torch.rand(cout, generator=g) + 0.5) / (qmax * qmax * 3)).cuda()
+    qc = torch.tensor([2.0, 2.0 / qmax]).cuda()
+    args = (pwq, pws, _w(g, cout, scale=0.1), _w(g, 3, 3, cout, scale=0.5),
+            _w(g, cout, scale=0.1), qc)
+    before = tq.qbsconv_fused.launches
+    got = tq.qbsconv_fused(xq, *args, relu=relu)
+    torch.cuda.synchronize()
+    assert tq.qbsconv_fused.launches == before + (n > 0)
+    want = ref.qbsconv_ref(xq, *args, relu=relu)
+    assert torch.equal(got, want) and (n == 0 or want.abs().max().item() > 0)
+    _bsconv_smem(cin, cout, h, w, bits)
 
 
 @pytest.mark.parametrize("n,h,w,c", [(1, 32, 32, 54), (5, 32, 32, 27), (2, 17, 9, 54),

@@ -360,8 +360,11 @@ def test_build_key_of_the_quantized_kernels():
     assert len(key) == 16 and _build.library_path("qconv").name == f"qconv-{key}.so"
     assert key not in {_build.source_key(n) for n in ("bsconv", "sfb", "dsconv", "mega")}
     src = (_build.CSRC / "qconv.cu").read_text()
-    for entry in ("quantize_forward", "qbsconv_forward"):
-        assert f'extern "C" int {entry}(' in src
+    assert 'extern "C" int quantize_forward(' in src
+    # qBSConv is the BSConv band walker's codes datapath
+    bs = (_build.CSRC / "bsconv.cu").read_text()
+    assert 'extern "C" int qbsconv_forward(' in bs and 'extern "C" int qbsconv_forward(' not in src
+    assert '#include "qmath.cuh"' in bs
     # qSFB is a band walker of its own, with its dots on the tensor cores
     qsfb = (_build.CSRC / "qsfb.cu").read_text()
     assert 'extern "C" int qsfb_forward(' in qsfb and 'extern "C" int qsfb_forward(' not in src
