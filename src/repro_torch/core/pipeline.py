@@ -4,10 +4,14 @@ host-dispatch path of ``repro.core.pipeline``).
 frame -> slim-overlap patches -> edge scores -> subnet decision ->
 per-subnet batched forward -> overlap-average fusion.
 
-Routing stays on the host: the scores are copied back once per frame, each
-subnet's patches are gathered into a batch padded to a bucketed size (with
-the bucket's own last index), run through the subnet, and set back into the
-patch tensor. Width-0 patches go through bilinear resize, never a kernel.
+The "cuda" backend scores the patches with the edge kernel
+(`kernels.edge.edge_score_fused`; on CPU tensors it takes its plain
+version); the "ref" backend, and a forced routing, keep the plain
+`core.edge_score.edge_score`. Routing stays on the host: the scores are
+copied back once per frame, each subnet's patches are gathered into a batch
+padded to a bucketed size (with the bucket's own last index), run through
+the subnet, and set back into the patch tensor. Width-0 patches go through
+bilinear resize, never a kernel.
 
 ``backend`` picks the per-subnet forward: "cuda" (the fused kernels; on
 CPU tensors their wrappers run their plain versions) or "ref" (the plain
@@ -176,7 +180,11 @@ def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRCon
         h, w, patch, overlap, s, str(frame.device))
     patches = g.extract(frame)
     if ids_override is None:
-        scores = edge_score(patches).cpu().numpy()
+        if backend == "cuda":
+            from repro_torch.kernels.edge import edge_score_fused
+            scores = edge_score_fused(patches).cpu().numpy()
+        else:
+            scores = edge_score(patches).cpu().numpy()
         ids = sp.decide(scores, t1, t2)
     else:
         scores = np.zeros(g.n, np.float32)

@@ -17,6 +17,10 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace essr {
 
 constexpr int TILE = 8;     // output tile edge, pixels
@@ -156,21 +160,39 @@ __device__ __forceinline__ void depthwise(const float* __restrict__ in,
 
 // Blocks for a grid-stride loop over `tiles`: as many as can be resident
 // on the card at once (weights are staged once per block, not per tile).
+// The SM count and the occupancy query run once per (kernel, threads,
+// shared memory, device), under a lock, and the resident count is cached:
+// on an H100 host they took ~0.7 us of the ~6 us a launch of a ~5 us kernel
+// costs the host. The dynamic shared-memory attribute is still
+// set on every launch that takes dynamic shared memory, as before (the band
+// walkers' blocks_per_sm diagnostics set the same attribute to their own
+// sizes, so a cached value could be stale), and never for one that takes
+// none (quantize). Host side only: the grid, and so every kernel's output,
+// is what the uncached queries gave.
 template <class Kernel>
 inline cudaError_t resident_grid(Kernel k, int threads, size_t smem, long long tiles,
                                  int* grid) {
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e;
+  if (smem > 0 &&
+      (e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return e;
+  int dev = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem)) !=
-      cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long cap = (long long)per_sm * sms;
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t, int>, long long> resident;
+  std::lock_guard<std::mutex> lock(mu);
+  long long& cap = resident[std::make_tuple((const void*)k, threads, smem, dev)];
+  if (cap == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, threads, smem)) !=
+        cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cap = (long long)per_sm * sms;
+  }
   *grid = (int)(tiles < cap ? tiles : cap);
   return cudaSuccess;
 }

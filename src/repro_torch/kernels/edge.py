@@ -2,9 +2,10 @@
 
 Twin of ``repro.kernels.edge.edge_score_fused``: BT.601 luma -> 4-neighbour
 Laplacian on the interior (VALID) -> |.| clamped to [0, 255] -> one mean
-per patch, in one launch over a batch of patches. A public op, as in the
-JAX package; the serving path scores patches with the plain
-`core.edge_score.edge_score`, as the reference's does.
+per patch, in one launch over a batch of patches. The "cuda" serving path
+scores every frame's patches with it (`core.pipeline._edge_selective_sr`);
+the "ref" backend and a forced routing keep the plain
+`core.edge_score.edge_score`.
 
 On CPU tensors the wrapper takes the plain version
 (`kernels.ref.edge_score_ref`); on CUDA tensors it launches the kernel or
@@ -19,14 +20,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_operands, stream_of
-from repro_torch.kernels.megakernel import SMEM_LIMIT
 from repro_torch.kernels.ref import edge_score_ref
 
 
 def edge_score_fused(x: torch.Tensor) -> torch.Tensor:
     """x: (N,h,w,3) fp32 RGB in [0,1] -> (N,) fp32 edge scores in [0,255].
-    h and w must be at least 3 (the Laplacian needs an interior). N = 0
-    returns an empty tensor, no launch."""
+    h and w must be at least 3 (the Laplacian needs an interior); any
+    larger size is taken. N = 0 returns an empty tensor, no launch."""
     check_operands("edge_score_fused", x, {})
     n, h, w, c = x.shape
     if c != 3:
@@ -34,9 +34,6 @@ def edge_score_fused(x: torch.Tensor) -> torch.Tensor:
     if h < 3 or w < 3:
         raise ValueError(f"edge_score_fused: a {h}x{w} patch has no interior for the "
                          f"3x3 Laplacian")
-    if 4 * h * w > SMEM_LIMIT:
-        raise ValueError(f"edge_score_fused: a {h}x{w} patch's luma ({4 * h * w} B) exceeds "
-                         f"a block's {SMEM_LIMIT} B of shared memory")
     if x.device.type == "cpu":
         return edge_score_ref(x)
     if x.device.type != "cuda":

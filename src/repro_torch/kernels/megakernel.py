@@ -25,15 +25,24 @@ the prepared integer operands packed once into one byte buffer in the dots'
 operand layout (:func:`pack_qweights`, cached), which the kernel stages one
 layer at a time.
 
+Past 64x64 a patch is served in recompute-halo windows (:func:`window_plan`):
+the chain's receptive radius is r = 2 + 2 n_sfb LR pixels (one 3x3
+depthwise in the first layer, two in each SFB, one in the recon), so a
+pixel at least r pixels inside every window edge that is not the patch's
+own edge gets exactly its whole-patch value. The windows of all N patches
+go through one launch of the unchanged kernel and each window's core is
+stitched back, every output pixel exactly once (:func:`run_windowed`).
+
 Both wrappers take their plain versions for CPU tensors at any patch size;
-the launch shape is sized, and a shape no layout holds refused, only for a
-CUDA tensor.
+the launch shape and the windows are sized, and a shape that no window
+holds refused, only for a CUDA tensor.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple, Union
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -54,7 +63,8 @@ MEGA_CLUSTERS = (1, 2, 4, 8, 16)
 MEGA_PIXEL_PADS = (4, 0)
 #: Threads of an fp32 megakernel block at most (csrc/mega.cu ``MAX_THREADS``).
 MEGA_MAX_THREADS = 448
-#: Largest patch edge the megakernels serve (Table I's largest).
+#: Largest window edge the megakernels take in one launch (Table I's
+#: largest patch); a larger patch is cut into windows (`window_plan`).
 MAX_PATCH = 64
 #: Shared memory one block may use on an H100 (227 KB).
 SMEM_LIMIT = 232_448
@@ -158,11 +168,123 @@ def _mega_smem(lay: WeightLayout, rows: int, w: int, pad: int) -> int:
     return 4 * (fa + m + 2 * w * st + 2 * lay.stage + 4)
 
 
-def _check_patch(what: str, h: int, w: int) -> None:
-    if max(h, w) > MAX_PATCH:
-        raise ValueError(f"{what}: patch {h}x{w}: the megakernels serve patches up to "
-                         f"{MAX_PATCH}x{MAX_PATCH} (Table I's largest); a larger one is "
-                         f"ROADMAP queue 3's open fault")
+# ---------------------------------------------------------------------------
+# recompute-halo windows: patches past MAX_PATCH
+# ---------------------------------------------------------------------------
+
+def receptive_radius(n_sfb: int) -> int:
+    """LR pixels an output of the chain reads on each side: one 3x3
+    depthwise in the first layer, two in each SFB, one in the recon."""
+    return 2 + 2 * n_sfb
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisWindows:
+    """One axis of a patch cut into ``k`` windows of ``edge`` pixels at
+    ``starts``; window i keeps its core ``cores[i]`` = [lo, hi) in patch
+    coordinates. The cores tile [0, size); a core is the window less
+    ``radius`` pixels on each side that is not the patch's own edge."""
+    size: int
+    radius: int
+    k: int
+    edge: int
+    starts: Tuple[int, ...]
+    cores: Tuple[Tuple[int, int], ...]
+
+
+def axis_windows(size: int, radius: int, limit: int, k: Optional[int] = None) -> AxisWindows:
+    """Cut one patch axis of ``size`` pixels into ``k`` windows of edge
+    W = ceil((size + 2 radius (k - 1)) / k), the fewest with W <= ``limit``
+    when ``k`` is None. Starts spread evenly from 0 to size - W, so
+    neighbouring windows overlap by at least 2 radius; the boundary between
+    cores i and i + 1 lies radius pixels into window i + 1."""
+    if min(size, limit) < 1 or radius < 0:
+        raise ValueError(f"axis_windows: size {size}, radius {radius}, limit {limit}")
+    if k is None:
+        k = next((c for c in range(1, size + 1)
+                  if -(-(size + 2 * radius * (c - 1)) // c) <= limit), None)
+        if k is None:
+            raise ValueError(f"axis_windows: no window of at most {limit} px keeps a core "
+                             f"past a radius of {radius} px")
+    edge = -(-(size + 2 * radius * (k - 1)) // k)
+    if k == 1:
+        return AxisWindows(size, radius, 1, size, (0,), ((0, size),))
+    if edge - 2 * radius < 1:
+        raise ValueError(f"axis_windows: {k} windows of {edge} px keep no core past a "
+                         f"radius of {radius} px")
+    span = size - edge
+    starts = tuple((2 * i * span + k - 1) // (2 * (k - 1)) for i in range(k))
+    bounds = (0,) + tuple(s + radius for s in starts[1:]) + (size,)
+    return AxisWindows(size, radius, k, edge, starts,
+                       tuple(zip(bounds[:-1], bounds[1:])))
+
+
+def window_plan(h: int, w: int, radius: int, limit: int,
+                fits: Callable[[int, int], bool]) -> Tuple[AxisWindows, AxisWindows]:
+    """The windows of an h x w patch: the fewest in all (then the fewest
+    pixels computed, then rows split before columns) whose edges are at most
+    ``limit`` and whose (rows, columns) window ``fits`` a launch; one window,
+    the patch itself, wherever the patch fits. Raises ValueError when not
+    even the smallest windows fit."""
+    def ks(size):
+        first = axis_windows(size, radius, limit)
+        out = [first]
+        for k in range(first.k + 1, size + 1):
+            try:
+                ax = axis_windows(size, radius, limit, k)
+            except ValueError:
+                break
+            if ax.edge < out[-1].edge:
+                out.append(ax)
+        return out
+
+    rows, cols = ks(h), ks(w)
+    if not fits(rows[-1].edge, cols[-1].edge):
+        raise ValueError(f"window_plan: patch {h}x{w}: not even a {rows[-1].edge}x"
+                         f"{cols[-1].edge} window fits a launch")
+    return min(((ah, aw) for ah in rows for aw in cols if fits(ah.edge, aw.edge)),
+               key=lambda p: (p[0].k * p[1].k, p[0].k * p[0].edge * p[1].k * p[1].edge,
+                              p[1].k))
+
+
+@functools.lru_cache(maxsize=64)
+def _window_index(ah: AxisWindows, aw: AxisWindows, device: str):
+    """Index tensors on ``device``: the windows' rows (kh, 1, Wh, 1) and
+    columns (1, kw, 1, Ww) for the gather; for each patch pixel its window
+    and its place in that window, (h, 1) rows and (1, w) columns."""
+    def axis(a):
+        win = torch.empty(a.size, dtype=torch.long)
+        at = torch.empty(a.size, dtype=torch.long)
+        for i, ((lo, hi), s) in enumerate(zip(a.cores, a.starts)):
+            win[lo:hi] = i
+            at[lo:hi] = torch.arange(lo, hi) - s
+        take = torch.tensor(a.starts)[:, None] + torch.arange(a.edge)[None]
+        return take, win, at
+
+    (th, wh, lh), (tw, ww, lw) = axis(ah), axis(aw)
+    return tuple(t.to(device) for t in (th[:, None, :, None], tw[None, :, None, :],
+                                         wh[:, None], ww[None], lh[:, None], lw[None]))
+
+
+def run_windowed(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+                 plan: Tuple[AxisWindows, AxisWindows]) -> torch.Tensor:
+    """fn over the windows of (N,H,W,C) ``x``: the windows of all N patches
+    gathered into one (N kh kw, Wh, Ww, C) batch, one call of ``fn``, and
+    each window's core written into the (N,H,W,C') result, every pixel
+    exactly once."""
+    ah, aw = plan
+    n = x.shape[0]
+    rows, cols, win_r, win_c, at_r, at_c = _window_index(ah, aw, str(x.device))
+    xw = x[:, rows, cols].reshape(n * ah.k * aw.k, ah.edge, aw.edge, x.shape[-1])
+    yw = fn(xw)
+    yw = yw.view(n, ah.k, aw.k, ah.edge, aw.edge, yw.shape[-1])
+    return yw[:, win_r, win_c, at_r, at_c]
+
+
+def _plan_report(plan: Tuple[AxisWindows, AxisWindows]) -> Dict[str, Any]:
+    ah, aw = plan
+    return {"windows": [ah.k, aw.k], "window": [ah.edge, aw.edge],
+            "work_factor": ah.k * ah.edge * aw.k * aw.edge / (ah.size * aw.size)}
 
 
 def _mega_shape(lay: WeightLayout, cluster: int, h: int, w: int, pad: int) -> Dict[str, int]:
@@ -179,30 +301,46 @@ def _mega_shape(lay: WeightLayout, cluster: int, h: int, w: int, pad: int) -> Di
             "pad": pad, "per_sm": per_sm}
 
 
+def _mega_fits(lay: WeightLayout, h: int, w: int) -> bool:
+    c = MEGA_CLUSTERS[-1]
+    return _mega_smem(lay, -(-h // c), w, MEGA_PIXEL_PADS[-1]) <= SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=256)
+def _mega_plan(width: int, h: int, w: int, cin: int, cout: int,
+               n_sfb: int) -> Tuple[AxisWindows, AxisWindows]:
+    lay = WeightLayout(cin, width, cout, n_sfb)
+    return window_plan(h, w, receptive_radius(n_sfb), MAX_PATCH,
+                       lambda wh, ww: _mega_fits(lay, wh, ww))
+
+
 def _sizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int) -> Dict[str, Any]:
-    """The launch shape and work of one patch. Of the cluster sizes whose
-    strip fits a block (padded pixels where any does, else unpadded), the one
-    that keeps the most strip rows resident on an SM (blocks an SM x rows a
-    block), the fewer blocks a cluster on a tie: taller strips pay fewer
-    cluster barriers a row, more blocks an SM hide one block's barriers and
-    latencies behind another's work. Raises ValueError when no strip fits,
-    or for a patch past 64."""
+    """The launch shape and work of one patch: its windows
+    (:func:`window_plan`, one wherever the patch fits) and the launch shape
+    of one window. Of the cluster sizes whose strip fits a block (padded
+    pixels where any does, else unpadded), the one that keeps the most strip
+    rows resident on an SM (blocks an SM x rows a block), the fewer blocks a
+    cluster on a tie: taller strips pay fewer cluster barriers a row, more
+    blocks an SM hide one block's barriers and latencies behind another's
+    work. Raises ValueError when no window's strip fits."""
     if min(width, h, w, cin, cout) < 1 or n_sfb < 0:
         raise ValueError(f"group_report: width {width}, patch {h}x{w}, cin {cin}, "
                          f"cout {cout}, n_sfb {n_sfb}: every size must be positive")
-    _check_patch("group_report", h, w)
     lay = WeightLayout(cin, width, cout, n_sfb)
+    try:
+        plan = _mega_plan(width, h, w, cin, cout, n_sfb)
+    except ValueError as e:
+        c = MEGA_CLUSTERS[-1]
+        raise ValueError(
+            f"group_report: width {width}, patch {h}x{w}: {e}; a block of the {c}-block "
+            f"cluster needs more than the H100's {SMEM_LIMIT} B of shared memory per "
+            f"block") from None
+    wh, ww = plan[0].edge, plan[1].edge
     for pad in MEGA_PIXEL_PADS:
-        fits = [sh for sh in (_mega_shape(lay, c, h, w, pad) for c in MEGA_CLUSTERS)
+        fits = [sh for sh in (_mega_shape(lay, c, wh, ww, pad) for c in MEGA_CLUSTERS)
                 if sh["smem"] <= SMEM_LIMIT]
         if fits:
             break
-    else:
-        c = MEGA_CLUSTERS[-1]
-        raise ValueError(
-            f"group_report: width {width}, patch {h}x{w}: a block of the {c}-block cluster "
-            f"({-(-h // c)} rows) needs {_mega_smem(lay, -(-h // c), w, pad)} B of shared "
-            f"memory, over the H100's {SMEM_LIMIT} B per block")
     best = max(fits, key=lambda f: (f["per_sm"] * f["rows"], -f["cluster"]))
     cluster, rows, smem, threads = best["cluster"], best["rows"], best["smem"], best["threads"]
     macs = cin * width + 9 * width + n_sfb * (3 * width * width + 18 * width) \
@@ -213,7 +351,7 @@ def _sizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int) -> Dict
                         + 10 * width + width * cout + cout)
     return {"cluster": cluster, "rows_per_cta": rows, "threads": threads,
             "pixel_pad": best["pad"], "blocks_per_sm": best["per_sm"], "smem_bytes": smem,
-            "smem_limit": SMEM_LIMIT,
+            "smem_limit": SMEM_LIMIT, **_plan_report(plan),
             "weight_floats": lay.size, "flops_per_patch": flops, "bytes_per_patch": nbytes,
             "weight_bytes": weight_bytes,
             "bound": "operations" if flops / H100_FP32_FLOPS >= nbytes / H100_HBM_BYTES
@@ -223,16 +361,19 @@ def _sizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int) -> Dict
 def group_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
                  n_sfb: int = 5, *, in_channels: int = 3) -> Dict[str, Any]:
     """Static sizing of the megakernel on the H100 at one (width, patch)
-    point: cluster size (of 1, 2, 4, 8, 16 blocks, the one that keeps the
-    most strip rows resident on an SM), rows per block (CTA), threads, the
-    floats a pixel takes past its channels (``pixel_pad``), the blocks an SM
-    holds at once (``blocks_per_sm``), shared-memory bytes per block against the
-    232,448 B limit, fp32 FLOP and device-memory bytes per patch (each input
-    read once, each pre-shuffle output written once; the weights once per
-    launch, in ``weight_bytes``), and which of the two bounds the launch on
-    the data sheet's 67 TFLOP/s and 3.35 TB/s ("operations" / "bytes").
-    ``patch``: an edge or (h, w). Raises ValueError for a patch past 64 and
-    for a shape whose strip fits no block."""
+    point: the windows the patch is served in (``windows`` (rows, columns),
+    ``window`` their (h, w) edge, ``work_factor`` the pixels computed over
+    the patch's; one window of the patch itself wherever it fits), and for
+    one window the cluster size (of 1, 2, 4, 8, 16 blocks, the one that
+    keeps the most strip rows resident on an SM), rows per block (CTA),
+    threads, the floats a pixel takes past its channels (``pixel_pad``), the
+    blocks an SM holds at once (``blocks_per_sm``), shared-memory bytes per
+    block against the 232,448 B limit; fp32 FLOP and device-memory bytes per
+    patch (each input read once, each pre-shuffle output written once; the
+    weights once per launch, in ``weight_bytes``), and which of the two
+    bounds the launch on the data sheet's 67 TFLOP/s and 3.35 TB/s
+    ("operations" / "bytes"). ``patch``: an edge or (h, w). Raises
+    ValueError for a shape no window's strip fits."""
     h, w = (patch, patch) if isinstance(patch, int) else (int(patch[0]), int(patch[1]))
     return _sizing(width, h, w, in_channels, in_channels * scale * scale, n_sfb)
 
@@ -355,8 +496,9 @@ def mega_fused(x: torch.Tensor, wbuf: torch.Tensor, *, width: int, n_sfb: int,
 
     CPU tensors take the plain version (`kernels.ref.mega_ref` on the
     unpacked views) at any patch size; CUDA tensors launch the kernel or
-    raise. N = 0 returns an empty output, no launch. On the card a patch
-    past 64, or whose strip fits no block's shared memory, raises
+    raise. N = 0 returns an empty output, no launch. On the card a patch that
+    does not fit one launch is served in windows (:func:`window_plan`), all
+    of them in one launch; a shape that no window's strip fits raises
     ValueError before any launch."""
     check_operands("mega_fused", x, {})
     n, h, w, cin = x.shape
@@ -370,15 +512,22 @@ def mega_fused(x: torch.Tensor, wbuf: torch.Tensor, *, width: int, n_sfb: int,
     rep = _sizing(width, h, w, cin, out_channels, n_sfb)
     if wbuf.data_ptr() % 16:
         raise ValueError("mega_fused: wbuf must be 16-byte aligned (the kernel copies 16 B)")
-    out = torch.empty((n, h, w, out_channels), dtype=x.dtype, device=x.device)
     if n == 0:
+        return torch.empty((n, h, w, out_channels), dtype=x.dtype, device=x.device)
+
+    def launch(xs: torch.Tensor) -> torch.Tensor:
+        nw, wh, ww, _ = xs.shape
+        out = torch.empty((nw, wh, ww, out_channels), dtype=x.dtype, device=x.device)
+        _build.entry("mega", "mega_forward", 3, 11)(
+            xs.data_ptr(), wbuf.data_ptr(), out.data_ptr(), nw, wh, ww, cin, width,
+            out_channels, n_sfb, rep["rows_per_cta"], rep["cluster"], rep["threads"],
+            rep["pixel_pad"], stream_of(x))
+        mega_fused.launches += 1
         return out
-    launch = _build.entry("mega", "mega_forward", 3, 11)
-    launch(x.data_ptr(), wbuf.data_ptr(), out.data_ptr(), n, h, w, cin, width, out_channels,
-           n_sfb, rep["rows_per_cta"], rep["cluster"], rep["threads"], rep["pixel_pad"],
-           stream_of(x))
-    mega_fused.launches += 1
-    return out
+
+    if rep["windows"] == [1, 1]:
+        return launch(x)
+    return run_windowed(launch, x, _mega_plan(width, h, w, cin, out_channels, n_sfb))
 
 
 mega_fused.launches = 0
@@ -386,10 +535,10 @@ mega_fused.launches = 0
 
 def resident_clusters(width: int, patch: Union[int, Tuple[int, int]], scale: int,
                       n_sfb: int = 5, *, in_channels: int = 3) -> int:
-    """Clusters the card keeps resident at once for this shape (the card's
-    occupancy query; builds the kernel). 0 when none fits."""
+    """Clusters the card keeps resident at once for this shape's window (the
+    card's occupancy query; builds the kernel). 0 when none fits."""
     rep = group_report(width, patch, scale, n_sfb, in_channels=in_channels)
-    w = patch if isinstance(patch, int) else int(patch[1])
+    w = rep["window"][1]
     fn = _build.load("mega").mega_resident_clusters
     fn.argtypes, fn.restype = [ctypes.c_int] * 9, ctypes.c_int
     return int(fn(w, in_channels, width, in_channels * scale * scale, n_sfb,
@@ -523,11 +672,23 @@ def _qmega_smem(lay: QWeightLayout, rows: int, w: int) -> int:
             + 2 * lay.slot + 16)
 
 
+def _qmega_fits(lay: QWeightLayout, h: int, w: int) -> bool:
+    return _qmega_smem(lay, -(-h // QMEGA_CLUSTERS[-1]), w) <= SMEM_LIMIT
+
+
+@functools.lru_cache(maxsize=256)
+def _qmega_plan(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
+                bits: int) -> Tuple[AxisWindows, AxisWindows]:
+    lay = QWeightLayout(cin, width, cout, n_sfb, bits)
+    return window_plan(h, w, receptive_radius(n_sfb), MAX_PATCH,
+                       lambda wh, ww: _qmega_fits(lay, wh, ww))
+
+
 def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
              bits: int) -> Dict[str, Any]:
-    """The quantized megakernel's launch shape and work for one patch;
-    raises ValueError for a patch past 64 (no layout holds one: ROADMAP queue
-    3), a width past the dots' 64 channels, or a strip that fits no block."""
+    """The quantized megakernel's windows, the launch shape of one window
+    and the work of one patch; raises ValueError for a width past the dots'
+    64 channels, or where no window's strip fits a block."""
     if min(width, h, w, cin, cout) < 1 or n_sfb < 0:
         raise ValueError(f"qgroup_report: width {width}, patch {h}x{w}, cin {cin}, "
                          f"cout {cout}, n_sfb {n_sfb}: every size must be positive")
@@ -536,19 +697,21 @@ def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
         # only while 511^2 * K < 2^24, K <= 64
         raise ValueError(f"qgroup_report: width {width}, cin {cin}: the quantized megakernel's "
                          f"tensor-core dots take 1..{QMEGA_MAX_WIDTH} channels")
-    _check_patch("qgroup_report", h, w)
     lay = QWeightLayout(cin, width, cout, n_sfb, bits)
+    try:
+        plan = _qmega_plan(width, h, w, cin, cout, n_sfb, bits)
+    except ValueError as e:
+        raise ValueError(
+            f"qgroup_report: width {width}, patch {h}x{w}, {bits}-bit codes: {e}; a block of "
+            f"the {QMEGA_CLUSTERS[-1]}-block cluster needs more than the H100's {SMEM_LIMIT} B "
+            f"of shared memory per block") from None
+    wh, ww = plan[0].edge, plan[1].edge
     for cluster in QMEGA_CLUSTERS:
-        rows = -(-h // cluster)
-        smem = _qmega_smem(lay, rows, w)
+        rows = -(-wh // cluster)
+        smem = _qmega_smem(lay, rows, ww)
         if smem <= SMEM_LIMIT:
             break
-    else:
-        raise ValueError(
-            f"qgroup_report: width {width}, patch {h}x{w}, {bits}-bit codes: a block of the "
-            f"{cluster}-block cluster ({rows} rows) needs {smem} B of shared memory, over the "
-            f"H100's {SMEM_LIMIT} B per block")
-    p = rows * w
+    p = rows * ww
     # one thread per (pixel, 4 channels) of a depthwise layer
     threads = min(QMEGA_MAX_THREADS, max(64, 32 * -(-(lay.cp8 // 4) * p // 32)))
     int_ops = 2 * (cin * width + n_sfb * 4 * width * width + 9 * width) * h * w
@@ -563,7 +726,8 @@ def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
     int_rate = H100_INT8_OPS if bits <= 8 else H100_FP16_FLOPS
     t_ops = int_ops / int_rate + fp_ops / H100_FP32_INSTRUCTIONS
     return {"cluster": cluster, "rows_per_cta": rows, "threads": threads,
-            "smem_bytes": smem, "smem_limit": SMEM_LIMIT, "code_bytes": cb,
+            "smem_bytes": smem, "smem_limit": SMEM_LIMIT, **_plan_report(plan),
+            "code_bytes": cb,
             "weight_bytes": lay.size + 4 * (6 + 6 * n_sfb),
             "int_ops_per_patch": int_ops, "fp_ops_per_patch": fp_ops,
             "bytes_per_patch": nbytes,
@@ -573,20 +737,22 @@ def _qsizing(width: int, h: int, w: int, cin: int, cout: int, n_sfb: int,
 def qgroup_report(width: int, patch: Union[int, Tuple[int, int]], scale: int,
                   n_sfb: int = 5, bits: int = 8, *, in_channels: int = 3) -> Dict[str, Any]:
     """Static sizing of the quantized megakernel on the H100 at one (width,
-    patch, code width) point, the twin of :func:`group_report`: cluster size
-    (the fewest of 4, 8 and 16 blocks whose strip fits), rows per block
-    (CTA), threads, shared-memory bytes per block against the 232,448 B
-    limit (one fp32 map, two halo rows, two code buffers in the dots' operand
-    layout, two weight-ring slots: :func:`_qmega_smem`), the packed weights'
-    bytes, and per patch the integer and rounded fp32 operations and the
-    device-memory bytes (fp32 input read once, recon codes written once),
-    with which of the two bounds the launch at the data sheet's rates (int8
-    dots at 1,979 TOPS, fxp10 dots at the fp16 rate of 989 TFLOP/s, each
-    rounded fp32 operation one instruction at 33.5 T a second; 3.35 TB/s).
-    ``bits``: 8 for int8 codes, anything wider int32. Every patch of Table I
-    (16 to 64) fits at widths up to 64 in both modes. Raises ValueError for a
-    patch past 64 (ROADMAP queue 3) and for a width past 64 channels (fxp10's
-    fp16 dots are exact only up to K = 64)."""
+    patch, code width) point, the twin of :func:`group_report`: the windows
+    the patch is served in (``windows``, ``window``, ``work_factor``), and
+    for one window the cluster size (the fewest of 4, 8 and 16 blocks whose
+    strip fits), rows per block (CTA), threads, shared-memory bytes per block
+    against the 232,448 B limit (one fp32 map, two halo rows, two code
+    buffers in the dots' operand layout, two weight-ring slots:
+    :func:`_qmega_smem`), the packed weights' bytes, and per patch the
+    integer and rounded fp32 operations and the device-memory bytes (fp32
+    input read once, recon codes written once), with which of the two bounds
+    the launch at the data sheet's rates (int8 dots at 1,979 TOPS, fxp10
+    dots at the fp16 rate of 989 TFLOP/s, each rounded fp32 operation one
+    instruction at 33.5 T a second; 3.35 TB/s). ``bits``: 8 for int8 codes,
+    anything wider int32. Every patch of Table I (16 to 64) is one window at
+    widths up to 64 in both modes. Raises ValueError for a width past 64
+    channels (fxp10's fp16 dots are exact only up to K = 64) and for a shape
+    no window's strip fits."""
     h, w = (patch, patch) if isinstance(patch, int) else (int(patch[0]), int(patch[1]))
     return _qsizing(width, h, w, in_channels, in_channels * scale * scale, n_sfb, bits)
 
@@ -702,9 +868,10 @@ def qmega_fused(x: torch.Tensor, wbuf: torch.Tensor, qc: torch.Tensor, *, width:
 
     CPU tensors take the plain version (`kernels.ref.qmega_ref` on the
     unpacked operands) at any patch size; CUDA tensors launch the kernel or
-    raise. N = 0 returns an empty output, no launch. On the card a patch past
-    64, or whose strip fits no block's shared memory, raises ValueError
-    before any launch."""
+    raise. N = 0 returns an empty output, no launch. On the card a patch that
+    does not fit one launch is served in windows (:func:`window_plan`), all
+    of them in one launch; a shape that no window's strip fits raises
+    ValueError before any launch."""
     check_operands("qmega_fused", x, {})
     n, h, w, cin = x.shape
     check_channels("qmega_fused", Cin=cin, C=width, Cout=out_channels)
@@ -719,15 +886,22 @@ def qmega_fused(x: torch.Tensor, wbuf: torch.Tensor, qc: torch.Tensor, *, width:
     rep = _qsizing(width, h, w, cin, out_channels, n_sfb, bits)
     if wbuf.data_ptr() % 16:
         raise ValueError("qmega_fused: wbuf must be 16-byte aligned (the kernel copies 16 B)")
-    out = torch.empty((n, h, w, out_channels), dtype=dtype, device=x.device)
     if n == 0:
+        return torch.empty((n, h, w, out_channels), dtype=dtype, device=x.device)
+
+    def launch(xs: torch.Tensor) -> torch.Tensor:
+        nw, wh, ww, _ = xs.shape
+        out = torch.empty((nw, wh, ww, out_channels), dtype=dtype, device=x.device)
+        _build.entry("qmega", "qmega_forward", 4, 11)(
+            xs.data_ptr(), wbuf.data_ptr(), qc.data_ptr(), out.data_ptr(), nw, wh, ww, cin,
+            width, out_channels, n_sfb, rep["rows_per_cta"], rep["cluster"], rep["threads"],
+            8 if bits <= 8 else 32, stream_of(x))
+        qmega_fused.launches += 1
         return out
-    launch = _build.entry("qmega", "qmega_forward", 4, 11)
-    launch(x.data_ptr(), wbuf.data_ptr(), qc.data_ptr(), out.data_ptr(), n, h, w, cin, width,
-           out_channels, n_sfb, rep["rows_per_cta"], rep["cluster"], rep["threads"],
-           8 if bits <= 8 else 32, stream_of(x))
-    qmega_fused.launches += 1
-    return out
+
+    if rep["windows"] == [1, 1]:
+        return launch(x)
+    return run_windowed(launch, x, _qmega_plan(width, h, w, cin, out_channels, n_sfb, bits))
 
 
 qmega_fused.launches = 0
@@ -735,10 +909,10 @@ qmega_fused.launches = 0
 
 def qresident_clusters(width: int, patch: Union[int, Tuple[int, int]], scale: int,
                        n_sfb: int = 5, bits: int = 8, *, in_channels: int = 3) -> int:
-    """Clusters the card keeps resident at once for this shape (the card's
-    occupancy query; builds the kernel). 0 when none fits."""
+    """Clusters the card keeps resident at once for this shape's window (the
+    card's occupancy query; builds the kernel). 0 when none fits."""
     rep = qgroup_report(width, patch, scale, n_sfb, bits, in_channels=in_channels)
-    w = patch if isinstance(patch, int) else int(patch[1])
+    w = rep["window"][1]
     fn = _build.load("qmega").qmega_resident_clusters
     fn.argtypes, fn.restype = [ctypes.c_int] * 9, ctypes.c_int
     return int(fn(w, in_channels, width, in_channels * scale * scale, n_sfb,

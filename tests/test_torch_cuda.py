@@ -10,11 +10,13 @@ Tolerances: one kernel rtol 1e-4 / atol 1e-5 (fp32 FFMA against fp32
 PyTorch with TF32 off); the megakernel's whole chain and whole frames
 rtol 1e-3 / atol 1e-3 against the plain model (12 fp32 layers sum in
 different orders), and torch.equal against the layer chain of kernels,
-which sums every output in the megakernel's order. The
-quantized kernels (the quantized megakernel too) put out integer codes and
-are held to their plain versions with ``torch.equal`` (qSFB also at extreme
-codes, C64 and every code and weight at +-qmax, and across column bands); the edge kernel sums
-each patch's mean in another order, rtol 1e-4 / atol 1e-3.
+which sums every output in the megakernel's order, also where a patch is
+served in recompute-halo windows. The quantized kernels (the quantized
+megakernel too) put out integer codes and are held to their plain versions
+with ``torch.equal`` (qSFB also at extreme codes, C64 and every code and
+weight at +-qmax, and across column bands; quantize also at n % 4 != 0,
+storage offsets and all-zero inputs); the edge kernel sums each patch's
+mean in another order, rtol 1e-4 / atol 1e-3, with equal routing ids.
 """
 from pathlib import Path
 
@@ -238,17 +240,53 @@ def test_megakernel_matches_plain(cuda, n, h, w, width):
     assert smem(w, 3, width, 48, 5, rep["rows_per_cta"], rep["pixel_pad"]) == rep["smem_bytes"]
 
 
+def _launched(before):
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+#: Patches past one launch (width, patch): x4 at 72x72 and 80x80 (2 x 2
+#: windows of 48 and 52), a (96, 72) patch at C27 (2 x 2 of 60 and 48), and
+#: C64 at 64x64, whose strip fits no block (2 x 1 windows of 44 x 64).
+WINDOW_CASES = [(54, 72), (54, 80), (27, (96, 72)), (64, 64)]
+
+
 def test_megakernel_refuses_on_card_without_fallback(cuda):
-    cfg = ESSRConfig(scale=4)
-    tree, g = _mega_tree(cfg, 5)
-    before = mk.mega_fused.launches
-    for width, hw in ((54, 72), (64, 64)):     # past Table I; no layout holds C64 at 64x64
-        x = torch.rand((1, hw, hw, 3), generator=g).cuda()
-        wbuf = mk.pack_weights(tree, width) if width <= 54 else torch.zeros(
-            mk.WeightLayout(3, width, 48, 5).size, device="cuda")
-        with pytest.raises(ValueError, match="group_report"):
-            mk.mega_fused(x, wbuf, width=width, n_sfb=5, out_channels=48)
-    assert mk.mega_fused.launches == before
+    """Past one launch the megakernel serves the patch in recompute-halo
+    windows, all in one launch, torch.equal to the layer chain on the whole
+    patch; nothing falls back to the layer chain."""
+    for width, patch in WINDOW_CASES:
+        cfg = ESSRConfig(scale=4, channels=max(width, 54))
+        tree, g = _mega_tree(cfg, width)
+        h, w = (patch, patch) if isinstance(patch, int) else patch
+        x = torch.rand((2, h, w, 3), generator=g).cuda()
+        rep = mk.group_report(width, (h, w), cfg.scale, cfg.n_sfb)
+        assert rep["windows"] != [1, 1]
+        before = ops.launch_counts()
+        group = mk.essr_forward_megakernel(tree, x, cfg, width=width)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"mega": 1}
+        layer = ops.essr_forward_kernels(tree, x, cfg, width=width)
+        assert torch.equal(group, layer), (width, patch, rep["windows"])
+
+
+@pytest.mark.parametrize("mode", ["int8", "fxp10"])
+def test_quantized_megakernel_serves_windows_equal_to_the_chain(cuda, mode):
+    """The quantized megakernel past one launch: windows in one launch,
+    torch.equal to the qconv chain and the integer reference on the whole
+    patch."""
+    for width, patch in WINDOW_CASES[:3]:
+        cfg, tree, pack, _ = _quant_setup(mode, width, seed=width)
+        h, w = (patch, patch) if isinstance(patch, int) else patch
+        x = torch.rand((2, h, w, 3), generator=torch.Generator().manual_seed(h + w)).cuda()
+        rep = mk.qgroup_report(width, (h, w), cfg.scale, cfg.n_sfb, pack.bits)
+        assert rep["windows"] != [1, 1]
+        before = ops.launch_counts()
+        got = mk.essr_forward_qmegakernel(tree, x, cfg, width, pack=pack)
+        torch.cuda.synchronize()
+        assert _launched(before) == {"qmega": 1}
+        assert torch.equal(got, tq.essr_forward_qkernels(tree, x, cfg, width, pack=pack))
+        assert torch.equal(got, tq.essr_forward_qref(tree, x, cfg, width, pack=pack))
 
 
 def _group_equals_layer(quant, patch):
@@ -263,7 +301,8 @@ def _group_equals_layer(quant, patch):
     ops.reset_launch_counts()
     b = group.upscale(frame)
     buckets = sum(1 for k in (1, 2) if b.counts[k] > 0)
-    assert buckets > 0 and ops.launch_counts()["qmega" if quant else "mega"] == buckets
+    assert buckets > 0 and ops.launch_counts() == {
+        **dict.fromkeys(ops.KERNELS, 0), "qmega" if quant else "mega": buckets, "edge": 1}
     np.testing.assert_array_equal(a.ids, b.ids)
     assert torch.equal(a.image, b.image)
 
@@ -280,6 +319,13 @@ def test_engine_group_frame_at_patch_64_equals_layer_frame(cuda, quant):
     _group_equals_layer(quant, 64)
 
 
+@pytest.mark.parametrize("quant", [None, "int8", "fxp10"])
+def test_engine_group_frame_at_patch_80_equals_layer_frame(cuda, quant):
+    """Past Table I: 2 x 2 recompute-halo windows of 52 in one launch a
+    bucket (ROADMAP queue 3, fault 2)."""
+    _group_equals_layer(quant, 80)
+
+
 def test_engine_group_frame_on_card_matches_ref(cuda):
     r = np.random.default_rng(1)
     frame = np.clip(np.linspace(0, 1, 96 * 160 * 3, dtype=np.float32).reshape(96, 160, 3)
@@ -293,7 +339,7 @@ def test_engine_group_frame_on_card_matches_ref(cuda):
     assert got.backend == "cuda" and buckets > 0
     assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": buckets,
                       "quantize": 0, "qbsconv": 0, "qsfb": 0, "qdsconv": 0,
-                      "qmega": 0, "edge": 0}
+                      "qmega": 0, "edge": 1}
     want = SREngine(eng.model, backend="ref").upscale(frame)
     np.testing.assert_array_equal(got.ids, want.ids)
     torch.testing.assert_close(got.image, want.image, **CHAIN_TOL)
@@ -405,7 +451,7 @@ def test_engine_int8_frame_on_card(cuda):
     assert got.backend == "cuda-int8" and buckets > 0
     assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0, "quantize": buckets,
                       "qbsconv": buckets, "qsfb": 5 * buckets, "qdsconv": buckets,
-                      "qmega": 0, "edge": 0}
+                      "qmega": 0, "edge": 1}
     fp = SREngine(eng.model).upscale(frame)
     np.testing.assert_array_equal(got.ids, fp.ids)
     assert bool(torch.isfinite(got.image).all())
@@ -504,13 +550,14 @@ def test_engine_quant_group_frame_on_card(cuda):
     buckets = sum(1 for k in (1, 2) if got.counts[k] > 0)
     assert got.backend == "cuda-fxp10" and buckets > 0
     assert counts == {"bsconv": 0, "sfb": 0, "dsconv": 0, "mega": 0, "quantize": 0,
-                      "qbsconv": 0, "qsfb": 0, "qdsconv": 0, "qmega": buckets, "edge": 0}
+                      "qbsconv": 0, "qsfb": 0, "qdsconv": 0, "qmega": buckets, "edge": 1}
     np.testing.assert_array_equal(got.ids, want.ids)
     assert torch.equal(got.image, want.image)
 
 
 @pytest.mark.parametrize("n,h,w", [(0, 32, 32), (1, 32, 32), (300, 32, 32), (5, 34, 34),
-                                   (3, 8, 13)])
+                                   (3, 8, 13), (2, 3, 3), (3, 5, 3), (2, 16, 16), (4, 48, 48),
+                                   (3, 64, 64), (2, 70, 70), (2, 9, 70), (1, 40, 200)])
 def test_edge_kernel_matches_plain(cuda, n, h, w):
     x = torch.rand((n, h, w, 3), generator=torch.Generator().manual_seed(n + h)).cuda()
     before = edge_score_fused.launches
@@ -519,3 +566,96 @@ def test_edge_kernel_matches_plain(cuda, n, h, w):
     assert edge_score_fused.launches == before + (n > 0)
     assert tuple(got.shape) == (n,)
     torch.testing.assert_close(got, ref.edge_score_ref(x), rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("patch", [16, 32, 48, 64])
+def test_edge_kernel_on_frame_patches_routes_as_plain(cuda, patch):
+    """The serving path's patches (overlap 2) of a mixed frame: scores within
+    rtol 1e-4 / atol 1e-3 of the plain score, and the same routing ids."""
+    from repro_torch.core import subnet_policy as sp
+    from repro_torch.core.patching import get_geometry
+    r = np.random.default_rng(patch)
+    frame = np.clip(np.linspace(0, 1, 200 * 264 * 3, dtype=np.float32).reshape(200, 264, 3)
+                    + (np.arange(264) > 132)[None, :, None] * (r.random((200, 264, 3)) - 0.5),
+                    0, 1).astype(np.float32)
+    patches = get_geometry(200, 264, patch, 2, 2, "cuda").extract(torch.from_numpy(frame).cuda())
+    got = edge_score_fused(patches)
+    want = ref.edge_score_ref(patches)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    t1, t2 = sp.DEFAULT_T1, sp.DEFAULT_T2
+    np.testing.assert_array_equal(sp.decide(got.cpu().numpy(), t1, t2),
+                                  sp.decide(want.cpu().numpy(), t1, t2))
+
+
+def _golden_frame(hw: int = 128, seed: int = 1234) -> np.ndarray:
+    """The mixed smooth/texture frame of tests/test_fused_dispatch.py, from
+    the port's twin of the reference's synthetic images."""
+    from repro_torch.data import synthetic as tsyn
+    yy, xx = np.meshgrid(np.linspace(0, 1, hw, dtype=np.float32),
+                         np.linspace(0, 1, hw, dtype=np.float32), indexing="ij")
+    smooth = np.stack([yy, xx, (yy + xx) / 2], axis=-1)
+    tex = tsyn.degrade(tsyn.random_image(seed, 2 * hw, 2 * hw), 2).numpy()
+    return np.where((yy < 0.5)[..., None], smooth, tex).astype(np.float32)
+
+
+def test_engine_golden_frame_routes_through_the_edge_kernel(cuda):
+    """The "cuda" frame scores with the edge kernel, one launch a frame; the
+    golden frame's counts stay (10, 2, 13) and its ids equal the "ref"
+    frame's, which scores with the plain version."""
+    frame = _golden_frame()
+    eng = SREngine.from_config(ESSRConfig(scale=2), seed=1)
+    ops.reset_launch_counts()
+    got = eng.upscale(frame)
+    assert ops.launch_counts()["edge"] == 1 and got.counts == (10, 2, 13)
+    ops.reset_launch_counts()
+    want = SREngine(eng.model, backend="ref").upscale(frame)
+    assert ops.launch_counts()["edge"] == 0 and want.counts == (10, 2, 13)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    torch.testing.assert_close(torch.from_numpy(np.asarray(got.scores)),
+                               torch.from_numpy(np.asarray(want.scores)), rtol=1e-4, atol=1e-3)
+
+
+def _quantize_input(n: int, offset: int, zeros: bool, a: float, s: float, seed: int):
+    """n values on the card at a storage offset: first the values a code can
+    go wrong on (0, -0.0, +-a, past +-a, half-step ties), then noise over
+    [-1.5a, 1.5a], or all zeros."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.zeros(n + offset) if zeros else (torch.rand(n + offset, generator=g) * 3 - 1.5) * a
+    if not zeros:
+        special = torch.tensor([0.0, -0.0, a, -a, 1.5 * a, -1.5 * a, 1e30, -1e30]
+                               + [(k + 0.5) * s for k in range(-6, 6)])
+        m = min(n, special.numel())
+        v[offset: offset + m] = special[:m]
+    return v.cuda()[offset:].view(1, 1, n, 1)
+
+
+@pytest.mark.parametrize("bits", [8, 10])
+@pytest.mark.parametrize("n,offset,zeros", [(1, 0, False), (3, 1, False), (4099, 0, False),
+                                            (4099, 1, False), (4096, 1, False),
+                                            (4096, 2, False), (4097, 3, False),
+                                            (3 * 1024 * 1024, 0, False),
+                                            (3 * 1024 * 1024 + 1, 1, False), (4099, 0, True),
+                                            (3 * 1024 * 1024, 1, True)])
+def test_quantize_kernel_equals_plain(cuda, n, offset, zeros, bits):
+    """The quantize kernel's 16-byte stream with its scalar head and tail:
+    n % 4 != 0, storage offsets of 1-3 elements, an all-zero input, both code
+    types, at a power-of-two step (exact ties) and a calibrated-looking one;
+    torch.equal to the plain version on the card and on the CPU."""
+    qmax = 127 if bits <= 8 else 511
+    dtype = torch.int8 if bits <= 8 else torch.int32
+    for a in (qmax / 128.0, 0.7310345):
+        s = float(torch.tensor(a) / qmax)
+        x = _quantize_input(n, offset, zeros, a, s, seed=n + offset)
+        assert x.storage_offset() == offset
+        qc = torch.tensor([a, s], dtype=torch.float32).cuda()
+        before = tq.quantize_fused.launches
+        got = tq.quantize_fused(x, qc, bits=bits)
+        torch.cuda.synchronize()
+        assert tq.quantize_fused.launches == before + 1 and got.dtype == dtype
+        want = ref.quantize_ref(x, qc, dtype)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), ref.quantize_ref(x.cpu(), qc.cpu(), dtype))
+        if zeros:
+            assert got.abs().max().item() == 0
+        elif n > 20:                          # past the special values: noise codes too
+            assert got.abs().max().item() > 0

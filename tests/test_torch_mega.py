@@ -101,16 +101,17 @@ def test_group_engine_golden_frame_matches_reference():
     assert eng.upscale(frame, plan=ExecutionPlan()).compiled is False
 
 
-@pytest.mark.parametrize("patch", [48, 64])
+@pytest.mark.parametrize("patch", [48, 64, 80])
 def test_group_engine_serves_table1_patches_like_reference(patch):
-    # Table I's larger patches: the port's group plan serves them on the CPU
-    # (its plain version) as the reference's group plan does
+    # Table I's larger patches, and 80 past it (ROADMAP queue 3, fault 2):
+    # the port's group plan serves them on the CPU (its plain version, whole
+    # patches) as the reference's group plan does
     jplan = JPlan(patch=patch, overlap=2, fusion="group")
     ref = JEngine.from_config(JCfg(scale=2), seed=2, backend="ref", plan=jplan)
     tree = jax.tree_util.tree_map(np.asarray, ref.params)
     eng = SREngine.from_params(tree, ESSRConfig(scale=2), device="cpu",
                                plan=ExecutionPlan(patch=patch, overlap=2, fusion="group"))
-    frame = _golden_frame(hw=96 if patch == 48 else 128, seed=patch)
+    frame = _golden_frame(hw=128 if patch == 64 else 96, seed=patch)
     ops.reset_launch_counts()
     rj, rp = ref.upscale(frame), eng.upscale(frame)
     assert rp.counts == rj.counts and sum(rp.counts[1:]) > 0
@@ -209,13 +210,103 @@ def test_group_report_sizes_and_limits():
     # the unpadded output (48 floats a pixel) fits in F and A (2 x 36)
     lay = mk.WeightLayout(3, 27, 48, 5)
     assert lay.stage == lay.recon_pw == 28 * 48 + 48
-    for patch in (65, (64, 65), (80, 32)):
-        with pytest.raises(ValueError, match="up to 64x64.*queue 3"):
-            mk.group_report(54, patch, 4)
-    with pytest.raises(ValueError, match="232448 B"):
-        mk.group_report(64, 64, 4)                  # C64: no layout holds a 64x64 strip
+    assert (rep["windows"], rep["window"], rep["work_factor"]) == ([1, 1], [32, 32], 1.0)
+    # past 64 the patch is served in recompute-halo windows of at most 64
+    # (r = 12 at 5 SFBs), each window's strip sized as a patch of its own
+    for patch, windows, window in ((65, [2, 2], [45, 45]), ((64, 65), [1, 2], [64, 45]),
+                                   ((80, 32), [2, 1], [52, 32])):
+        rep = mk.group_report(54, patch, 4)
+        assert (rep["windows"], rep["window"]) == (windows, window)
+        h, w = (patch, patch) if isinstance(patch, int) else patch
+        assert rep["work_factor"] == windows[0] * window[0] * windows[1] * window[1] / (h * w)
+        same = mk.group_report(54, tuple(window), 4)
+        assert {k: rep[k] for k in ("cluster", "rows_per_cta", "smem_bytes", "threads")} == \
+            {k: same[k] for k in ("cluster", "rows_per_cta", "smem_bytes", "threads")}
+        assert rep["flops_per_patch"] == same["flops_per_patch"] * h * w // (window[0] * window[1])
+    # C64: no layout holds a 64x64 strip (262,672 B a block of 4 rows), so two
+    # windows of 44 rows (3 a block of the 16-block cluster) serve it
+    lay = mk.WeightLayout(3, 64, 48, 5)
+    assert mk._mega_smem(lay, 4, 64, 0) == 262_672 > mk.SMEM_LIMIT
+    c64 = mk.group_report(64, 64, 4)
+    assert (c64["windows"], c64["window"], c64["cluster"], c64["rows_per_cta"]) == \
+        ([2, 1], [44, 64], 16, 3)
+    assert c64["smem_bytes"] == mk._mega_smem(lay, 3, 64, c64["pixel_pad"]) <= mk.SMEM_LIMIT
     with pytest.raises(ValueError, match="positive"):
         mk.group_report(0, 32, 4)
+
+
+#: Window-planner cases: every Table I edge and a few between, then past 64.
+PLAN_EDGES = [16, 24, 32, 40, 48, 56, 64, 65, 72, 80, 96, 128, 200, (80, 32)]
+
+
+@pytest.mark.parametrize("n_sfb", [5, 2])
+@pytest.mark.parametrize("patch", PLAN_EDGES)
+def test_window_plan_tiles_the_patch_with_exact_cores(patch, n_sfb):
+    """The recompute-halo windows (r = 2 + 2 n_sfb: 12 at 5 SFBs, 6 at 2):
+    the cores tile each axis with no gap and no overlap, every kept pixel is
+    at least r from a window edge inside the patch, no window is past 64,
+    the count is the fewest that keeps W <= 64, and a patch that fits one
+    launch today is one window."""
+    h, w = (patch, patch) if isinstance(patch, int) else patch
+    r = mk.receptive_radius(n_sfb)
+    assert r == {5: 12, 2: 6}[n_sfb]
+    lay = mk.WeightLayout(3, 54, 48, n_sfb)
+    plan = mk.window_plan(h, w, r, mk.MAX_PATCH, lambda a, b: mk._mega_fits(lay, a, b))
+    for ax, size in zip(plan, (h, w)):
+        assert ax.size == size and ax.radius == r and ax.edge <= mk.MAX_PATCH
+        assert len(ax.starts) == len(ax.cores) == ax.k
+        assert ax.cores[0][0] == 0 and ax.cores[-1][1] == size
+        assert all(a[1] == b[0] for a, b in zip(ax.cores, ax.cores[1:]))
+        for (lo, hi), s in zip(ax.cores, ax.starts):
+            assert 0 <= s and s + ax.edge <= size and s <= lo < hi <= s + ax.edge
+            assert lo == 0 or lo - s >= r                  # inner edges: r pixels kept out
+            assert hi == size or s + ax.edge - hi >= r
+        # the fewest windows of at most 64: one fewer would be wider
+        assert ax == mk.axis_windows(size, r, mk.MAX_PATCH)
+        if ax.k > 1:
+            assert -(-(size + 2 * r * (ax.k - 2)) // (ax.k - 1)) > mk.MAX_PATCH
+        assert (ax.k == 1) == (size <= mk.MAX_PATCH)
+    if max(h, w) <= mk.MAX_PATCH:
+        assert plan[0].edge == h and plan[1].edge == w
+
+
+def test_window_plan_refuses_when_no_window_fits(monkeypatch):
+    """A shape no window holds still raises, before any launch: at a shared
+    memory limit that no strip of the smallest windows fits."""
+    monkeypatch.setattr(mk, "SMEM_LIMIT", 20_000)
+    mk._mega_plan.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="no.*window fits a launch"):
+            mk.group_report(54, 80, 4)
+    finally:
+        mk._mega_plan.cache_clear()
+    with pytest.raises(ValueError, match="keep no core|keeps a core"):
+        mk.axis_windows(80, 12, 24)
+
+
+def test_windows_through_the_plain_version_equal_the_whole_patch():
+    """Split-and-stitch at C8, 2 SFBs (r = 6), a 40x40 patch in windows of at
+    most 24 (3 x 3 of 22): the stitched mega_ref is the whole patch's within
+    the kernels' tolerance, and a radius one short moves pixels."""
+    tree = _port(_tree(JTOY, 5), TOY)
+    lay = mk.WeightLayout(3, 8, TOY.out_channels, TOY.n_sfb)
+    w = mk.unpack_weights(mk.pack_weights(tree, 8), lay)
+    x = torch.from_numpy(np.random.default_rng(5).random((2, 40, 40, 3), dtype=np.float32))
+    plan = mk.window_plan(40, 40, mk.receptive_radius(TOY.n_sfb), 24, lambda a, b: True)
+    assert [(a.k, a.edge) for a in plan] == [(3, 22), (3, 22)]
+    calls = []
+
+    def fn(xs):
+        calls.append(tuple(xs.shape))
+        return mega_ref(xs, w)
+
+    with torch.no_grad():
+        whole = mega_ref(x, w)
+        got = mk.run_windowed(fn, x, plan)
+        short = mk.run_windowed(fn, x, mk.window_plan(40, 40, 5, 24, lambda a, b: True))
+    assert calls[0] == (2 * 9, 22, 22, 3)                 # one call over every window
+    torch.testing.assert_close(got, whole, **TOY_TOL)
+    assert (short - whole).abs().max().item() > 1e-2
 
 
 def test_pack_unpack_round_trip_and_cache():

@@ -28,7 +28,7 @@ from repro.kernels import ops as jops
 from repro.kernels import qconv as jq
 from repro_torch.api import ExecutionPlan, SREngine
 from repro_torch.core import pipeline
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import qconv as tq
 from repro_torch.kernels.edge import edge_score_fused
@@ -86,6 +86,23 @@ def test_qmega_equals_layer_chain_and_plain_codes(qtoy, mode, width):
                                out_channels=TOY.out_channels, bits=pack.bits)
     assert torch.equal(group, layer)
     assert recon.dtype == codes["recon"].dtype and torch.equal(recon, codes["recon"])
+
+
+@pytest.mark.parametrize("mode", ["int8", "fxp10"])
+def test_qmega_windows_through_the_plain_version_equal_the_whole_patch(qtoy, mode):
+    """Split-and-stitch of the integer chain at C8, 2 SFBs (r = 6), a 40x40
+    patch in 3 x 3 windows of 22: the stitched qmega_ref codes are
+    torch.equal to the whole patch's."""
+    _, params, _, packs = qtoy
+    pack = _port_pack(packs[mode])
+    q, _ = tq.prepare_qparams(params, TOY, 8, pack)
+    x = torch.from_numpy(np.random.default_rng(6).random((2, 40, 40, 3), dtype=np.float32))
+    plan = mk.window_plan(40, 40, mk.receptive_radius(TOY.n_sfb), 24, lambda a, b: True)
+    dtype = torch.int8 if pack.bits <= 8 else torch.int32
+    with torch.no_grad():
+        whole = ref.qmega_ref(x, q, q["consts"], dtype)
+        got = mk.run_windowed(lambda xs: ref.qmega_ref(xs, q, q["consts"], dtype), x, plan)
+    assert got.dtype == dtype and torch.equal(got, whole) and whole.abs().max().item() > 0
 
 
 def _extreme_q(c: int, bits: int, cin: int = 3, cout: int = 12, n_sfb: int = 2, seed: int = 0):
@@ -187,8 +204,10 @@ def test_qmega_empty_bucket_width_checks_and_launches(qtoy):
 @pytest.mark.parametrize("patch", [16, 32, 48, 64])
 def test_qgroup_report_fits_and_raises(patch, width, bits, scale):
     """Every patch of Table I fits a block at C27 and C54, int8 and fxp10, x2
-    and x4 (ROADMAP queue 3, fault 1); past 64 it raises (fault 2)."""
+    and x4 (ROADMAP queue 3, fault 1), in one window; past 64 the patch is
+    served in recompute-halo windows (fault 2)."""
     rep = mk.qgroup_report(width, patch, scale, 5, bits)
+    assert (rep["windows"], rep["window"], rep["work_factor"]) == ([1, 1], [patch, patch], 1.0)
     cluster, rows = rep["cluster"], rep["rows_per_cta"]
     assert cluster in mk.QMEGA_CLUSTERS and rows == -(-patch // cluster)
     assert rep["smem_bytes"] <= rep["smem_limit"] == 232_448 and rep["bound"] == "operations"
@@ -208,8 +227,15 @@ def test_qgroup_report_fits_and_raises(patch, width, bits, scale):
     assert lay.slot == max(lay.first, lay.bs, lay.fuse, lay.recon)
     assert rep["int_ops_per_patch"] == 2 * patch * patch * (3 * width + 20 * width * width
                                                             + 9 * width)
-    with pytest.raises(ValueError, match="up to 64x64.*queue 3"):
-        mk.qgroup_report(width, patch + 64, scale, 5, bits)
+    big = mk.qgroup_report(width, patch + 64, scale, 5, bits)
+    ax = mk.axis_windows(patch + 64, mk.receptive_radius(5), mk.MAX_PATCH)
+    assert ax.k > 1 and ax.edge <= 64
+    assert (big["windows"], big["window"]) == ([ax.k, ax.k], [ax.edge, ax.edge])
+    assert big["work_factor"] == pytest.approx((ax.k * ax.edge / (patch + 64)) ** 2, rel=1e-12)
+    rows = big["rows_per_cta"]
+    assert big["smem_bytes"] == mk._qmega_smem(lay, rows, ax.edge) <= 232_448
+    assert rows == -(-ax.edge // big["cluster"])
+    assert big["int_ops_per_patch"] == rep["int_ops_per_patch"] * (patch + 64) ** 2 // patch ** 2
 
 
 @pytest.mark.parametrize("bits", [8, 10])

@@ -129,6 +129,41 @@ def test_quantizer_ops_bit_equal(qmax, per_channel):
         assert tq.act_qconsts(raw, qmax) == jq.act_qconsts(raw, qmax)
 
 
+@pytest.mark.parametrize("bits", [8, 10])
+def test_quantize_codes_at_edge_values_equal_eager_reference(bits):
+    """quantize_fused (its plain version on the CPU) against the JAX eager
+    _quantize_math at the values a code can go wrong on: 0 and -0.0 (code 0,
+    which the kernel writes without dividing), +-a, values past +-a, and
+    half-step ties (k + 0.5) s, which round half to even; at a step that is a
+    power of two (every tie exact) and at a calibrated-looking one; n % 4 != 0
+    and a storage offset of one element, both code types."""
+    qmax = 127 if bits <= 8 else 511
+    dtype = torch.int8 if bits <= 8 else torch.int32
+    for a in (qmax / 128.0, 0.7310345):
+        a = float(np.float32(a))
+        s = float(np.float32(a) / np.float32(qmax))
+        ties = (np.arange(-qmax - 1, qmax + 1, dtype=np.float32) + np.float32(0.5)) * np.float32(s)
+        special = np.array([0.0, -0.0, a, -a, 1.5 * a, -1.5 * a, 1e30, -1e30, s, -s],
+                           np.float32)
+        noise = (3 * a * np.random.default_rng(bits).standard_normal(37)).astype(np.float32)
+        vals = np.concatenate([special, ties, noise])
+        store = np.concatenate([np.float32([7.0]), vals])         # offset 1 element
+        x = torch.from_numpy(store)[1:].view(1, 1, -1, 1)
+        assert x.storage_offset() == 1 and x.numel() % 4 != 0
+        qc = torch.tensor([a, s], dtype=torch.float32)
+        got = tq.quantize_fused(x, qc, bits=bits)
+        with jax.disable_jit():
+            want = np.asarray(jq._quantize_math(jnp.asarray(vals), a, s, jp.code_dtype(bits)))
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got.view(-1).numpy(), want)
+        assert got.view(-1)[:2].tolist() == [0, 0] and got.abs().max().item() == qmax
+        if a == qmax / 128.0:               # exact ties: half to even, both ways
+            k = np.arange(-qmax - 1, qmax + 1)
+            even = np.where(k % 2 == 0, k, k + 1)
+            np.testing.assert_array_equal(want[special.size:special.size + ties.size],
+                                          np.clip(even, -qmax, qmax))
+
+
 def test_weight_tree_and_codes_dtype():
     tree, params = _trees(JTOY, TOY)
     qcfg = jp.QuantConfig(bits=8)

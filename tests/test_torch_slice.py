@@ -97,6 +97,33 @@ def test_forced_policy_and_ids_override_match_reference(engines):
     np.testing.assert_allclose(rp.image.numpy(), np.asarray(rj.image), **IMG_TOL)
 
 
+def test_cuda_backend_scores_through_the_edge_kernel(engines, monkeypatch):
+    """The "cuda" backend's frame scores its patches through the edge kernel's
+    wrapper (on the CPU it takes the plain score inside, and launches
+    nothing), routing the golden frame as the reference does; the "ref"
+    backend and a forced routing never call it."""
+    from repro_torch.core.edge_score import edge_score
+    from repro_torch.kernels import edge as tedge
+    real, calls = tedge.edge_score_fused, []
+
+    def spy(patches):
+        out = real(patches)
+        calls.append(torch.equal(out, edge_score(patches)))
+        return out
+
+    monkeypatch.setattr(tedge, "edge_score_fused", spy)
+    ref, tree = engines
+    before = real.launches
+    rp = _port(tree).upscale(_golden_frame())
+    assert calls == [True] and real.launches == before
+    assert rp.counts == GOLDEN_COUNTS
+    np.testing.assert_array_equal(rp.ids, np.asarray(ref.upscale(_golden_frame()).ids))
+    frame = _golden_frame(64)
+    _port(tree, "ref").upscale(frame)
+    _port(tree).upscale(frame, ids_override=np.arange(9) % 3)
+    assert calls == [True]
+
+
 def test_sub_patch_size_frame_matches_reference(engines):
     ref, tree = engines
     frame = np.asarray(_golden_frame(64))[:20, :25]
