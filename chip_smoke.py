@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
-8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 10; any failure exits
-non-zero before the last line:
+8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 10; any failure
+exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -134,7 +134,26 @@ non-zero before the last line:
      plain version (rtol 1e-4 / atol 1e-5); qBSConv (its codes datapath: the
      calibrated model's first layer, and its first SFB's b1 group with ReLU,
      on codes spread over the lattice) torch.equal to its plain version,
-     both modes.
+     both modes;
+ 19. the stream ("stream"): phase 5's weights serve STREAM_FRAMES 1080p
+     frames through SREngine.stream under host dispatch with a
+     SwitchingConfig whose frame_high lies below the frames' 576 C54
+     patches, so the thresholds move; per frame the ids and thresholds must
+     equal a host-only AdaptiveSwitcher fed the same scores, and the image
+     torch.equal to upscale(frame, ids_override=ids);
+ 20. fused dispatch ("fused"), all six modes (fp32, int8, fxp10 x layer,
+     group): each frame one CUDA graph replay (captured on the first frame
+     of its capacity profile) against the same frames under host dispatch:
+     ids equal, image torch.equal, spills zero; the launches a replay adds
+     (the capture's deltas: 15 / 3 / 17 / 3 a frame) and the graph's pool
+     bytes; a replay must look up no C entry (no wrapper launch) and capture
+     nothing; then STEADY_FRAMES frames each of host and fused dispatch in
+     turns, host-clock latency median, quartiles and range, and one
+     profiled frame each (busy time, idle share); a "fused:" JSON line
+     before the kernels line holds the numbers;
+ 21. the fused stream ("fused stream"): the STREAM_FRAMES frames through
+     SREngine.stream under dispatch="fused" with inflight 1 and 2 (frozen
+     thresholds): results equal, in order, with marginal latencies.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -164,6 +183,12 @@ GRAPH_LAUNCHES, GRAPH_REPLAYS = 100, 10
 L2_BYTES = 50 * 2 ** 20
 #: Patches of the windowed megakernels' timing at 80x80 (phase 16).
 PATCH80_N = 256
+#: Frames of the streaming phases (19, 21), and the Algorithm-1 trim band
+#: of phase 19: below the frames' 576 C54 patches, so the thresholds move.
+STREAM_FRAMES = 8
+STREAM_FRAME_HIGH, STREAM_FRAME_LOW = 400, 100
+#: Steady frames timed per serving mode and dispatch in phase 20, in turns.
+STEADY_FRAMES = 12
 
 #: Published H100/H200 peaks (NVIDIA data sheets): fp32 outside the tensor
 #: cores, and device-memory bandwidth, by a substring of the card's name.
@@ -698,10 +723,11 @@ def mixed_frame(seed: int, h: int = 1080, w: int = 1920):
     return np.clip(smooth + amp[..., None] * noise, 0.0, 1.0).astype(np.float32)
 
 
-def profile_frame(engine, frame, wall_s: float, torch) -> None:
+def profile_frame(engine, frame, wall_s: float, torch):
     """One more frame under torch.profiler: device time by kernel (the ten
     longest and every kernel of the port's sources), and the device's busy
-    share of the unprofiled frame's wall time."""
+    share of the unprofiled frame's wall time. Returns the busy ms (None when
+    the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         engine.upscale(frame)
@@ -717,7 +743,7 @@ def profile_frame(engine, frame, wall_s: float, torch) -> None:
     busy = sum(ms for ms, _, _ in rows)
     if not rows:
         say("phase profile: the profiler recorded no device time (not measured)")
-        return
+        return None
     say(f"phase profile: device busy {busy:.3f} ms of an unprofiled frame's "
         f"{wall_s * 1e3:.3f} ms wall (idle share "
         f"{max(0.0, 1 - busy / (wall_s * 1e3)):.3f})")
@@ -725,6 +751,148 @@ def profile_frame(engine, frame, wall_s: float, torch) -> None:
     for k, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
         if k < 10 or "(anonymous namespace)::" in key:
             say(f"  {ms:9.3f} ms  x{count:<4d} {key[:100]}")
+    return busy
+
+
+def serving_phases(engine, frames, cfg, torch) -> list:
+    """Phases 19-21 on ``engine``'s weights and device: the host-dispatch
+    stream, fused dispatch in six modes against host dispatch, and the fused
+    stream in flight. Returns phase 20's numbers, one row a mode."""
+    import numpy as np
+    from repro_torch.api import ExecutionPlan, SREngine
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    dev = engine.device
+    h, w = frames[0].shape[:2]
+    sr_shape = (h * cfg.scale, w * cfg.scale, 3)
+
+    # 19. the stream: serve()/stream() on the phase-5 weights under host
+    # dispatch, Algorithm-1 thresholds that move
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.adaptive import AdaptiveSwitcher, SwitchingConfig
+    frames8 = frames + [mixed_frame(SEED + i, h, w) for i in range(len(frames), STREAM_FRAMES)]
+    moving = SwitchingConfig(frame_high=STREAM_FRAME_HIGH, frame_low=STREAM_FRAME_LOW)
+    streamer = SREngine(engine.model, switching=moving, device=dev)
+    shadow = AdaptiveSwitcher(moving)
+    seen = set()
+    for i, r in enumerate(streamer.stream(frames8)):
+        want = shadow.assign(r.scores)
+        alone = streamer.upscale(frames8[i], ids_override=r.ids)
+        same = torch.equal(r.image, alone.image)
+        ok = (np.array_equal(r.ids, want) and r.thresholds == shadow.thresholds and same
+              and tuple(r.image.shape) == sr_shape)
+        say(f"phase stream frame {i}: latency {r.latency_s * 1e3:.2f} ms, counts {r.counts}, "
+            f"thresholds after it {r.thresholds} (host-only switcher {shadow.thresholds}), ids "
+            f"equal to its {np.array_equal(r.ids, want)}, image torch.equal to "
+            f"upscale(ids_override=ids) {same}")
+        if not ok:
+            fail(f"stream frame {i} disagrees with the host-only switcher or with its "
+                 f"ids_override frame")
+        seen.add(r.thresholds)
+    if len(seen) < 2:
+        fail("the stream's thresholds never moved")
+    say(f"phase stream summary: {json.dumps(streamer.summary())}")
+    del streamer
+
+    # 20. fused dispatch, six modes: each frame one CUDA graph replay,
+    # against the same frames under host dispatch
+    from repro_torch.kernels import _build as kbuild
+    per_frame = {"layer": {"edge": 1, "bsconv": 2, "sfb": 5 * 2, "dsconv": 2},
+                 "group": {"edge": 1, "mega": 2}}
+    qper_frame = {"layer": {"edge": 1, "quantize": 2, "qbsconv": 2, "qsfb": 5 * 2,
+                            "qdsconv": 2},
+                  "group": {"edge": 1, "qmega": 2}}
+    fused_report = []
+    for qmode in (None,) + QUANT_MODES:
+        for fusion in ("layer", "group"):
+            name_m = f"{qmode or 'fp32'} {fusion}"
+            plan = ExecutionPlan(quant=qmode, fusion=fusion)
+            host = SREngine(engine.model, plan=plan, device=dev)
+            fused = SREngine(engine.model, plan=plan.replace(dispatch="fused"), device=dev)
+            pl._fused_frame_fn.cache_clear()
+            host.upscale(frames[0])
+            first = fused.upscale(frames[0])
+            graph = pl._fused_frame_fn.values()[0]
+            expect = (qper_frame if qmode else per_frame)[fusion]
+            say(f"phase fused {name_m}: first frame (probe + warm-up + capture) "
+                f"{first.latency_s * 1e3:.1f} ms, capacity profile "
+                f"{list(fused._fused_caps.values())}, graph pool "
+                f"{graph.pool_bytes} B ({graph.pool_bytes / 2 ** 20:.1f} MiB), launches a "
+                f"replay from the capture {graph.launches} (expected {expect})")
+            if graph.launches != expect or graph.pool_bytes <= 0:
+                fail(f"the fused {name_m} graph did not capture the expected launches")
+            for i, f in enumerate(frames):
+                a, b = host.upscale(f), fused.upscale(f)
+                ids_equal = bool(np.array_equal(b.ids.cpu().numpy(), a.ids))
+                same = torch.equal(a.image, b.image)
+                say(f"phase fused {name_m} frame {i}: counts {b.counts}, spills "
+                    f"{b.spill_counts}, ids equal {ids_equal}, image torch.equal to the host "
+                    f"frame {same}, label {b.backend}")
+                if not (ids_equal and same and b.spill_counts == (0, 0, 0)
+                        and b.dispatch == "fused" and b.backend == a.backend):
+                    fail(f"the fused {name_m} frame {i} disagrees with host dispatch")
+            # a replay looks up no C entry (no wrapper launches) and captures
+            # nothing; its launches are the capture's deltas
+            calls, real_entry = [], kbuild.entry
+            kbuild.entry = lambda *a: (calls.append(a[:2]), real_entry(*a))[1]
+            misses = pl._fused_frame_fn.occupancy()["misses"]
+            reset_launch_counts()
+            try:
+                b = fused.upscale(frames[1])
+            finally:
+                kbuild.entry = real_entry
+            counted = {k: v for k, v in launch_counts().items() if v}
+            if calls or counted != expect or pl._fused_frame_fn.occupancy()["misses"] != misses:
+                fail(f"the fused {name_m} replay called {calls} or counted {counted}")
+            say(f"phase fused {name_m} replay: no wrapper call, no capture, launches {counted}")
+            lat = {"host": [], "fused": []}
+            for k in range(STEADY_FRAMES):
+                f = frames[k % len(frames)]
+                lat["host"].append(host.upscale(f).latency_s * 1e3)
+                lat["fused"].append(fused.upscale(f).latency_s * 1e3)
+            row = {"mode": name_m, "pool_bytes": graph.pool_bytes, "launches": graph.launches}
+            for which, eng in (("host", host), ("fused", fused)):
+                v = sorted(lat[which])
+                med = statistics.median(v)
+                busy = profile_frame(eng, frames[1], med / 1e3, torch)
+                row[which] = {"median_ms": med, "min_ms": v[0], "max_ms": v[-1],
+                              "q1_ms": v[len(v) // 4], "q3_ms": v[(3 * len(v)) // 4],
+                              "busy_ms": busy,
+                              "idle_share": None if busy is None else max(0.0, 1 - busy / med)}
+                say(f"phase fused {name_m} {which} dispatch: {STEADY_FRAMES} steady frames, "
+                    f"latency median {med:.3f} ms (min {v[0]:.3f}, quartiles "
+                    f"{row[which]['q1_ms']:.3f}-{row[which]['q3_ms']:.3f}, max {v[-1]:.3f}); "
+                    f"profiled frame busy {busy if busy is None else round(busy, 3)} ms")
+            fused_report.append(row)
+            del host, fused, graph, first, a, b
+            pl._fused_frame_fn.cache_clear()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+    # 21. the fused stream, synchronous and with two frames in flight
+    stable = SwitchingConfig(frame_high=10 ** 9, frame_low=0)
+    streams = {}
+    for n in (1, 2):
+        eng = SREngine(engine.model, plan=ExecutionPlan(dispatch="fused", inflight=n),
+                       switching=stable, device=dev)
+        t0 = time.perf_counter()
+        streams[n] = list(eng.stream(frames8))
+        wall = time.perf_counter() - t0
+        marg = [r.latency_s * 1e3 for r in streams[n]]
+        say(f"phase fused stream inflight={n}: {len(marg)} frames in {wall * 1e3:.1f} ms, "
+            f"marginal latencies {', '.join(f'{m:.2f}' for m in marg)} ms (steady median "
+            f"{statistics.median(marg[1:]):.2f}), spills {[r.spill_counts for r in streams[n]]}")
+        del eng
+    for i, (a, b) in enumerate(zip(streams[1], streams[2])):
+        if not (a.counts == b.counts and torch.equal(a.ids, b.ids)
+                and torch.equal(a.image, b.image)):
+            fail(f"the in-flight fused stream's frame {i} differs from the synchronous one")
+    say(f"phase fused stream: inflight 2 equals inflight 1 on all {len(streams[1])} frames, "
+        f"in order")
+    del streams
+    pl._fused_frame_fn.cache_clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return fused_report
 
 
 def main() -> None:
@@ -1604,6 +1772,8 @@ def main() -> None:
             f"{launches['edge']} (one a frame)")
         del patches, p, got, want
 
+    fused_report = serving_phases(engine, frames, cfg, torch)
+
     # 10. tables and the result
     say("tpu_kernels: " + json.dumps([dict(name=n, tpu=loc, status=s)
                                       for n, loc, s in TPU_KERNELS]))
@@ -1636,6 +1806,7 @@ def main() -> None:
                      replaces=replaces["edge_score_fused"], launches=launches["edge"],
                      max_abs_err=edge_err, **edge_timing))
     say(card)                        # the card again, beside the results
+    say("fused: " + json.dumps(fused_report))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

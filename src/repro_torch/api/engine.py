@@ -1,5 +1,6 @@
 """SREngine — the facade over the port's inference entry points (twin of
-``repro.api.engine`` for fp32 single-frame serving under host dispatch).
+``repro.api.engine``: single frames and one adaptive stream, under host or
+fused dispatch).
 
 One engine owns the supernet weights (an `ESSR` module on one device), the
 `ESSRConfig`, a frozen `ExecutionPlan` and a backend chosen once:
@@ -26,30 +27,46 @@ routed bucket (the label does not name the fusion). Routing stays fp32.
 The engine runs on the card unless the caller asks for ``device="cpu"``;
 without a card it raises, never falling back to the CPU.
 
+Under ``plan.dispatch="fused"`` a threshold-routed ``upscale`` runs the
+whole frame as one dispatch (`core.pipeline._fused_frame_fn`): on the card
+one CUDA graph replay per (geometry, capacity profile), routing on the
+device into fixed per-subnet slots; the capacities are probed on the first
+frame of a geometry and grow after a frame that spilled.
+
 Modes: ``upscale(frame)`` (edge-selective), ``upscale(frame,
-mode="all_patches", width=...)`` and ``reference(frame)`` (whole-image
-convolution, always the plain model).
+mode="all_patches", width=...)``, ``reference(frame)`` (whole-image
+convolution, always the plain model), and ``serve(frame)`` /
+``stream(frames)``: Algorithm-1 adaptive thresholds (`core.adaptive`), a
+per-frame deadline whose miss demotes the thresholds, and under fused
+dispatch with ``plan.inflight >= 2`` up to that many frames in flight.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import glob
 import os
 import re
 import time
 import warnings
 from pathlib import Path
-from typing import Any, Deque, Dict, Optional, Tuple
+from typing import Any, Deque, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.result import FrameResult, summarize_stats
-from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _health_counts,
-                                       _sanitize, _sr_all_patches_result, _sr_whole)
+from repro_torch.core import subnet_policy as sp
+from repro_torch.core.adaptive import AdaptiveSwitcher, SwitchingConfig
+from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _fused_frame_fn,
+                                       _health_counts, _host_scores, _sanitize,
+                                       _sr_all_patches_result, _sr_whole,
+                                       compiled_cache_occupancy, configure_compiled_caches,
+                                       snap_capacity)
+from repro_torch.kernels.megakernel import _TreeKey
 from repro_torch.models.essr import ESSR, ESSRConfig
-from repro_torch.runtime.guard import PoisonFrameError
+from repro_torch.runtime.guard import PoisonFrameError, ResilienceGuard
 
 MODES = ("edge_select", "all_patches", "whole")
 #: Where `SREngine.from_checkpoint` looks for cached benchmark supernets
@@ -91,7 +108,9 @@ class SREngine:
 
     def __init__(self, model: ESSR, plan: Optional[ExecutionPlan] = None,
                  backend: str = "cuda", device=None, calibrate=None,
-                 quant_cache: Optional[str] = None):
+                 quant_cache: Optional[str] = None,
+                 switching: Optional[SwitchingConfig] = None,
+                 deadline_s: Optional[float] = None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
         self.plan = plan if plan is not None else ExecutionPlan()
@@ -100,35 +119,55 @@ class SREngine:
         self.cfg: ESSRConfig = model.cfg
         self.params = self.model.tree()
         self.backend = backend
+        self.deadline_s = deadline_s
         # quantized serving: calibrate the per-subnet alphas once, here; the
         # pack is engine state, so every frame reuses the same lattice
         self.qpack = self._resolve_quant_pack(calibrate, quant_cache)
+        # the serving ledger (poison verdicts, retired streams); the port has
+        # no degradation ladder: a failed launch or capture raises
+        self.guard = ResilienceGuard()
+        self._frame_idx = 0
+        self.switcher = AdaptiveSwitcher(switching if switching is not None
+                                         else SwitchingConfig(t1=self.plan.t1, t2=self.plan.t2))
+        self._macs = sp.SubnetMacs.make(self.cfg, self.plan.patch)
         self.stats: Deque[FrameResult] = collections.deque(maxlen=self.plan.stats_window)
         self._warm: set = set()
+        # fused dispatch: the live capacity profile per geometry, and the
+        # marginal-latency clock of the in-flight stream
+        self._fused_caps: Dict[Tuple, Tuple[int, ...]] = {}
+        self._fused_last_done = 0.0
+        # the process-wide frame and geometry caches follow the serving
+        # horizon, as in the reference (128 at the default window)
+        configure_compiled_caches(max(16, min(512, self.plan.stats_window // 32)))
 
     # -- constructors --------------------------------------------------------
 
     @classmethod
     def from_config(cls, cfg: Optional[ESSRConfig] = None, *, seed: int = 0,
                     plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
-                    device=None, calibrate=None,
-                    quant_cache: Optional[str] = None) -> "SREngine":
+                    device=None, calibrate=None, quant_cache: Optional[str] = None,
+                    switching: Optional[SwitchingConfig] = None,
+                    deadline_s: Optional[float] = None) -> "SREngine":
         """Fresh engine with He-normal weights drawn from ``seed``.
-        ``calibrate`` / ``quant_cache``: see `SREngine` (``plan.quant``)."""
+        ``calibrate`` / ``quant_cache``: see `SREngine` (``plan.quant``);
+        ``switching`` / ``deadline_s``: the stream's Algorithm-1 controller
+        (default: the plan's thresholds) and per-frame deadline."""
         cfg = cfg if cfg is not None else ESSRConfig()
         model = ESSR(cfg, generator=torch.Generator().manual_seed(seed))
         return cls(model, plan=plan, backend=backend, device=device, calibrate=calibrate,
-                   quant_cache=quant_cache)
+                   quant_cache=quant_cache, switching=switching, deadline_s=deadline_s)
 
     @classmethod
     def from_params(cls, params: Dict[str, Any], cfg: ESSRConfig, *,
                     plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
-                    device=None, calibrate=None,
-                    quant_cache: Optional[str] = None) -> "SREngine":
+                    device=None, calibrate=None, quant_cache: Optional[str] = None,
+                    switching: Optional[SwitchingConfig] = None,
+                    deadline_s: Optional[float] = None) -> "SREngine":
         """Engine over a reference param tree with numpy leaves."""
         from repro_torch.models.convert import params_from_numpy
         return cls(params_from_numpy(params, cfg), plan=plan, backend=backend,
-                   device=device, calibrate=calibrate, quant_cache=quant_cache)
+                   device=device, calibrate=calibrate, quant_cache=quant_cache,
+                   switching=switching, deadline_s=deadline_s)
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: Optional[str] = None, *,
@@ -136,8 +175,9 @@ class SREngine:
                         step: Optional[int] = None,
                         bench_cache: Optional[str] = DEFAULT_BENCH_CACHE,
                         plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
-                        device=None, calibrate=None,
-                        quant_cache: Optional[str] = None) -> "SREngine":
+                        device=None, calibrate=None, quant_cache: Optional[str] = None,
+                        switching: Optional[SwitchingConfig] = None,
+                        deadline_s: Optional[float] = None) -> "SREngine":
         """Engine with trained weights, resolved in the reference's priority
         order:
 
@@ -184,7 +224,7 @@ class SREngine:
                 warnings.warn(f"no bench-cache candidate under {bench_cache} restored "
                               f"cleanly; serving fresh random init")
         kw = dict(plan=plan, backend=backend, device=device, calibrate=calibrate,
-                  quant_cache=quant_cache)
+                  quant_cache=quant_cache, switching=switching, deadline_s=deadline_s)
         if params is None:
             return cls.from_config(cfg, seed=0, **kw)
         return cls.from_params(params, cfg, **kw)
@@ -243,33 +283,74 @@ class SREngine:
     def backend_label(self) -> str:
         return self._backend_label(self.plan)
 
-    def _ingest(self, frame, p: ExecutionPlan) -> torch.Tensor:
+    def _next_index(self) -> int:
+        """The engine's monotone frame index, the ledger's coordinate."""
+        i = self._frame_idx
+        self._frame_idx += 1
+        return i
+
+    def _ingest(self, frame, p: ExecutionPlan, index: int, stage: bool = False) -> torch.Tensor:
         """Host-side dtype gate: non-float frames are rejected under "raise",
         otherwise normalised by their dtype's range (uint8 -> /255); a dtype
-        without integer limits (bool) takes a span of 1, as in the reference."""
-        t = frame if isinstance(frame, torch.Tensor) else torch.tensor(np.asarray(frame))
+        without integer limits (bool) takes a span of 1, as in the reference.
+        Both record a "poison" event unless the policy is "off".
+
+        ``stage``: a float frame in host memory is copied into pinned memory
+        (float32) and left there, for a copy to the card that does not block
+        the host (fused dispatch on a CUDA device)."""
+        if isinstance(frame, torch.Tensor):
+            t = frame
+        else:
+            a = np.asarray(frame)
+            pin = stage and self.device.type == "cuda" and a.flags.writeable
+            t = torch.from_numpy(a) if pin else torch.tensor(a)
         if t.is_floating_point():
+            if stage and self.device.type == "cuda" and t.device.type == "cpu":
+                return torch.empty(t.shape, dtype=torch.float32, pin_memory=True).copy_(t)
             return t.to(device=self.device, dtype=torch.float32)
         if p.on_poison == "raise":
+            self.guard.record(index, "poison", f"non-float frame dtype {t.dtype}")
             raise PoisonFrameError(f"frame dtype {t.dtype} is not floating point "
                                    f"(plan.on_poison='raise')")
+        if p.on_poison != "off":
+            self.guard.record(index, "poison",
+                              f"non-float frame dtype {t.dtype} normalized to float32")
         try:
             span = float(torch.iinfo(t.dtype).max)
         except TypeError:
             span = 1.0
         return t.to(device=self.device, dtype=torch.float32) / max(span, 1.0)
 
-    def _host_health(self, frame: torch.Tensor, p: ExecutionPlan):
-        """(frame, health or None, route-to-bilinear) under ``p.on_poison``."""
+    def _host_health(self, frame: torch.Tensor, p: ExecutionPlan, index: int):
+        """(frame, health or None, route-to-bilinear) under ``p.on_poison``;
+        a poisoned frame records a "poison" event."""
         if p.on_poison == "off":
             return frame, None, False
         health = tuple(int(c) for c in _health_counts(frame).tolist())
         if not any(health):
             return frame, health, False
+        self.guard.record(index, "poison",
+                          f"frame health nan/inf/oob={health} (policy {p.on_poison})")
         if p.on_poison == "raise":
             raise PoisonFrameError(f"frame failed health verdict nan/inf/oob={health} "
                                    f"(plan.on_poison='raise')", health=health)
         return _sanitize(frame), health, p.on_poison == "bilinear"
+
+    def _guarded_frames(self, frames: Iterable, stream_id: int = 0) -> Iterator:
+        """Iterate a stream's frames; an iterator that raises ends the stream
+        with a recorded "retire" event instead of raising into the caller."""
+        it = iter(frames)
+        n = 0
+        while True:
+            try:
+                frame = next(it)
+            except StopIteration:
+                return
+            except Exception as e:
+                self.guard.record(n, "retire", f"stream {stream_id} iterator raised: {e!r}")
+                return
+            yield frame
+            n += 1
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -279,6 +360,121 @@ class SREngine:
         warm = key in self._warm
         self._warm.add(key)
         return warm
+
+    # -- fused dispatch (plan.dispatch == "fused") -----------------------------
+
+    def _snap_profile(self, desired, geom, p: ExecutionPlan) -> Tuple[int, ...]:
+        """Per-subnet desired counts -> a capacity profile: entry 0 is 0 (the
+        bilinear lane runs dense), conv entries snap to the plan's buckets.
+        Cached unclamped: the stream's C54 ceiling is applied per call."""
+        return tuple([0] + [snap_capacity(int(d), p.buckets, geom.n) for d in desired[1:]])
+
+    def _c54_frame_budget(self) -> int:
+        """The frame's share of the Algorithm-1 C54-a-second budget: the
+        ceiling fused streaming holds in its graph through the C54 capacity
+        (the overflow runs C27)."""
+        c = self.switcher.cfg
+        return max(1, int(c.c54_per_sec_budget) // max(c.fps, 1))
+
+    def _fused_caps_for(self, geom, p: ExecutionPlan, frame: torch.Tensor,
+                        thresholds: Tuple[float, float], streaming: bool) -> Tuple[int, ...]:
+        """The capacity profile of one frame. ``plan.capacity`` pins it;
+        otherwise the first frame of a geometry is scored on the host (the
+        one routing sync fused dispatch pays) and later frames reuse or grow
+        the cached profile."""
+        widths = self.cfg.subnet_widths()
+        if p.capacity is not None:
+            if len(p.capacity) != len(widths):
+                raise ValueError(f"plan.capacity {p.capacity} must have one entry per "
+                                 f"subnet width {widths}")
+            return p.capacity
+        caps = self._fused_caps.get(geom.cache_key)
+        if caps is None:
+            probe = frame.to(self.device)
+            if p.on_poison != "off":
+                # a poisoned first frame must not seed its geometry's profile
+                probe = _sanitize(probe)
+            scores = _host_scores(geom.extract(probe), self.backend)
+            caps = self._snap_profile(sp.subnet_counts(sp.decide(scores, *thresholds)), geom, p)
+            self._fused_caps[geom.cache_key] = caps
+        if streaming:
+            # the stream's hard C54 ceiling, per call: the cached profile stays
+            # unclamped for upscale()
+            caps = caps[:-1] + (min(caps[-1], self._c54_frame_budget()),)
+        return caps
+
+    def _grow_caps(self, geom, p: ExecutionPlan, counts, spills) -> None:
+        """After a frame that spilled, grow the geometry's profile to the
+        bucket ceiling of the demand seen (served + spilled); grow-only."""
+        if p.capacity is not None or not any(spills[1:]):
+            return
+        old = self._fused_caps.get(geom.cache_key)
+        if old is None:
+            return
+        new = self._snap_profile([c + s for c, s in zip(counts, spills)], geom, p)
+        self._fused_caps[geom.cache_key] = tuple(max(o, n) for o, n in zip(old, new))
+
+    def _launch_fused(self, frame, p: ExecutionPlan, thresholds: Tuple[float, float],
+                      streaming: bool) -> dict:
+        """Enqueue one frame on its fused frame without waiting for the
+        device; returns the in-flight record `_finalize_fused` completes."""
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            index = self._next_index()
+            frame = self._ingest(frame, p, index, stage=True)
+            geom = p.geometry(frame.shape[0], frame.shape[1], self.cfg.scale, self.device)
+            caps = self._fused_caps_for(geom, p, frame, thresholds, streaming)
+            key = ("fused", geom.cache_key, caps, p.fusion, p.on_poison)
+            fn = _fused_frame_fn(_TreeKey(self.params), geom, caps, self.cfg, self.backend,
+                                 self.qpack, p.fusion, p.on_poison, str(self.device))
+            flight = fn.launch(frame, *thresholds)
+        return {"flight": flight, "geom": geom, "t0": t0, "plan": p,
+                "thresholds": tuple(thresholds), "compiled": self._mark_warm(key),
+                "streaming": streaming, "index": index}
+
+    def _finalize_fused(self, rec: dict) -> FrameResult:
+        """Wait for one in-flight frame (its own event), copy its counts,
+        spills and health to the host in one small copy, and run the control
+        that fused dispatch leaves to the host: the health policy's host side,
+        capacity growth after a spill and, when streaming, the Algorithm-1
+        trim and the deadline demotion."""
+        flight = rec["flight"]
+        counts, spills, health = flight.wait()
+        done = time.perf_counter()
+        # marginal frame time: in flight, a frame's launch-to-ready clock
+        # holds earlier frames' device time, so it starts at the later of its
+        # launch and the previous frame's completion
+        dt = done - max(rec["t0"], self._fused_last_done)
+        self._fused_last_done = done
+        p, geom, streaming = rec["plan"], rec["geom"], rec["streaming"]
+        if p.on_poison == "off":
+            health = None
+        elif any(health):
+            self.guard.record(rec["index"], "poison",
+                              f"frame health nan/inf/oob={health} (policy {p.on_poison})")
+            if p.on_poison == "raise":
+                raise PoisonFrameError(f"frame failed health verdict nan/inf/oob={health} "
+                                       f"(plan.on_poison='raise')", health=health)
+        macs = self._macs if p.patch == self.plan.patch else sp.SubnetMacs.make(self.cfg, p.patch)
+        self._grow_caps(geom, p, counts, spills)
+        live, missed = rec["thresholds"], False
+        if streaming:
+            self.switcher.observe_frame(counts[sp.C54])
+            missed = bool(self.deadline_s and dt > self.deadline_s)
+            if missed:
+                self.switcher.demote_for_straggler(severity=1.0)
+            live = self.switcher.thresholds
+        out = FrameResult(image=flight.image, mode="edge_select",
+                          backend=self._backend_label(p), ids=flight.ids, scores=flight.scores,
+                          counts=counts, mac_saving=macs.saving_vs_c54(counts), latency_s=dt,
+                          thresholds=live, deadline_missed=missed, dispatch="fused",
+                          spill_counts=spills, compiled=rec["compiled"], health=health)
+        if streaming:
+            self.stats.append(dataclasses.replace(out, image=None, ids=None, scores=None))
+        return out
+
+    def _upscale_fused(self, frame, p: ExecutionPlan) -> FrameResult:
+        return self._finalize_fused(self._launch_fused(frame, p, (p.t1, p.t2), streaming=False))
 
     # -- single-frame inference ---------------------------------------------
 
@@ -290,7 +486,9 @@ class SREngine:
         ``mode``: "edge_select" (the plan's routing, or ``ids_override``),
         "all_patches" (every patch through the subnet of ``width``) or
         "whole" (whole-image convolution; ``width`` optional). ``plan``
-        overrides the engine's plan for this call. Like the reference's, it
+        overrides the engine's plan for this call. Under ``dispatch="fused"``
+        a threshold-routed edge_select call runs the fused frame; every
+        other call runs host dispatch and says so. Like the reference's, it
         records nothing in ``stats``."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r} not in {MODES}")
@@ -306,11 +504,15 @@ class SREngine:
                 f"plan.quant is engine-level: engine was built with "
                 f"{self.plan.quant!r}, per-call plan asks for {p.quant!r}; "
                 f"construct a second engine for a different quant mode")
+        if (p.dispatch == "fused" and mode == "edge_select" and ids_override is None
+                and p.subnet_policy == "threshold"):
+            return self._upscale_fused(frame, p)
         widths = self.cfg.subnet_widths()
         with torch.inference_mode():
             t0 = time.perf_counter()
-            frame = self._ingest(frame, p)
-            frame, health, force_bilinear = self._host_health(frame, p)
+            index = self._next_index()
+            frame = self._ingest(frame, p, index)
+            frame, health, force_bilinear = self._host_health(frame, p, index)
             hw = (int(frame.shape[0]), int(frame.shape[1]))
             if mode == "whole":
                 if width is not None and width not in widths:
@@ -359,8 +561,9 @@ class SREngine:
 
     def warmup(self, shape: Tuple[int, int]) -> FrameResult:
         """Pay an ``(h, w)`` frame shape's one-off set-up (index maps, kernel
-        builds) on a synthetic frame — thirds of smooth gradient, mild
-        texture and checkerboard, so every subnet runs."""
+        builds; under fused dispatch the capacity probe and the graph
+        capture) on a synthetic frame — thirds of smooth gradient, mild
+        texture and checkerboard, so every subnet runs. Records nothing."""
         h, w = int(shape[0]), int(shape[1])
         yy, xx = torch.meshgrid(torch.linspace(0.0, 1.0, h), torch.linspace(0.0, 1.0, w),
                                 indexing="ij")
@@ -372,13 +575,94 @@ class SREngine:
                                         checker[..., None] * torch.ones(3)))
         return self.upscale(torch.clamp(frame, 0.0, 1.0))
 
-    def summary(self) -> Dict[str, Any]:
-        """Aggregate over the recorded frames in ``stats`` (the newest
-        ``plan.stats_window``), with what served them; ``{}`` while nothing
-        is recorded, as in the reference, whose ``upscale`` records nothing."""
-        out = summarize_stats(self.stats)
-        if out:
-            out.update(backend=self.backend_label, device=str(self.device),
-                       fusion=self.plan.fusion, quant=self.plan.quant,
-                       stats_window=self.plan.stats_window)
+    # -- streaming (Algorithm 1 + deadline control) ---------------------------
+
+    def serve(self, frame) -> FrameResult:
+        """One frame of the adaptive stream: edge scores -> Algorithm-1
+        routing (with the per-second C54 ceiling) -> edge-selective SR. A
+        missed ``deadline_s`` raises the thresholds (straggler demotion).
+        Appends a compact record (no image, ids or scores) to ``stats``."""
+        if self.plan.subnet_policy != "threshold":
+            raise ValueError(
+                f"streaming routes adaptively and cannot honour forced "
+                f"subnet_policy {self.plan.subnet_policy!r}; use upscale() "
+                f"for forced routing")
+        if self.plan.dispatch == "fused":
+            # routing and the C54 ceiling run in the frame's graph; the
+            # Algorithm-1 trim runs on the host from its counts
+            return self._finalize_fused(self._launch_fused(
+                frame, self.plan, self.switcher.thresholds, streaming=True))
+        p = self.plan
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            index = self._next_index()
+            frame = self._ingest(frame, p, index)
+            frame, health, force_bilinear = self._host_health(frame, p, index)
+            hw = (int(frame.shape[0]), int(frame.shape[1]))
+            geom = p.geometry(hw[0], hw[1], self.cfg.scale, self.device)
+            compiled = self._mark_warm(("host", hw, p.patch, p.overlap, p.fusion))
+            patches = geom.extract(frame)
+            scores = _host_scores(patches, self.backend)
+            if force_bilinear:
+                # the dense fallback lane; the switcher observes nothing
+                ids = np.zeros(len(scores), np.int64)
+            else:
+                ids = self.switcher.assign(scores)
+            res = _edge_selective_sr(self.params, frame, self.cfg, patch=p.patch,
+                                     overlap=p.overlap, ids_override=ids, buckets=p.buckets,
+                                     backend=self.backend, fusion=p.fusion, quant=self.qpack,
+                                     geometry=geom, precomputed=(patches, scores))
+            self._sync()
+            dt = time.perf_counter() - t0
+        missed = bool(self.deadline_s and dt > self.deadline_s)
+        if missed:
+            self.switcher.demote_for_straggler(severity=1.0)
+        out = FrameResult(image=res.image, mode="edge_select", backend=self.backend_label,
+                          ids=ids, scores=scores, counts=res.counts, mac_saving=res.mac_saving,
+                          latency_s=dt, thresholds=self.switcher.thresholds,
+                          deadline_missed=missed, compiled=compiled, health=health)
+        # the compact record only: a long stream must not hold every image
+        self.stats.append(dataclasses.replace(out, image=None, ids=None, scores=None))
         return out
+
+    def stream(self, frames: Iterable) -> Iterator[FrameResult]:
+        """Serve a frame stream; yields one FrameResult per frame, in order.
+
+        Under fused dispatch with ``plan.inflight >= 2`` up to ``inflight``
+        frames are in flight, so frame N's device work overlaps frame N+1's
+        host work. The cost is a control delay: the switcher (and capacity
+        growth) adapt from the newest finished frame, up to ``inflight - 1``
+        frames behind the newest launched one. An iterator that raises ends
+        the stream with a "retire" event in the ledger."""
+        frames = self._guarded_frames(frames)
+        if self.plan.dispatch == "fused" and self.plan.inflight > 1:
+            yield from self._stream_fused_async(frames)
+            return
+        for frame in frames:
+            yield self.serve(frame)
+
+    def _stream_fused_async(self, frames: Iterable) -> Iterator[FrameResult]:
+        pending: Deque[dict] = collections.deque()
+        for frame in frames:
+            pending.append(self._launch_fused(frame, self.plan, self.switcher.thresholds,
+                                              streaming=True))
+            while len(pending) >= self.plan.inflight:
+                yield self._finalize_fused(pending.popleft())
+        while pending:
+            yield self._finalize_fused(pending.popleft())
+
+    # -- aggregate reporting ---------------------------------------------------
+
+    def summary(self) -> Dict[str, Any]:
+        """Aggregate over the recorded (streamed) frames in ``stats``, the
+        newest ``plan.stats_window``, with what served them and the compiled
+        caches' occupancy; ``degradations``, the ledger, whenever it holds
+        events. ``{}`` while there is neither, as in the reference."""
+        s = summarize_stats(self.stats)
+        if s:
+            s["backend"] = self.backend_label
+            s["stats_window"] = self.plan.stats_window
+            s["compiled_caches"] = compiled_cache_occupancy()
+        if self.guard.events:
+            s["degradations"] = self.guard.summary()
+        return s

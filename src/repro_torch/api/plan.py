@@ -3,9 +3,8 @@
 
 Validation is declarative: ``_FIELD_RULES`` (one predicate + allowed-set
 description per field) and ``_CROSS_RULES`` (constraints spanning fields),
-with one error format, ``ExecutionPlan.<field>=<got!r>: allowed <set>``.
-Values the reference accepts but this package does not run yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+with one error format, ``ExecutionPlan.<field>=<got!r>: allowed <set>``,
+word for word the reference's.
 """
 from __future__ import annotations
 
@@ -51,6 +50,9 @@ _FIELD_RULES: Dict[str, Tuple[Callable, str]] = {
     "quant": (lambda v: v in QUANT_MODES, f"one of {QUANT_MODES}"),
     "dispatch": (lambda v: v in DISPATCH_MODES, f"one of {DISPATCH_MODES}"),
     "fusion": (lambda v: v in FUSION_MODES, f"one of {FUSION_MODES}"),
+    "capacity": (lambda v: v is None or all(c >= 0 for c in v),
+                 "None or a tuple of ints >= 0"),
+    "inflight": (_pos_int, "a positive int"),
     "stats_window": (_pos_int, "a positive int"),
     "on_poison": (lambda v: v in HEALTH_POLICIES, f"one of {HEALTH_POLICIES}"),
 }
@@ -58,11 +60,10 @@ _FIELD_RULES: Dict[str, Tuple[Callable, str]] = {
 _CROSS_RULES: Tuple[Tuple[str, Callable, Callable], ...] = (
     ("overlap", lambda p: p.overlap < p.patch, lambda p: f"an int < patch ({p.patch})"),
     ("t2", lambda p: p.t2 >= p.t1, lambda p: f"a number >= t1 ({p.t1})"),
-)
-
-#: Valid values this package does not run yet: (field, predicate, ROADMAP item).
-_NOT_PORTED: Tuple[Tuple[str, Callable, str], ...] = (
-    ("dispatch", lambda v: v == "fused", "queue 1 item 7 (fused single dispatch)"),
+    # host dispatch blocks per frame, so inflight > 1 would do nothing
+    ("inflight", lambda p: p.inflight == 1 or p.dispatch == "fused",
+     lambda p: "1 unless dispatch='fused' (host dispatch serves "
+               "synchronously)"),
 )
 
 
@@ -74,7 +75,12 @@ class ExecutionPlan:
     t2: float = sp.DEFAULT_T2
     buckets: Tuple[int, ...] = DEFAULT_BUCKETS
     subnet_policy: str = "threshold"
-    #: "host": routing on the host, one batch per subnet (the one served here)
+    #: "host": routing on the host, one batch per subnet; "fused": the whole
+    #: frame (extract, edge score, routing into fixed per-subnet slots,
+    #: forward, fusion) as one dispatch, on the card one CUDA graph replay
+    #: per (geometry, capacity profile). Fused serves threshold-routed
+    #: edge_select calls; forced policies, ids_override, all_patches and
+    #: whole run host dispatch and say so in FrameResult.dispatch
     dispatch: str = "host"
     #: "layer": one kernel launch per layer group (BSConv, each SFB, DSConv);
     #: "group": one megakernel launch per routed bucket runs the whole chain
@@ -84,11 +90,28 @@ class ExecutionPlan:
     quant: Optional[str] = None
     #: what serving does about a frame with NaN/Inf/out-of-[0,1] pixels
     on_poison: str = "raise"
+    #: fused dispatch's per-subnet slot capacities, aligned with
+    #: ``cfg.subnet_widths()`` (entry 0, bilinear, is ignored: that lane runs
+    #: dense). None: probed on the first frame of a geometry, snapped to
+    #: ``buckets``, grown after a frame that spilled and, when streaming, the
+    #: C54 entry clamped to the frame's share of the Algorithm-1 budget. A
+    #: pinned profile is served verbatim, streaming or not
+    capacity: Optional[Tuple[int, ...]] = None
+    #: ``SREngine.stream`` under fused dispatch keeps up to this many frames
+    #: in flight (>= 2: the switcher reads routing one frame late)
+    inflight: int = 1
     #: bound on the per-frame records ``SREngine.stats`` keeps
     stats_window: int = 4096
 
     def __post_init__(self):
         object.__setattr__(self, "buckets", tuple(self.buckets))
+        if self.capacity is not None:
+            try:
+                caps = tuple(int(c) for c in self.capacity)
+            except (TypeError, ValueError) as e:
+                raise _plan_error("capacity", self.capacity,
+                                  _FIELD_RULES["capacity"][1]) from e
+            object.__setattr__(self, "capacity", caps)
         for field, (ok, allowed) in _FIELD_RULES.items():
             value = getattr(self, field)
             if not ok(value):
@@ -96,11 +119,6 @@ class ExecutionPlan:
         for field, ok, allowed in _CROSS_RULES:
             if not ok(self):
                 raise _plan_error(field, getattr(self, field), allowed(self))
-        for field, later, item in _NOT_PORTED:
-            value = getattr(self, field)
-            if later(value):
-                raise NotImplementedError(
-                    f"ExecutionPlan.{field}={value!r} is not ported yet: ROADMAP {item}")
 
     def replace(self, **kw) -> "ExecutionPlan":
         return dataclasses.replace(self, **kw)

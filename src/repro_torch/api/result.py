@@ -16,28 +16,70 @@ class FrameResult:
     image: Optional[torch.Tensor]             # (H*s, W*s, 3); None in stats records
     mode: str                                 # "edge_select" | "all_patches" | "whole"
     backend: str                              # "cuda" | "cuda-plain" | "ref"
-    ids: Optional[np.ndarray] = None          # (N,) subnet id per patch
-    scores: Optional[np.ndarray] = None       # (N,) edge score per patch
+    # (N,) subnet id / edge score per patch: numpy arrays under host
+    # dispatch; tensors on the engine's device under fused dispatch (the
+    # control loop never copies them; consumers do, on use)
+    ids: Optional[np.ndarray] = None
+    scores: Optional[np.ndarray] = None
     counts: Tuple[int, int, int] = (0, 0, 0)  # (bilinear, C27, C54) patches
     mac_saving: float = 0.0                   # vs all-C54
     latency_s: float = 0.0                    # wall clock incl. device sync
-    thresholds: Tuple[float, float] = (0.0, 0.0)   # (0, 0) when routing ignored them
+    # upscale(): the thresholds routing used ((0, 0) when it ignored them);
+    # streamed frames: the switcher's live thresholds AFTER this frame
+    thresholds: Tuple[float, float] = (0.0, 0.0)
+    deadline_missed: bool = False             # streaming only
+    # what ran this frame: "host" (routing on the host) or "fused" (the
+    # frame's single dispatch); a fused-plan call that a mode forces back to
+    # host dispatch says "host"
     dispatch: str = "host"
+    # fused dispatch only: entry k counts the patches demoted from subnet k
+    # to k-1 because k's slots were full (hops, so a patch cascading
+    # C54 -> C27 -> bilinear counts in both conv entries; entry 0 is 0).
+    # None under host dispatch
+    spill_counts: Optional[Tuple[int, ...]] = None
     # False when this call paid one-off set-up (the first frame of a
-    # geometry: index maps, kernel builds); excluded from latency aggregates
+    # geometry: index maps, kernel builds; under fused dispatch the first
+    # frame of a capacity profile: its graph capture); excluded from
+    # latency aggregates
     compiled: bool = True
     # (nan, inf, out-of-[0,1]) pixel counts of the raw frame; None when
     # plan.on_poison == "off"
     health: Optional[Tuple[int, int, int]] = None
+    # degradation steps taken while serving this frame; the port has no
+    # ladder (a failed launch raises), so always ()
+    degraded: Tuple[str, ...] = ()
 
     @property
     def n_patches(self) -> int:
         return 0 if self.ids is None else int(len(self.ids))
 
+    def summary(self) -> dict:
+        """Compact per-frame telemetry (no arrays): what ran, how it routed,
+        and the occupancy of the process-wide compiled caches."""
+        from repro_torch.core.pipeline import compiled_cache_occupancy
+        out = {
+            "mode": self.mode,
+            "backend": self.backend,
+            "dispatch": self.dispatch,
+            "n_patches": self.n_patches,
+            "counts": tuple(int(c) for c in self.counts),
+            "mac_saving": float(self.mac_saving),
+            "latency_s": float(self.latency_s),
+            "compiled": bool(self.compiled),
+            "compiled_caches": compiled_cache_occupancy(),
+        }
+        if self.health is not None:
+            out["health"] = tuple(int(c) for c in self.health)
+        if self.degraded:
+            out["degraded"] = tuple(self.degraded)
+        return out
+
 
 def summarize_stats(stats) -> dict:
     """Aggregate over frame records: routing shares, MAC saving, latency of
-    the frames that paid no set-up (all frames if every one did)."""
+    the frames that paid no set-up (all frames if every one did), deadline
+    misses, the last frame's thresholds and, under fused dispatch, the
+    spilled patches per subnet."""
     stats = list(stats)
     if not stats:
         return {}
@@ -51,9 +93,14 @@ def summarize_stats(stats) -> dict:
                                  (counts.sum(0) / max(total, 1)).round(4).tolist())),
         "mean_mac_saving": float(np.mean([s.mac_saving for s in stats])),
         "mean_latency_s": float(np.mean(lat)),
+        "deadline_misses": int(sum(s.deadline_missed for s in stats)),
+        "final_thresholds": stats[-1].thresholds,
     }
     if len(steady) < len(stats):
         out["warmup_frames_excluded"] = len(stats) - len(steady)
+    spills = [s.spill_counts for s in stats if s.spill_counts is not None]
+    if spills:
+        out["spilled_patches"] = np.asarray(spills).sum(0).tolist()
     poisoned = sum(1 for s in stats if any(s.health or ()))
     if poisoned:
         out["poison_frames"] = poisoned

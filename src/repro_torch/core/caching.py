@@ -64,6 +64,11 @@ class BoundedCache:
             return functools._CacheInfo(self._hits, self._misses,
                                         self._maxsize, len(self._data))
 
+    def values(self) -> list:
+        """The cached values, least recently used first."""
+        with self._lock:
+            return list(self._data.values())
+
     def occupancy(self) -> Dict[str, int]:
         with self._lock:
             return {"size": len(self._data), "maxsize": self._maxsize,

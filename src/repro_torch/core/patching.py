@@ -77,6 +77,11 @@ class PatchGeometry:
     def n(self) -> int:
         return len(self.pos)
 
+    @property
+    def cache_key(self) -> Tuple[Tuple[int, int], int, int, int]:
+        """The tiling's identity, device aside: (hw, patch, overlap, scale)."""
+        return (self.hw, self.patch, self.overlap, self.scale)
+
     def extract(self, img: torch.Tensor) -> torch.Tensor:
         """(H,W,C) -> (N,patch,patch,C): one gather."""
         h, w = self.hw

@@ -1,5 +1,6 @@
-"""End-to-end edge-selective SR of full frames, host dispatch (twin of the
-host-dispatch path of ``repro.core.pipeline``).
+"""End-to-end edge-selective SR of full frames under host and fused
+dispatch (twin of ``repro.core.pipeline`` over the paths this package
+serves).
 
 frame -> slim-overlap patches -> edge scores -> subnet decision ->
 per-subnet batched forward -> overlap-average fusion.
@@ -7,11 +8,14 @@ per-subnet batched forward -> overlap-average fusion.
 The "cuda" backend scores the patches with the edge kernel
 (`kernels.edge.edge_score_fused`; on CPU tensors it takes its plain
 version); the "ref" backend, and a forced routing, keep the plain
-`core.edge_score.edge_score`. Routing stays on the host: the scores are
-copied back once per frame, each subnet's patches are gathered into a batch
-padded to a bucketed size (with the bucket's own last index), run through
-the subnet, and set back into the patch tensor. Width-0 patches go through
-bilinear resize, never a kernel.
+`core.edge_score.edge_score`. Under host dispatch routing stays on the
+host: the scores are copied back once per frame, each subnet's patches are
+gathered into a batch padded to a bucketed size (with the bucket's own last
+index), run through the subnet, and set back into the patch tensor. Width-0
+patches go through bilinear resize, never a kernel. Under fused dispatch
+(section "fused single dispatch" below) the whole frame is one function of
+the frame and the thresholds with the routing on the device, captured on
+the card as one CUDA graph per capacity profile.
 
 ``backend`` picks the per-subnet forward: "cuda" (the fused kernels; on
 CPU tensors their wrappers run their plain versions) or "ref" (the plain
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import subnet_policy as sp
+from repro_torch.core.caching import BoundedCache
 from repro_torch.core.edge_score import edge_score
 from repro_torch.core.patching import PatchGeometry, get_geometry
 from repro_torch.models.essr import ESSRConfig, essr_forward
@@ -89,14 +94,22 @@ BACKENDS = {"cuda": _forward_width_cuda, "ref": _forward_width}
 # quantized per-subnet forwards (ExecutionPlan.quant = "fxp10" | "int8")
 # ---------------------------------------------------------------------------
 
+#: The pack's activation alphas of one width as fp32 tensors on one device,
+#: by (pack, width, device): made once, so a captured frame copies nothing
+#: from the host.
+_act_scales = BoundedCache(
+    lambda quant, width, device: {k: torch.tensor(v, dtype=torch.float32, device=device)
+                                  for k, v in quant.act_scales(width).items()},
+    maxsize=16)
+
+
 def _forward_width_quant_ref(params, patches, cfg: ESSRConfig, width: int, *, quant):
     """PAMS fake-quant emulation of the whole forward (W/A quantized at every
     conv boundary with the pack's PTQ alphas): the "ref" quant backend."""
     from repro_torch.quant.pams import quantized_essr_forward
     if width == 0:
         return bilinear_resize(patches, cfg.scale)
-    scales = {k: torch.tensor(v, dtype=torch.float32, device=patches.device)
-              for k, v in quant.act_scales(width).items()}
+    scales = _act_scales(quant, width, str(patches.device))
     return quantized_essr_forward(params, scales, patches, cfg, quant.qcfg, width=width)
 
 
@@ -154,6 +167,16 @@ def _sanitize(frame: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.nan_to_num(frame, nan=0.0, posinf=1.0, neginf=0.0), 0.0, 1.0)
 
 
+def _host_scores(patches: torch.Tensor, backend: str) -> np.ndarray:
+    """The patches' edge scores, copied to the host: the edge kernel on the
+    "cuda" backend (its plain version on CPU tensors), the plain score on
+    "ref"."""
+    if backend == "cuda":
+        from repro_torch.kernels.edge import edge_score_fused
+        return edge_score_fused(patches).cpu().numpy()
+    return edge_score(patches).cpu().numpy()
+
+
 @dataclasses.dataclass
 class SRResult:
     image: torch.Tensor
@@ -169,26 +192,27 @@ def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRCon
                        ids_override: Optional[np.ndarray] = None,
                        buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                        backend: str = "cuda", fusion: str = "layer", quant=None,
-                       geometry: Optional[PatchGeometry] = None) -> SRResult:
+                       geometry: Optional[PatchGeometry] = None,
+                       precomputed: Optional[Tuple[torch.Tensor, np.ndarray]] = None
+                       ) -> SRResult:
     """frame: (H,W,3) in [0,1] -> SRResult with the (H*s, W*s, 3) image.
     ``ids_override`` forces the routing and skips the edge scores (reported
-    as zeros). ``quant``: a `QuantPack` for quantized serving."""
+    as zeros). ``quant``: a `QuantPack` for quantized serving.
+    ``precomputed``: (patches, scores) of this frame from a caller that
+    already extracted and scored it (the stream scores for its switcher)."""
     forward = resolve_forward(backend, quant, fusion)
     s = cfg.scale
     h, w = int(frame.shape[0]), int(frame.shape[1])
     g = geometry if geometry is not None else get_geometry(
         h, w, patch, overlap, s, str(frame.device))
-    patches = g.extract(frame)
-    if ids_override is None:
-        if backend == "cuda":
-            from repro_torch.kernels.edge import edge_score_fused
-            scores = edge_score_fused(patches).cpu().numpy()
-        else:
-            scores = edge_score(patches).cpu().numpy()
-        ids = sp.decide(scores, t1, t2)
+    if precomputed is not None:
+        patches, scores = precomputed
+        scores = np.asarray(scores)
     else:
-        scores = np.zeros(g.n, np.float32)
-        ids = np.asarray(ids_override)
+        patches = g.extract(frame)
+        scores = (_host_scores(patches, backend) if ids_override is None
+                  else np.zeros(g.n, np.float32))
+    ids = sp.decide(scores, t1, t2) if ids_override is None else np.asarray(ids_override)
     out = torch.zeros((g.n, patch * s, patch * s, cfg.in_channels),
                       dtype=patches.dtype, device=patches.device)
     for k, width in enumerate(cfg.subnet_widths()):
@@ -237,3 +261,287 @@ def _sr_whole(params, frame: torch.Tensor, cfg: ESSRConfig,
               width: Optional[int] = None) -> torch.Tensor:
     """Whole-image convolution (the lossless reference), plain model."""
     return essr_forward(params, frame[None], cfg, width=width)[0]
+
+
+# ---------------------------------------------------------------------------
+# fused single dispatch (ExecutionPlan.dispatch = "fused")
+# ---------------------------------------------------------------------------
+
+def snap_capacity(n: int, buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
+                  n_total: Optional[int] = None) -> int:
+    """Desired slot count -> capacity: 0 stays 0 (the subnet's lane is left
+    out of the frame), otherwise the bucket ceiling, clamped to ``n_total``
+    (an all-one-subnet frame runs the exact full batch, as host dispatch
+    does)."""
+    if n <= 0:
+        return 0
+    cap = _bucket(n, buckets)
+    return min(cap, n_total) if n_total is not None else cap
+
+
+def _decide(scores: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """(N,) scores -> (N,) int64 subnet ids on the scores' device. ``t1`` and
+    ``t2`` are 0-d tensors of the scores' dtype, so the thresholds compare in
+    the scores' precision, as the host `subnet_policy.decide` does."""
+    return torch.where(scores >= t2, sp.C54, torch.where(scores >= t1, sp.C27, sp.BILINEAR))
+
+
+def capacity_route(ids: torch.Tensor, caps: Tuple[int, ...]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routing into fixed per-subnet capacities, on the device with no host
+    sync: (N,) subnet ids + per-subnet slot counts -> (effective ids, (K,)
+    int32 spill counts).
+
+    Priciest subnet first: the patches of subnet ``k`` past ``caps[k]`` in
+    raster order are demoted to ``k - 1``, where they compete in raster
+    order with that subnet's own patches. Subnet 0 (bilinear) is the dense
+    floor and never spills; ``caps[0]`` is ignored. ``spills[k]`` counts the
+    patches that wanted ``k`` (natively or by spilling in) and ran ``k - 1``."""
+    spills = [torch.zeros((), dtype=torch.int32, device=ids.device)]
+    eff = ids
+    for k in range(len(caps) - 1, 0, -1):
+        member = eff == k
+        pos = torch.cumsum(member.to(torch.int32), 0) - 1
+        over = member & (pos >= caps[k])
+        spills.append(over.sum().to(torch.int32))
+        eff = torch.where(over, k - 1, eff)
+    spills = spills[:1] + spills[1:][::-1]       # ascending subnet order
+    return eff, torch.stack(spills)
+
+
+def capacity_dispatch(patches: torch.Tensor, eff_ids: torch.Tensor, subnet: int,
+                      cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Subnet ``subnet``'s patches into ``cap`` fixed slots, raster order.
+    Returns (slot batch (cap, p, p, C), each patch's slot with ``cap`` as the
+    non-members' dustbin, membership mask). Slots past the members hold
+    zeros. Route ``eff_ids`` through :func:`capacity_route` first, so every
+    member's rank is below ``cap``.
+
+    A gather, not a scatter: slot j takes the patch where the members'
+    running count first reaches j + 1 (``searchsorted``; N, a zero row,
+    where there is none), so every slot is written once, in a fixed order."""
+    member = eff_ids == subnet
+    count = torch.cumsum(member.to(torch.int64), 0)
+    slot = torch.where(member, count - 1, cap)
+    want = torch.arange(1, cap + 1, dtype=torch.int64, device=patches.device)
+    src = torch.searchsorted(count, want)
+    padded = torch.cat([patches, patches.new_zeros((1,) + tuple(patches.shape[1:]))])
+    return padded.index_select(0, src), slot, member
+
+
+def capacity_combine(out_patches: torch.Tensor, sr_slots: torch.Tensor,
+                     slot: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
+    """One subnet's slot outputs back over the patch axis: patch n takes
+    ``sr_slots[slot[n]]`` where it is a member, and keeps ``out_patches[n]``
+    elsewhere (the dustbin row reads zeros and is masked off)."""
+    cap = sr_slots.shape[0]
+    y = torch.cat([sr_slots, sr_slots.new_zeros((1,) + tuple(sr_slots.shape[1:]))])
+    taken = y.index_select(0, slot.clamp(max=cap))
+    return torch.where(member[:, None, None, None], taken, out_patches)
+
+
+def _fused_run(params, geometry: PatchGeometry, caps: Tuple[int, ...], cfg: ESSRConfig,
+               backend: str, quant, fusion: str, on_poison: str):
+    """The fused frame as one function of (frame, t1, t2) -> (image, eff_ids,
+    scores, counts, spills, health), every output on the frame's device and
+    nothing copied to the host (the reference's ``fused_frame_fn`` ``run``):
+
+    1. the (nan, inf, oob) health verdict of the raw frame and the
+       ``on_poison`` policy, branch-free (zeros under "off");
+    2. extract, then the edge score (the edge kernel on "cuda");
+    3. decide and :func:`capacity_route`;
+    4. bilinear for every patch, the dense floor;
+    5. per conv subnet with a non-zero capacity: dispatch, forward, combine;
+    6. ``fuse_average``."""
+    if on_poison not in HEALTH_POLICIES:
+        raise ValueError(f"unknown on_poison {on_poison!r}; choose from {HEALTH_POLICIES}")
+    widths = cfg.subnet_widths()
+    if len(caps) != len(widths):
+        raise ValueError(f"capacity profile {caps} must have one entry per "
+                         f"subnet width {widths}")
+    forward = resolve_forward(backend, quant, fusion)
+    if backend == "cuda":
+        from repro_torch.kernels.edge import edge_score_fused as score
+    else:
+        score = edge_score
+
+    def run(frame: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor):
+        if on_poison == "off":
+            health = torch.zeros((3,), dtype=torch.int32, device=frame.device)
+        else:
+            health = _health_counts(frame)
+            if on_poison in ("sanitize", "bilinear"):
+                frame = _sanitize(frame)
+        patches = geometry.extract(frame)
+        scores = score(patches)
+        eff, spills = capacity_route(_decide(scores, t1, t2), caps)
+        if on_poison == "bilinear":
+            # a poisoned frame serves every patch from the bilinear floor;
+            # the conv lanes still run on their now empty slots
+            eff = torch.where((health > 0).any(), torch.zeros_like(eff), eff)
+        out = bilinear_resize(patches, cfg.scale)
+        for k in range(1, len(widths)):
+            if caps[k] == 0:
+                continue
+            disp, slot, member = capacity_dispatch(patches, eff, k, caps[k])
+            out = capacity_combine(out, forward(params, disp, cfg, widths[k]), slot, member)
+        counts = torch.stack([(eff == k).sum() for k in range(len(widths))]).to(torch.int32)
+        return geometry.fuse_average(out), eff, scores, counts, spills, health
+
+    return run
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One launched fused frame: its own copies of the image, ids and scores
+    (a later replay overwrites the graph's outputs), the host buffer its
+    counts, spills and health land in, and the event its copies end on."""
+    image: torch.Tensor
+    ids: torch.Tensor
+    scores: torch.Tensor
+    telemetry: torch.Tensor          # int32 (counts, spills, health), host memory
+    done: Optional[torch.cuda.Event]
+    keep: Any                        # what the queued copies still read
+
+    def wait(self) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, int, int]]:
+        """Block on this frame's event alone; (counts, spills, health)."""
+        if self.done is not None:
+            self.done.synchronize()
+        v = [int(x) for x in self.telemetry.tolist()]
+        k = (len(v) - 3) // 2
+        return tuple(v[:k]), tuple(v[k:2 * k]), tuple(v[2 * k:])
+
+
+class _FusedFrame:
+    """The fused frame of one (weights, geometry, capacity profile, backend,
+    quant, fusion, on_poison, device). On a CUDA device it is captured once
+    as a CUDA graph: a warm-up run on a side stream first pays every lazy
+    first use (kernel builds, occupancy queries, packed and prepared
+    weights, index maps), then the capture. A frame then costs a copy into
+    the graph's input, two ``fill_`` of the t1/t2 tensors (a threshold
+    change never recaptures) and one replay. A capture that fails raises;
+    nothing runs eagerly in its place. On the CPU the function runs eagerly.
+
+    A replay calls no kernel wrapper, so the wrappers' launch counts move by
+    the deltas recorded at capture (``launches``), once a replay.
+    ``pool_bytes`` is the device memory the capture reserved for the
+    graph's private pool; dropping the object frees graph and pool."""
+
+    def __init__(self, run, shape: Tuple[int, ...], device: torch.device):
+        self.run = run
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}
+        self.pool_bytes = 0
+        if device.type == "cuda":
+            self._capture(shape, device)
+
+    def _capture(self, shape, device) -> None:
+        from repro_torch.kernels.ops import KERNELS
+        self.frame = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.t1 = torch.zeros((), dtype=torch.float32, device=device)
+        self.t2 = torch.zeros((), dtype=torch.float32, device=device)
+        here = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            self.run(self.frame, self.t1, self.t2)
+        here.wait_stream(side)
+        before = {k: fn.launches for k, fn in KERNELS.items()}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                # entering synchronizes and empties the allocator's cache,
+                # so the pool is what the capture reserves from here
+                reserved = torch.cuda.memory_reserved(device)
+                outs = self.run(self.frame, self.t1, self.t2)
+                telemetry = torch.cat([o.to(torch.int32) for o in outs[3:]])
+        finally:
+            delta = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+            for k, fn in KERNELS.items():
+                fn.launches = before[k]          # the capture launched nothing
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.launches = {k: v for k, v in delta.items() if v}
+        self.outs, self.telemetry = outs[:3], telemetry
+        self.graph = graph
+
+    def launch(self, frame: torch.Tensor, t1: float, t2: float) -> _InFlight:
+        """Enqueue one frame; returns without waiting for the device.
+        ``frame``: (H, W, 3) float32 on the device, or in pinned host memory
+        (copied without blocking)."""
+        if self.graph is None:
+            th = torch.tensor(t1, dtype=torch.float32, device=frame.device)
+            tl = torch.tensor(t2, dtype=torch.float32, device=frame.device)
+            outs = self.run(frame, th, tl)
+            return _InFlight(*outs[:3], torch.cat([o.to(torch.int32) for o in outs[3:]]),
+                             None, None)
+        from repro_torch.kernels.ops import KERNELS
+        self.frame.copy_(frame, non_blocking=True)
+        self.t1.fill_(t1)
+        self.t2.fill_(t2)
+        self.graph.replay()
+        for k, v in self.launches.items():
+            KERNELS[k].launches += v
+        telemetry = torch.empty(self.telemetry.shape, dtype=torch.int32, pin_memory=True)
+        telemetry.copy_(self.telemetry, non_blocking=True)
+        image, ids, scores = (o.clone() for o in self.outs)
+        done = torch.cuda.Event()
+        done.record()
+        return _InFlight(image, ids, scores, telemetry, done, (frame, self))
+
+
+def _build_fused_frame(weights, geometry: PatchGeometry, caps: Tuple[int, ...],
+                       cfg: ESSRConfig, backend: str, quant, fusion: str, on_poison: str,
+                       device: str) -> _FusedFrame:
+    run = _fused_run(weights.tree, geometry, caps, cfg, backend, quant, fusion, on_poison)
+    return _FusedFrame(run, tuple(geometry.hw) + (cfg.in_channels,), torch.device(device))
+
+
+#: The fused frames, one per (weights, geometry, capacity profile, backend,
+#: quant, fusion, on_poison, device). ``weights`` is the param tree's
+#: `_TreeKey`: a graph reads the weights at the addresses it was captured
+#: with. Sized with get_geometry's cache (an evicted geometry re-keys its
+#: frames); `configure_compiled_caches` resizes both. Eviction drops the
+#: frame, and with it the graph and its memory pool.
+_fused_frame_fn = BoundedCache(_build_fused_frame, maxsize=128)
+
+
+def _fused_frame_forward(params, frame: torch.Tensor, cfg: ESSRConfig, *,
+                         geometry: PatchGeometry, caps: Tuple[int, ...],
+                         t1: float = sp.DEFAULT_T1, t2: float = sp.DEFAULT_T2,
+                         backend: str = "cuda", quant=None, fusion: str = "layer",
+                         on_poison: str = "raise"):
+    """One frame through the fused frame of its key, waited for. Returns the
+    six-tuple (image, eff_ids, scores on the frame's device; counts, spills,
+    health as int32 host tensors); the engine owns the capacity profile and
+    the ``on_poison`` policy's host side."""
+    from repro_torch.kernels.megakernel import _TreeKey
+    fn = _fused_frame_fn(_TreeKey(params), geometry, tuple(int(c) for c in caps), cfg,
+                         backend, quant, fusion, on_poison, str(frame.device))
+    flight = fn.launch(frame, t1, t2)
+    counts, spills, health = flight.wait()
+    return (flight.image, flight.ids, flight.scores, torch.tensor(counts, dtype=torch.int32),
+            torch.tensor(spills, dtype=torch.int32), torch.tensor(health, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# bounded compiled-object caches (runtime-sized, occupancy-observable)
+# ---------------------------------------------------------------------------
+
+#: The process-wide caches of per-frame objects: the fused frames (captured
+#: graphs on the card) and the patch geometries they are keyed on.
+COMPILED_CACHES = {"fused_frame_fn": _fused_frame_fn, "get_geometry": get_geometry}
+
+
+def configure_compiled_caches(maxsize: int) -> None:
+    """Resize every compiled-object cache to ``maxsize`` entries (LRU;
+    shrinking evicts at once). `SREngine` sets the bound from
+    ``plan.stats_window`` at construction."""
+    for cache in COMPILED_CACHES.values():
+        cache.resize(maxsize)
+
+
+def compiled_cache_occupancy() -> Dict[str, Dict[str, int]]:
+    """{cache: {size, maxsize, hits, misses, evictions}}: evictions under a
+    steady set of geometries mean the bound is too small and frames are
+    being captured again."""
+    return {name: cache.occupancy() for name, cache in COMPILED_CACHES.items()}

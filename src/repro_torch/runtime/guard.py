@@ -1,7 +1,16 @@
-"""Serving errors (the part of ``repro.runtime.guard`` this slice serves)."""
+"""Serving errors and the resilience ledger (the part of
+``repro.runtime.guard`` this package serves).
+
+`ResilienceGuard` here is the reference's event ledger alone: poison
+verdicts and stream retirements are recorded through ``record`` and
+reported by ``summary`` (``SREngine.summary()["degradations"]``). The
+degradation ladder and the fault injector are not ported: a kernel launch
+or a graph capture that fails raises, and never steps down to a plain
+version.
+"""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 class PoisonFrameError(RuntimeError):
@@ -13,3 +22,23 @@ class PoisonFrameError(RuntimeError):
     def __init__(self, msg: str, health: Optional[Tuple[int, int, int]] = None):
         super().__init__(msg)
         self.health = health
+
+
+class ResilienceGuard:
+    """The serving-side event ledger. Every event is ``{"index", "kind",
+    "reason"}``; ``index`` is the engine's monotone frame index."""
+
+    def __init__(self):
+        self.events: List[Dict[str, Any]] = []
+
+    def record(self, index, kind: str, reason: str) -> None:
+        self.events.append({"index": index, "kind": kind, "reason": reason})
+
+    def summary(self) -> Dict[str, Any]:
+        """The ledger in the reference's shape: the ladder never moves here,
+        so ``level`` stays 0, ``variant`` "as-planned" and ``by_step`` empty."""
+        by_kind: Dict[str, int] = {}
+        for e in self.events:
+            by_kind[e["kind"]] = by_kind.get(e["kind"], 0) + 1
+        return {"total": len(self.events), "by_kind": by_kind, "by_step": {},
+                "level": 0, "variant": "as-planned", "events": list(self.events[-32:])}

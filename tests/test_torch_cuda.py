@@ -659,3 +659,139 @@ def test_quantize_kernel_equals_plain(cuda, n, offset, zeros, bits):
             assert got.abs().max().item() == 0
         elif n > 20:                          # past the special values: noise codes too
             assert got.abs().max().item() > 0
+
+
+# ---------------------------------------------------------------------------
+# fused dispatch: the frame as one CUDA graph replay
+# ---------------------------------------------------------------------------
+
+FUSED_MODES = [(q, f) for q in (None, "int8", "fxp10") for f in ("layer", "group")]
+
+
+def _fused_frame(seed: int, h: int = 96, w: int = 160) -> np.ndarray:
+    """A smooth left half, mild and strong noise on the right: every subnet."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h, dtype=np.float32),
+                         np.linspace(0, 1, w, dtype=np.float32), indexing="ij")
+    amp = np.where(xx < 0.5, 0.0, np.where(xx < 0.75, 0.12, 0.5)).astype(np.float32)
+    smooth = np.stack([yy, xx, (yy + xx) / 2], axis=-1)
+    return np.clip(smooth + amp[..., None] * (r.random((h, w, 3), np.float32) - 0.5),
+                   0, 1).astype(np.float32)
+
+
+def _fused_pair(quant, fusion, seed=5, **plan):
+    plan = ExecutionPlan(quant=quant, fusion=fusion, **plan)
+    host = SREngine.from_config(ESSRConfig(scale=4), seed=seed, plan=plan)
+    fused = SREngine(host.model, plan=plan.replace(dispatch="fused"))
+    return host, fused
+
+
+def _entry_calls(monkeypatch):
+    """Counts the C entries looked up: every kernel wrapper's launch on the
+    card goes through `_build.entry`."""
+    from repro_torch.kernels import _build
+    calls = []
+    real = _build.entry
+
+    def spy(*args):
+        calls.append(args[:2])
+        return real(*args)
+
+    monkeypatch.setattr(_build, "entry", spy)
+    return calls
+
+
+@pytest.mark.parametrize("quant,fusion", FUSED_MODES)
+def test_fused_frame_equals_host_frame(cuda, quant, fusion):
+    from repro_torch.core import pipeline as pl
+    host, fused = _fused_pair(quant, fusion)
+    frames = [_fused_frame(s) for s in (0, 1)]
+    for f in frames:
+        a, b = host.upscale(f), fused.upscale(f)
+        assert b.dispatch == "fused" and b.backend == a.backend
+        assert b.spill_counts == (0, 0, 0) and b.counts == a.counts
+        assert all(c > 0 for c in b.counts)
+        np.testing.assert_array_equal(b.ids.cpu().numpy(), a.ids)
+        assert torch.equal(b.image, a.image)
+    graph = next(v for v in pl._fused_frame_fn.values() if v.graph is not None)
+    per = {None: {"layer": {"edge": 1, "bsconv": 2, "sfb": 10, "dsconv": 2},
+                  "group": {"edge": 1, "mega": 2}}}
+    for q in ("int8", "fxp10"):
+        per[q] = {"layer": {"edge": 1, "quantize": 2, "qbsconv": 2, "qsfb": 10, "qdsconv": 2},
+                  "group": {"edge": 1, "qmega": 2}}
+    assert graph.launches == per[quant][fusion] and graph.pool_bytes > 0
+    pl._fused_frame_fn.cache_clear()
+
+
+def test_fused_replay_calls_no_wrapper_and_captures_nothing(cuda, monkeypatch):
+    from repro_torch.core import pipeline as pl
+    _, fused = _fused_pair(None, "layer")
+    frame = _fused_frame(2)
+    first = fused.upscale(frame)
+    assert first.compiled is False
+    misses = pl._fused_frame_fn.occupancy()["misses"]
+    calls = _entry_calls(monkeypatch)
+    ops.reset_launch_counts()
+    second = fused.upscale(_fused_frame(3))
+    assert second.compiled is True and calls == []
+    assert pl._fused_frame_fn.occupancy()["misses"] == misses
+    # the replay's launches come from the capture's deltas
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "edge": 1, "bsconv": 2,
+                                   "sfb": 10, "dsconv": 2}
+    again = fused.upscale(frame)
+    assert torch.equal(again.image, first.image) and torch.equal(again.ids, first.ids)
+    pl._fused_frame_fn.cache_clear()
+
+
+@pytest.mark.parametrize("inflight", [2, 3])
+def test_fused_inflight_stream_equals_sync_stream(cuda, inflight):
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.adaptive import SwitchingConfig
+    frames = [_fused_frame(s) for s in range(5)]
+    runs = {}
+    for n in (1, inflight):
+        eng = SREngine.from_config(ESSRConfig(scale=4), seed=5,
+                                   plan=ExecutionPlan(dispatch="fused", inflight=n),
+                                   switching=SwitchingConfig(frame_high=10 ** 9, frame_low=0))
+        runs[n] = list(eng.stream(frames))
+    for a, b in zip(runs[1], runs[inflight]):
+        assert a.counts == b.counts and a.spill_counts == b.spill_counts
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.image, b.image)
+    assert len({r.image.data_ptr() for r in runs[inflight]}) == len(frames)
+    pl._fused_frame_fn.cache_clear()
+
+
+def test_fused_capture_that_fails_raises(cuda, monkeypatch):
+    """A host sync inside the captured frame fails the capture, and the
+    frame raises: nothing runs eagerly in its place, nothing is cached."""
+    from repro_torch.core import pipeline as pl
+    real = pl._decide
+
+    def syncing(scores, t1, t2):
+        scores.sum().item()                # a host sync: refused while capturing
+        return real(scores, t1, t2)
+
+    monkeypatch.setattr(pl, "_decide", syncing)
+    _, fused = _fused_pair(None, "group")
+    with pytest.raises(RuntimeError):
+        fused.upscale(_fused_frame(4))
+    assert pl._fused_frame_fn.occupancy()["size"] == 0
+    torch.cuda.synchronize()
+    pl._fused_frame_fn.cache_clear()
+
+
+def test_fused_eviction_drops_the_graph(cuda):
+    import gc
+    import weakref
+    from repro_torch.core import pipeline as pl
+    _, fused = _fused_pair(None, "group")
+    fused.upscale(_fused_frame(0))
+    graph = weakref.ref(pl._fused_frame_fn.values()[0])
+    pl.configure_compiled_caches(1)
+    try:
+        fused.upscale(_fused_frame(0, h=64, w=96))     # another geometry evicts it
+        gc.collect()
+        assert graph() is None and pl._fused_frame_fn.occupancy()["evictions"] >= 1
+    finally:
+        pl.configure_compiled_caches(128)
+        pl._fused_frame_fn.cache_clear()

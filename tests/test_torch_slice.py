@@ -158,18 +158,22 @@ def test_poison_policies(engines):
 
 def test_plan_validation_text_matches_reference():
     for kw in [dict(patch=0), dict(overlap=40), dict(t1=50.0, t2=40.0),
-               dict(buckets=(16, 8)), dict(on_poison="loud"), dict(dispatch="gpu")]:
+               dict(buckets=(16, 8)), dict(on_poison="loud"), dict(dispatch="gpu"),
+               dict(capacity=(0, -1, 4)), dict(capacity=("a", 2)), dict(inflight=0),
+               dict(inflight=2), dict(inflight=2, dispatch="host"),
+               dict(dispatch="fused", inflight=1.5)]:
         with pytest.raises(ValueError) as mine:
             ExecutionPlan(**kw)
         with pytest.raises(ValueError) as theirs:
             JPlan(**kw)
         assert str(mine.value) == str(theirs.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        ExecutionPlan(dispatch="fused")
     for kw in [dict(), dict(fusion="group"), dict(quant="int8"), dict(quant="fxp10"),
-               dict(quant="int8", fusion="group")]:   # constructs, as in the reference
-        mine, theirs = ExecutionPlan(**kw), JPlan(**kw)
-        assert (mine.fusion, mine.quant) == (theirs.fusion, theirs.quant)
+               dict(quant="int8", fusion="group"), dict(dispatch="fused"),
+               dict(dispatch="fused", capacity=[0, 8, 4], inflight=2),
+               dict(dispatch="fused", quant="fxp10", fusion="group", inflight=3)]:
+        mine, theirs = ExecutionPlan(**kw), JPlan(**kw)   # constructs, as in the reference
+        assert (mine.fusion, mine.quant, mine.dispatch, mine.capacity, mine.inflight) == \
+            (theirs.fusion, theirs.quant, theirs.dispatch, theirs.capacity, theirs.inflight)
     # quant under fusion="group": the "cuda" engine serves the quantized
     # megakernel, the "ref" engine (which ignores fusion) the fake-quant model
     plan = ExecutionPlan(quant="int8", fusion="group")
