@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
-8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 10; any failure
+8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 10; any failure
 exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
@@ -153,7 +153,29 @@ exits non-zero before the last line:
      before the kernels line holds the numbers;
  21. the fused stream ("fused stream"): the STREAM_FRAMES frames through
      SREngine.stream under dispatch="fused" with inflight 1 and 2 (frozen
-     thresholds): results equal, in order, with marginal latencies.
+     thresholds): results equal, in order, with marginal latencies;
+ 22. one graph pool a device ("pools"): one 1080p frame under POOL_PROFILES
+     pinned capacity profiles, each fused engine alive (that many graphs):
+     the reserved memory after each, every frame torch.equal to host
+     dispatch; the growth past the first graph must stay under half its
+     pool (private pools grew by a whole pool each);
+ 23. multi-tenant serving ("streams"): four 960x540 -> 3840x2160 tenants,
+     shares TENANT_SHARES, ragged lengths TENANT_FRAMES (ticks of 4, 3, 2
+     live streams) through SREngine.serve_streams under fp32 "layer" and
+     "group" and int8 "group", capacity pinned per stream: each tenant
+     torch.equal to the tenant served solo, round-robin order, one capture
+     per live count, a second run with no capture and no wrapper call (the
+     launches the captures' deltas), two ticks in flight equal to
+     synchronous; launches a tick, tick latency quartiles, marginal latency
+     in flight and pool bytes per live count;
+ 24. faults ("faults"): seeded FaultPlans on three FAULT_HW tenants, each
+     run again on the CPU: injected backend failures step the ladder
+     group->layer->ref, a poisoned tenant is quarantined and re-admitted
+     with the healthy ones torch.equal to a run without faults, an iterator
+     that raises retires its stream alone; the ledgers equal the CPU's.
+     Then every engine of the run built without a FaultPlan must have left
+     its ladder at level 0 with no degrade or watchdog event ("ladder"); a
+     "streams:" JSON line before the kernels line holds phases 22-24.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -161,6 +183,7 @@ when the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import math
@@ -189,6 +212,20 @@ STREAM_FRAMES = 8
 STREAM_FRAME_HIGH, STREAM_FRAME_LOW = 400, 100
 #: Steady frames timed per serving mode and dispatch in phase 20, in turns.
 STEADY_FRAMES = 12
+#: Phase 22: the pinned capacity profiles served one after another.
+POOL_PROFILES = 6
+#: Phase 23: the tenants' frame counts (ragged: ticks of 4, 3 and 2 live
+#: streams), their QoS shares and their pinned per-stream capacity (a 960x540
+#: tenant routes (288, 144, 144) of its 576 patches; the host buckets are 256).
+TENANT_HW = (540, 960)
+TENANT_FRAMES = (8, 8, 6, 4)
+TENANT_SHARES = (2.0, 1.0, 1.0, 1.0)
+TENANT_CAPACITY = (0, 256, 256)
+#: Phase 24: the tenants' frame size, small enough to serve on the CPU too.
+FAULT_HW = (96, 160)
+#: Every engine the phases construct: (phase, its guard, its FaultPlan). A
+#: phase without a FaultPlan must leave the ladder where it started.
+GUARDS = []
 
 #: Published H100/H200 peaks (NVIDIA data sheets): fp32 outside the tensor
 #: cores, and device-memory bandwidth, by a substring of the card's name.
@@ -895,6 +932,284 @@ def serving_phases(engine, frames, cfg, torch) -> list:
     return fused_report
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: one graph pool a device, multi-tenant ticks, faults
+# ---------------------------------------------------------------------------
+
+class Boom:
+    """A tenant iterator that yields one frame, then raises (phase 24)."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __iter__(self):
+        yield self.frames[0]
+        raise RuntimeError("tenant iterator died")
+
+
+def _ticks(results):
+    """Results grouped by tick: a new tick starts where the stream id does
+    not rise (within a tick, streams come in id order)."""
+    ticks = []
+    for r in results:
+        if not ticks or r.stream_id <= ticks[-1][-1].stream_id:
+            ticks.append([])
+        ticks[-1].append(r)
+    return ticks
+
+
+def _quartiles(v):
+    v = sorted(v)
+    return {"median_ms": statistics.median(v), "q1_ms": v[len(v) // 4],
+            "q3_ms": v[(3 * len(v)) // 4], "min_ms": v[0], "max_ms": v[-1]}
+
+
+def pool_phase(engine, frames, torch) -> dict:
+    """22. Fault 5: one 1080p frame under POOL_PROFILES distinct pinned
+    capacity profiles, one fused engine each (so that many graphs live at
+    once): the reserved device memory after each, and each frame torch.equal
+    to host dispatch. The graphs share the device's pool, so the reserved
+    memory may not grow by anything near a pool per profile."""
+    from repro_torch.api import ExecutionPlan, SREngine
+    from repro_torch.core import pipeline as pl
+    dev = engine.device
+    pl._fused_frame_fn.cache_clear()
+    pl._fused_stream_fn.cache_clear()
+    want = engine.upscale(frames[0]).image
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    rows, keep = [], []
+    for j in range(POOL_PROFILES):
+        caps = (0, 1024 + 128 * j, 1024)
+        eng = SREngine(engine.model, plan=ExecutionPlan(dispatch="fused", capacity=caps),
+                       device=dev)
+        r = eng.upscale(frames[0])
+        torch.cuda.synchronize()
+        graph = pl._fused_frame_fn.values()[-1]
+        same = torch.equal(r.image, want)
+        row = {"profiles": j + 1, "capacity": caps,
+               "reserved_mib": (torch.cuda.memory_reserved(dev) - base) / 2 ** 20,
+               "allocated_mib": torch.cuda.memory_allocated(dev) / 2 ** 20,
+               "graph_pool_mib": graph.pool_bytes / 2 ** 20, "equal_to_host": same}
+        say(f"phase pools: {json.dumps(row)}")
+        if not (same and r.spill_counts == (0, 0, 0)):
+            fail(f"the fused frame under pinned capacity {caps} differs from host dispatch")
+        rows.append(row)
+        keep.append(eng)
+        del r
+    first = rows[0]["graph_pool_mib"]
+    grown = rows[-1]["reserved_mib"] - rows[0]["reserved_mib"]
+    say(f"phase pools: {POOL_PROFILES} graphs reserve {rows[-1]['reserved_mib']:.1f} MiB above "
+        f"the host frame, {grown:.1f} MiB more than one graph (its pool {first:.1f} MiB); the "
+        f"six modes' fused frames were torch.equal to host dispatch in phase 20 with the shared "
+        f"pool")
+    if not (first > 0 and grown <= first / 2):
+        fail(f"{POOL_PROFILES} graphs grew the reserved memory by {grown:.1f} MiB past one "
+             f"graph's pool of {first:.1f} MiB: the graphs do not share a pool")
+    del keep
+    pl._fused_frame_fn.cache_clear()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "growth_past_one_graph_mib": grown}
+
+
+def stream_phase(engine, torch) -> list:
+    """23. Four tenants of 960x540 -> 3840x2160 (a tick holds 4 x 576 =
+    2,304 patches, one 1080p frame's worth), shares (2, 1, 1, 1), ragged
+    lengths TENANT_FRAMES, under fp32 "layer" and "group" and int8
+    "group", capacity pinned per stream: each tenant's frames torch.equal
+    to the tenant served solo, round-robin order, one capture per live
+    count and none on a second run (no wrapper call; launches the captures'
+    deltas), two ticks in flight equal to synchronous. Returns a row a
+    mode: launches a tick, tick latency quartiles, marginal latency in
+    flight, pool bytes per live count."""
+    import tempfile
+    import numpy as np
+    from repro_torch.api import ExecutionPlan, SREngine
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.adaptive import SwitchingConfig
+    from repro_torch.kernels import _build as kbuild
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    dev = engine.device
+    stable = SwitchingConfig(frame_high=10 ** 9, frame_low=0)
+    tenants = [[mixed_frame(SEED + 100 * s + i, *TENANT_HW) for i in range(n)]
+               for s, n in enumerate(TENANT_FRAMES)]
+    order = [s for t in range(max(TENANT_FRAMES)) for s, n in enumerate(TENANT_FRAMES) if t < n]
+    report = []
+    alphas = tempfile.mkdtemp(prefix="essr_alphas_")
+    for qmode, fusion in ((None, "layer"), (None, "group"), ("int8", "group")):
+        name_m = f"{qmode or 'fp32'} {fusion}"
+        pl._fused_frame_fn.cache_clear()
+        pl._fused_stream_fn.cache_clear()
+        plan = ExecutionPlan(dispatch="fused", quant=qmode, fusion=fusion,
+                             capacity=TENANT_CAPACITY)
+        mk = dict(switching=stable, device=dev, quant_cache=alphas)
+        mux = SREngine(engine.model, plan=plan.replace(streams=len(tenants),
+                                                        stream_shares=TENANT_SHARES), **mk)
+        misses = pl._fused_stream_fn.occupancy()["misses"]
+        first = list(mux.serve_streams(tenants))
+        captured = pl._fused_stream_fn.occupancy()["misses"] - misses
+        ids = [r.stream_id for r in first]
+        graphs = {g.streams: g for g in pl._fused_stream_fn.values()}
+        say(f"phase streams {name_m}: {len(first)} frames in {len(_ticks(first))} ticks, "
+            f"stream order {ids}, {captured} captures for live counts {sorted(graphs)}")
+        if ids != order or captured != len(graphs) or sorted(graphs) != [2, 3, 4]:
+            fail(f"the {name_m} ticks broke round-robin order or captured {captured} graphs "
+                 f"for live counts {sorted(graphs)}")
+        # each tenant against the same tenant served solo
+        for s, frames_s in enumerate(tenants):
+            solo = SREngine(engine.model, plan=plan, **mk)
+            mine = [r for r in first if r.stream_id == s]
+            for i, (a, b) in enumerate(zip(mine, solo.stream(frames_s))):
+                if not (a.counts == b.counts and a.spill_counts == b.spill_counts == (0, 0, 0)
+                        and torch.equal(a.ids, b.ids) and torch.equal(a.image, b.image)
+                        and a.backend == b.backend):
+                    fail(f"{name_m}: tenant {s} frame {i} differs from the tenant served solo")
+            del solo
+        say(f"phase streams {name_m}: every tenant's {sum(TENANT_FRAMES)} frames torch.equal "
+            f"to the tenant served solo (ids, counts equal, no spills), label {first[0].backend}")
+        # a second run replays: no capture, no wrapper call, the deltas
+        calls, real_entry = [], kbuild.entry
+        kbuild.entry = lambda *a: (calls.append(a[:2]), real_entry(*a))[1]
+        misses = pl._fused_stream_fn.occupancy()["misses"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            again = list(mux.serve_streams(tenants))
+        finally:
+            kbuild.entry = real_entry
+        wall = time.perf_counter() - t0
+        counted = {k: v for k, v in launch_counts().items() if v}
+        want = {}
+        for r in _ticks(again):
+            for k, v in graphs[len(r)].launches.items():
+                want[k] = want.get(k, 0) + v
+        if calls or counted != want or pl._fused_stream_fn.occupancy()["misses"] != misses:
+            fail(f"{name_m}: the second run called {calls}, counted {counted} (the captures' "
+                 f"deltas {want}) or captured again")
+        if not all(torch.equal(a.image, b.image) for a, b in zip(first, again)):
+            fail(f"{name_m}: the replayed ticks differ from the first run")
+        sync_ms = [t[0].latency_s * 1e3 for t in _ticks(again)]
+        by_live = {}
+        for t, ms in zip(_ticks(again)[1:], sync_ms[1:]):
+            by_live.setdefault(len(t), []).append(ms)
+        # two ticks in flight against the synchronous run
+        flight = SREngine(engine.model, plan=mux.plan.replace(inflight=2), **mk)
+        t0 = time.perf_counter()
+        async_res = list(flight.serve_streams(tenants))
+        wall_async = time.perf_counter() - t0
+        if [r.stream_id for r in async_res] != order or not all(
+                a.counts == b.counts and torch.equal(a.image, b.image)
+                for a, b in zip(again, async_res)):
+            fail(f"{name_m}: two ticks in flight differ from synchronous ticks")
+        async_ms = [t[0].latency_s * 1e3 for t in _ticks(async_res)]
+        row = {"mode": name_m, "tenants": list(TENANT_FRAMES), "shares": list(TENANT_SHARES),
+               "launches_per_tick": {n: g.launches for n, g in sorted(graphs.items())},
+               "pool_bytes_per_live_count": {n: g.pool_bytes for n, g in sorted(graphs.items())},
+               "reserved_mib": (torch.cuda.memory_reserved(dev) / 2 ** 20
+                                if dev.type == "cuda" else None),
+               "tick_latency": _quartiles(sync_ms[1:]), "tick_ms": sync_ms,
+               "tick_median_ms_by_live": {n: statistics.median(v)
+                                          for n, v in sorted(by_live.items())},
+               "wall_ms": wall * 1e3, "inflight2_tick_ms": async_ms,
+               "inflight2_marginal": _quartiles(async_ms[1:]),
+               "inflight2_wall_ms": wall_async * 1e3,
+               "counts_tick0": [r.counts for r in _ticks(again)[0]]}
+        q = row["tick_latency"]
+        say(f"phase streams {name_m}: launches a tick {row['launches_per_tick']}, pool bytes "
+            f"per live count {row['pool_bytes_per_live_count']}; {len(sync_ms)} ticks in "
+            f"{wall * 1e3:.1f} ms, steady tick latency median {q['median_ms']:.3f} ms "
+            f"(quartiles {q['q1_ms']:.3f}-{q['q3_ms']:.3f}, range {q['min_ms']:.3f}-"
+            f"{q['max_ms']:.3f}; by live count {row['tick_median_ms_by_live']}); two in flight: "
+            f"{wall_async * 1e3:.1f} ms, marginal median "
+            f"{row['inflight2_marginal']['median_ms']:.3f} ms; torch.equal to synchronous")
+        report.append(row)
+        del mux, flight, first, again, async_res, graphs
+        pl._fused_stream_fn.cache_clear()
+        pl._fused_frame_fn.cache_clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return report
+
+
+def fault_phase(engine, torch) -> dict:
+    """24. Seeded FaultPlans on the card, each run again on the CPU with the
+    same plan and frames: injected backend failures step the ladder from
+    group->layer to ->ref (every tick says what served it); a poisoned
+    tenant is quarantined and re-admitted while the healthy tenants stay
+    torch.equal to a run without faults; an iterator that raises retires
+    its own stream only. The ledgers (watchdog events aside) equal the
+    CPU's."""
+    from repro_torch.api import ExecutionPlan, SREngine
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.adaptive import SwitchingConfig
+    from repro_torch.runtime.guard import FaultPlan
+    stable = SwitchingConfig(frame_high=10 ** 9, frame_low=0)
+    tenants = [[mixed_frame(SEED + 200 + 10 * s + i, *FAULT_HW) for i in range(4)]
+               for s in range(3)]
+    cpu_model = copy.deepcopy(engine.model).cpu()        # an engine moves its model
+    runs = {
+        "ladder": (dict(fusion="group", faults=FaultPlan(seed=4, backend_failure_rate=1.0)),
+                   tenants),
+        "quarantine": (dict(capacity=(0, 24, 24), quarantine_ticks=1, faults=FaultPlan(
+            seed=7, poison_rate=1.0, poison_kinds=("nan",), target_streams=(1,))), tenants),
+        "iterator": (dict(capacity=(0, 24, 24)), [tenants[0], Boom(tenants[1]), tenants[2]]),
+    }
+    report = {}
+    for name, (kw, streams) in runs.items():
+        plan = ExecutionPlan(dispatch="fused", streams=3, **kw)
+        out = {}
+        for where, model in (("card", engine.model), ("cpu", cpu_model)):
+            eng = SREngine(model, plan=plan, switching=stable,
+                           device=engine.device if where == "card" else "cpu")
+            res = list(eng.serve_streams(streams))
+            ledger = eng.summary().get("degradations", {})
+            events = [e for e in ledger.get("events", []) if e["kind"] != "watchdog"]
+            out[where] = (eng, res, events)
+        eng, res, events = out["card"]
+        say(f"phase faults {name}: {len(res)} frames, streams {[r.stream_id for r in res]}, "
+            f"steps {[t[0].degraded for t in _ticks(res)]}, labels "
+            f"{[t[0].backend for t in _ticks(res)]}, ledger {json.dumps(events)}")
+        ticks = {where: [(r.stream_id, r.degraded, r.backend.replace("cuda-plain", "cuda"),
+                          r.counts) for r in o[1]] for where, o in out.items()}
+        if events != out["cpu"][2] or ticks["card"] != ticks["cpu"]:
+            fail(f"phase faults {name}: the card's ledger or ticks differ from the CPU run's "
+                 f"({json.dumps(out['cpu'][2])})")
+        if name == "ladder":
+            steps = [t[0].degraded for t in _ticks(res)]
+            labels = [t[0].backend for t in _ticks(res)]
+            if steps[:3] != [("fusion:group->layer",), ("backend:->ref",), ("retry",)] or \
+                    labels[1] != "ref" or not labels[0].startswith("cuda") or eng.guard.level != 2:
+                fail(f"the injected failures did not step the ladder as planned: {steps}, "
+                     f"{labels}")
+        else:
+            clean = SREngine(engine.model, plan=plan.replace(faults=None), switching=stable,
+                             device=engine.device)
+            base = list(clean.serve_streams(tenants))
+            healthy = (0, 2)
+            for s in healthy:
+                a = [r.image for r in res if r.stream_id == s]
+                b = [r.image for r in base if r.stream_id == s]
+                if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    fail(f"phase faults {name}: healthy tenant {s} differs from the run "
+                         f"without faults")
+            kinds = eng.summary()["degradations"]["by_kind"]
+            ok = ({"quarantine", "readmit", "poison"} <= set(kinds) if name == "quarantine"
+                  else kinds == {"retire": 1})
+            n1 = sum(r.stream_id == 1 for r in res)
+            if not ok or (name == "iterator" and n1 != 1) or (name == "quarantine" and n1):
+                fail(f"phase faults {name}: ledger {kinds}, stream 1 served {n1} frames")
+            say(f"phase faults {name}: healthy tenants {healthy} torch.equal to the run "
+                f"without faults; ledger by kind {kinds}; stream 1 served {n1} frames")
+        report[name] = {"events": events, "steps": [t[0].degraded for t in _ticks(res)],
+                        "labels": [t[0].backend for t in _ticks(res)]}
+        del out
+        pl._fused_stream_fn.cache_clear()
+        if engine.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return report
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -908,6 +1223,13 @@ def main() -> None:
     from repro_torch.api import ExecutionPlan, SREngine
     from repro_torch.api.result import summarize_stats
     from repro_torch.kernels import _build
+    real_init = SREngine.__init__
+
+    def init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        GUARDS.append((sys._getframe(1).f_code.co_name, self.guard, self.plan.faults))
+
+    SREngine.__init__ = init
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels.ops import essr_forward_kernels, launch_counts, reset_launch_counts
     from repro_torch.kernels.ref import mega_ref
@@ -1773,6 +2095,18 @@ def main() -> None:
         del patches, p, got, want
 
     fused_report = serving_phases(engine, frames, cfg, torch)
+    pool_report = pool_phase(engine, frames, torch)
+    stream_report = stream_phase(engine, torch)
+    fault_report = fault_phase(engine, torch)
+
+    # no phase without a FaultPlan moved the ladder
+    moved = [(phase, g.level, g.summary()["by_kind"]) for phase, g, faults in GUARDS
+             if faults is None and (g.level != 0 or any(
+                 e["kind"] in ("degrade", "watchdog", "failure") for e in g.events))]
+    say(f"phase ladder: {len(GUARDS)} engines, {sum(f is None for _, _, f in GUARDS)} without a "
+        f"FaultPlan, every one at level 0 with no degrade or watchdog event: {not moved}")
+    if moved:
+        fail(f"engines without a FaultPlan stepped the ladder: {moved}")
 
     # 10. tables and the result
     say("tpu_kernels: " + json.dumps([dict(name=n, tpu=loc, status=s)
@@ -1807,6 +2141,8 @@ def main() -> None:
                      max_abs_err=edge_err, **edge_timing))
     say(card)                        # the card again, beside the results
     say("fused: " + json.dumps(fused_report))
+    say("streams: " + json.dumps({"pools": pool_report, "streams": stream_report,
+                                  "faults": fault_report}))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

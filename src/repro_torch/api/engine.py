@@ -1,6 +1,6 @@
 """SREngine — the facade over the port's inference entry points (twin of
-``repro.api.engine``: single frames and one adaptive stream, under host or
-fused dispatch).
+``repro.api.engine``: single frames, one adaptive stream and multi-tenant
+streams, under host or fused dispatch).
 
 One engine owns the supernet weights (an `ESSR` module on one device), the
 `ESSRConfig`, a frozen `ExecutionPlan` and a backend chosen once:
@@ -35,10 +35,20 @@ frame of a geometry and grow after a frame that spilled.
 
 Modes: ``upscale(frame)`` (edge-selective), ``upscale(frame,
 mode="all_patches", width=...)``, ``reference(frame)`` (whole-image
-convolution, always the plain model), and ``serve(frame)`` /
+convolution, always the plain model), ``serve(frame)`` /
 ``stream(frames)``: Algorithm-1 adaptive thresholds (`core.adaptive`), a
 per-frame deadline whose miss demotes the thresholds, and under fused
-dispatch with ``plan.inflight >= 2`` up to that many frames in flight.
+dispatch with ``plan.inflight >= 2`` up to that many frames in flight; and
+``serve_streams(streams)``: ``plan.streams`` tenants through one fused tick
+each round (`runtime.multiplex`).
+
+Resilience (`runtime.guard`): every fused launch runs under the engine's
+degradation ladder (fusion group->layer, backend ->ref, quant ->fp32,
+sticky), which steps down only for a raised exception or a watchdog
+overrun, each step in the ledger (``summary()["degradations"]``) and in
+``FrameResult.degraded``/``backend``; ``plan.faults`` injects seeded faults.
+On the card only an injected fault (or an overrun under ``plan.faults``)
+steps down: a real build, capture or launch error raises.
 """
 from __future__ import annotations
 
@@ -58,7 +68,7 @@ import torch
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.result import FrameResult, summarize_stats
 from repro_torch.core import subnet_policy as sp
-from repro_torch.core.adaptive import AdaptiveSwitcher, SwitchingConfig
+from repro_torch.core.adaptive import AdaptiveSwitcher, StreamSwitcherBank, SwitchingConfig
 from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _fused_frame_fn,
                                        _health_counts, _host_scores, _sanitize,
                                        _sr_all_patches_result, _sr_whole,
@@ -66,7 +76,7 @@ from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _fused_fram
                                        snap_capacity)
 from repro_torch.kernels.megakernel import _TreeKey
 from repro_torch.models.essr import ESSR, ESSRConfig
-from repro_torch.runtime.guard import PoisonFrameError, ResilienceGuard
+from repro_torch.runtime.guard import FaultInjector, PoisonFrameError, ResilienceGuard
 
 MODES = ("edge_select", "all_patches", "whole")
 #: Where `SREngine.from_checkpoint` looks for cached benchmark supernets
@@ -123,12 +133,25 @@ class SREngine:
         # quantized serving: calibrate the per-subnet alphas once, here; the
         # pack is engine state, so every frame reuses the same lattice
         self.qpack = self._resolve_quant_pack(calibrate, quant_cache)
-        # the serving ledger (poison verdicts, retired streams); the port has
-        # no degradation ladder: a failed launch or capture raises
-        self.guard = ResilienceGuard()
+        # serving resilience: the sticky degradation ladder from this
+        # engine's serving point and the ledger, plus the optional seeded
+        # fault harness; engine state, so the level survives across frames
+        self.guard = ResilienceGuard(backend, self.plan.quant is not None, self.plan.fusion,
+                                     max_retries=self.plan.max_retries,
+                                     injected_only=self.device.type == "cuda",
+                                     chaos=self.plan.faults is not None)
+        self.injector = FaultInjector(self.plan.faults) if self.plan.faults is not None else None
         self._frame_idx = 0
-        self.switcher = AdaptiveSwitcher(switching if switching is not None
-                                         else SwitchingConfig(t1=self.plan.t1, t2=self.plan.t2))
+        base_switching = (switching if switching is not None
+                          else SwitchingConfig(t1=self.plan.t1, t2=self.plan.t2))
+        self.switcher = AdaptiveSwitcher(base_switching)
+        # multi-stream serving: one Algorithm-1 controller per tenant, the
+        # budgets split by share; engine state (a per-call plan cannot change
+        # the tenants)
+        self.stream_bank: Optional[StreamSwitcherBank] = None
+        if self.plan.streams > 1:
+            self.stream_bank = StreamSwitcherBank(base_switching, streams=self.plan.streams,
+                                                  shares=self.plan.stream_shares)
         self._macs = sp.SubnetMacs.make(self.cfg, self.plan.patch)
         self.stats: Deque[FrameResult] = collections.deque(maxlen=self.plan.stats_window)
         self._warm: set = set()
@@ -177,7 +200,8 @@ class SREngine:
                         plan: Optional[ExecutionPlan] = None, backend: str = "cuda",
                         device=None, calibrate=None, quant_cache: Optional[str] = None,
                         switching: Optional[SwitchingConfig] = None,
-                        deadline_s: Optional[float] = None) -> "SREngine":
+                        deadline_s: Optional[float] = None,
+                        verbose: bool = False) -> "SREngine":
         """Engine with trained weights, resolved in the reference's priority
         order:
 
@@ -191,7 +215,9 @@ class SREngine:
            warning on each candidate that fails to restore;
         3. fresh init, the weights of ``from_config(cfg, seed=0)``.
 
-        ``quant_cache`` defaults to ``bench_cache``, as in the reference."""
+        ``quant_cache`` defaults to ``bench_cache``, as in the reference;
+        ``verbose`` prints which restored weights serve, as the reference
+        does."""
         from repro_torch.ckpt.checkpoint import restore_numpy
         cfg = cfg if cfg is not None else ESSRConfig(scale=scale)
         quant_cache = quant_cache if quant_cache is not None else bench_cache
@@ -210,12 +236,16 @@ class SREngine:
                     warnings.warn(f"checkpoint {ckpt_dir} has no {prefer!r} tree (found "
                                   f"{sorted(tree)}); serving {use!r} instead")
                 params = tree[use]
+                if verbose:
+                    print(f"(restored {use!r} weights from {ckpt_dir})")
         elif bench_cache:
             pattern = os.path.join(bench_cache, f"essr_x{cfg.scale}_sfb{cfg.n_sfb}_*")
             cands = sorted(glob.glob(pattern), key=_bench_steps, reverse=True)
             for cand in cands:
                 try:
                     params = restore_numpy(cand)[0]["params"]
+                    if verbose:
+                        print(f"(using trained weights from {cand})")
                     break
                 except Exception as e:
                     warnings.warn(f"bench-cache restore failed for {cand}: {e!r}; "
@@ -283,6 +313,15 @@ class SREngine:
     def backend_label(self) -> str:
         return self._backend_label(self.plan)
 
+    def _variant_label(self, plan: ExecutionPlan, v) -> str:
+        """`_backend_label` of a ladder rung: what the (perhaps stepped
+        down) variant executes, so a degraded frame never wears the planned
+        label."""
+        base = v.backend
+        if v.backend == "cuda" and self.device.type != "cuda":
+            base = "cuda-plain"
+        return base if (plan.quant is None or not v.quant) else f"{base}-{plan.quant}"
+
     def _next_index(self) -> int:
         """The engine's monotone frame index, the ledger's coordinate."""
         i = self._frame_idx
@@ -308,13 +347,14 @@ class SREngine:
             if stage and self.device.type == "cuda" and t.device.type == "cpu":
                 return torch.empty(t.shape, dtype=torch.float32, pin_memory=True).copy_(t)
             return t.to(device=self.device, dtype=torch.float32)
+        dtype = str(t.dtype).replace("torch.", "")      # numpy's name, as the ledger's
         if p.on_poison == "raise":
-            self.guard.record(index, "poison", f"non-float frame dtype {t.dtype}")
-            raise PoisonFrameError(f"frame dtype {t.dtype} is not floating point "
+            self.guard.record(index, "poison", f"non-float frame dtype {dtype}")
+            raise PoisonFrameError(f"frame dtype {dtype} is not floating point "
                                    f"(plan.on_poison='raise')")
         if p.on_poison != "off":
             self.guard.record(index, "poison",
-                              f"non-float frame dtype {t.dtype} normalized to float32")
+                              f"non-float frame dtype {dtype} normalized to float32")
         try:
             span = float(torch.iinfo(t.dtype).max)
         except TypeError:
@@ -337,9 +377,13 @@ class SREngine:
         return _sanitize(frame), health, p.on_poison == "bilinear"
 
     def _guarded_frames(self, frames: Iterable, stream_id: int = 0) -> Iterator:
-        """Iterate a stream's frames; an iterator that raises ends the stream
-        with a recorded "retire" event instead of raising into the caller."""
+        """Iterate a stream's frames under the fault harness (``plan.faults``
+        wraps the iterator with seeded poison and errors); an iterator that
+        raises ends the stream with a recorded "retire" event instead of
+        raising into the caller."""
         it = iter(frames)
+        if self.injector is not None:
+            it = self.injector.wrap_stream(stream_id, it)
         n = 0
         while True:
             try:
@@ -352,6 +396,14 @@ class SREngine:
             yield frame
             n += 1
 
+    def _refuse_streams(self) -> None:
+        """``serve``/``stream`` take one stream; a multi-stream plan admits a
+        frame per tenant per tick, through ``serve_streams``."""
+        if self.plan.streams > 1:
+            raise ValueError(
+                f"plan.streams={self.plan.streams}: multi-stream serving "
+                f"admits one frame per tenant per tick — use serve_streams()")
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -363,11 +415,12 @@ class SREngine:
 
     # -- fused dispatch (plan.dispatch == "fused") -----------------------------
 
-    def _snap_profile(self, desired, geom, p: ExecutionPlan) -> Tuple[int, ...]:
+    def _snap_profile(self, desired, p: ExecutionPlan, limit: int) -> Tuple[int, ...]:
         """Per-subnet desired counts -> a capacity profile: entry 0 is 0 (the
-        bilinear lane runs dense), conv entries snap to the plan's buckets.
-        Cached unclamped: the stream's C54 ceiling is applied per call."""
-        return tuple([0] + [snap_capacity(int(d), p.buckets, geom.n) for d in desired[1:]])
+        bilinear lane runs dense), conv entries snap to the plan's buckets,
+        clamped to ``limit`` patches (a frame's, or a tick's pool). Cached
+        unclamped: the stream's C54 ceiling is applied per call."""
+        return tuple([0] + [snap_capacity(int(d), p.buckets, limit) for d in desired[1:]])
 
     def _c54_frame_budget(self) -> int:
         """The frame's share of the Algorithm-1 C54-a-second budget: the
@@ -395,7 +448,8 @@ class SREngine:
                 # a poisoned first frame must not seed its geometry's profile
                 probe = _sanitize(probe)
             scores = _host_scores(geom.extract(probe), self.backend)
-            caps = self._snap_profile(sp.subnet_counts(sp.decide(scores, *thresholds)), geom, p)
+            caps = self._snap_profile(sp.subnet_counts(sp.decide(scores, *thresholds)), p,
+                                      geom.n)
             self._fused_caps[geom.cache_key] = caps
         if streaming:
             # the stream's hard C54 ceiling, per call: the cached profile stays
@@ -403,34 +457,47 @@ class SREngine:
             caps = caps[:-1] + (min(caps[-1], self._c54_frame_budget()),)
         return caps
 
-    def _grow_caps(self, geom, p: ExecutionPlan, counts, spills) -> None:
+    def _grow_caps(self, key, p: ExecutionPlan, limit: int, counts, spills) -> None:
         """After a frame that spilled, grow the geometry's profile to the
         bucket ceiling of the demand seen (served + spilled); grow-only."""
         if p.capacity is not None or not any(spills[1:]):
             return
-        old = self._fused_caps.get(geom.cache_key)
+        old = self._fused_caps.get(key)
         if old is None:
             return
-        new = self._snap_profile([c + s for c, s in zip(counts, spills)], geom, p)
-        self._fused_caps[geom.cache_key] = tuple(max(o, n) for o, n in zip(old, new))
+        new = self._snap_profile([c + s for c, s in zip(counts, spills)], p, limit)
+        self._fused_caps[key] = tuple(max(o, n) for o, n in zip(old, new))
 
     def _launch_fused(self, frame, p: ExecutionPlan, thresholds: Tuple[float, float],
                       streaming: bool) -> dict:
         """Enqueue one frame on its fused frame without waiting for the
-        device; returns the in-flight record `_finalize_fused` completes."""
+        device; returns the in-flight record `_finalize_fused` completes.
+        The launch runs under the degradation ladder: a failure steps down
+        and runs again (on the card only an injected one; a real capture or
+        launch failure raises)."""
         with torch.inference_mode():
             t0 = time.perf_counter()
             index = self._next_index()
             frame = self._ingest(frame, p, index, stage=True)
             geom = p.geometry(frame.shape[0], frame.shape[1], self.cfg.scale, self.device)
             caps = self._fused_caps_for(geom, p, frame, thresholds, streaming)
-            key = ("fused", geom.cache_key, caps, p.fusion, p.on_poison)
-            fn = _fused_frame_fn(_TreeKey(self.params), geom, caps, self.cfg, self.backend,
-                                 self.qpack, p.fusion, p.on_poison, str(self.device))
-            flight = fn.launch(frame, *thresholds)
+            if self.injector is not None:
+                self.injector.maybe_delay(index)
+
+            def attempt(v):
+                if self.injector is not None:
+                    self.injector.maybe_fail_launch(index)
+                fn = _fused_frame_fn(_TreeKey(self.params), geom, caps, self.cfg, v.backend,
+                                     self.qpack if v.quant else None, v.fusion, p.on_poison,
+                                     str(self.device))
+                return fn.launch(frame[None], (thresholds[0],), (thresholds[1],), (0,))
+
+            flight, steps = self.guard.run(attempt, index)
+        v = self.guard.variant
+        key = ("fused", geom.cache_key, caps, v.backend, v.quant, v.fusion, p.on_poison)
         return {"flight": flight, "geom": geom, "t0": t0, "plan": p,
                 "thresholds": tuple(thresholds), "compiled": self._mark_warm(key),
-                "streaming": streaming, "index": index}
+                "streaming": streaming, "index": index, "variant": v, "steps": steps}
 
     def _finalize_fused(self, rec: dict) -> FrameResult:
         """Wait for one in-flight frame (its own event), copy its counts,
@@ -439,7 +506,7 @@ class SREngine:
         capacity growth after a spill and, when streaming, the Algorithm-1
         trim and the deadline demotion."""
         flight = rec["flight"]
-        counts, spills, health = flight.wait()
+        counts, spills, health = (rows[0] for rows in flight.wait())
         done = time.perf_counter()
         # marginal frame time: in flight, a frame's launch-to-ready clock
         # holds earlier frames' device time, so it starts at the later of its
@@ -455,8 +522,11 @@ class SREngine:
             if p.on_poison == "raise":
                 raise PoisonFrameError(f"frame failed health verdict nan/inf/oob={health} "
                                        f"(plan.on_poison='raise')", health=health)
+        steps = rec["steps"]
+        if streaming and p.watchdog_s is not None and dt > p.watchdog_s:
+            steps = steps + self.guard.note_watchdog(rec["index"], dt, p.watchdog_s)
         macs = self._macs if p.patch == self.plan.patch else sp.SubnetMacs.make(self.cfg, p.patch)
-        self._grow_caps(geom, p, counts, spills)
+        self._grow_caps(geom.cache_key, p, geom.n, counts, spills)
         live, missed = rec["thresholds"], False
         if streaming:
             self.switcher.observe_frame(counts[sp.C54])
@@ -464,11 +534,12 @@ class SREngine:
             if missed:
                 self.switcher.demote_for_straggler(severity=1.0)
             live = self.switcher.thresholds
-        out = FrameResult(image=flight.image, mode="edge_select",
-                          backend=self._backend_label(p), ids=flight.ids, scores=flight.scores,
-                          counts=counts, mac_saving=macs.saving_vs_c54(counts), latency_s=dt,
-                          thresholds=live, deadline_missed=missed, dispatch="fused",
-                          spill_counts=spills, compiled=rec["compiled"], health=health)
+        out = FrameResult(image=flight.image[0], mode="edge_select",
+                          backend=self._variant_label(p, rec["variant"]), ids=flight.ids,
+                          scores=flight.scores, counts=counts,
+                          mac_saving=macs.saving_vs_c54(counts), latency_s=dt, thresholds=live,
+                          deadline_missed=missed, dispatch="fused", spill_counts=spills,
+                          compiled=rec["compiled"], health=health, degraded=steps)
         if streaming:
             self.stats.append(dataclasses.replace(out, image=None, ids=None, scores=None))
         return out
@@ -582,6 +653,7 @@ class SREngine:
         routing (with the per-second C54 ceiling) -> edge-selective SR. A
         missed ``deadline_s`` raises the thresholds (straggler demotion).
         Appends a compact record (no image, ids or scores) to ``stats``."""
+        self._refuse_streams()
         if self.plan.subnet_policy != "threshold":
             raise ValueError(
                 f"streaming routes adaptively and cannot honour forced "
@@ -634,6 +706,7 @@ class SREngine:
         growth) adapt from the newest finished frame, up to ``inflight - 1``
         frames behind the newest launched one. An iterator that raises ends
         the stream with a "retire" event in the ledger."""
+        self._refuse_streams()
         frames = self._guarded_frames(frames)
         if self.plan.dispatch == "fused" and self.plan.inflight > 1:
             yield from self._stream_fused_async(frames)
@@ -651,12 +724,40 @@ class SREngine:
         while pending:
             yield self._finalize_fused(pending.popleft())
 
+    def serve_streams(self, streams: Iterable[Iterable]) -> Iterator[FrameResult]:
+        """Serve ``plan.streams`` tenant frame streams through one fused
+        dispatch per admission tick (the multi-tenant front door).
+
+        ``streams``: one frame iterable per tenant, in stream-id order. Each
+        tick takes the next frame of every live stream (round robin), packs
+        the routed patches of all of them into one fused tick, and yields one
+        `FrameResult` per live stream (``stream_id`` set), ticks in order and
+        streams in id order within a tick. Every stream keeps its own
+        Algorithm-1 switcher with a share of the budget
+        (``plan.stream_shares``); under overload each stream's C54 slots
+        degrade by its share, and no frame is dropped. A stream that runs out
+        leaves the tick (on the card, one graph per live count).
+        ``plan.inflight >= 2`` keeps that many ticks in flight.
+
+        With ``plan.streams == 1`` this is ``stream()`` over the one
+        iterable."""
+        streams = list(streams)
+        if len(streams) != self.plan.streams:
+            raise ValueError(f"serve_streams got {len(streams)} streams for "
+                             f"plan.streams={self.plan.streams}")
+        if self.plan.streams == 1:
+            yield from self.stream(streams[0])
+            return
+        from repro_torch.runtime.multiplex import StreamMultiplexer
+        yield from StreamMultiplexer(self).serve(streams)
+
     # -- aggregate reporting ---------------------------------------------------
 
     def summary(self) -> Dict[str, Any]:
         """Aggregate over the recorded (streamed) frames in ``stats``, the
         newest ``plan.stats_window``, with what served them and the compiled
-        caches' occupancy; ``degradations``, the ledger, whenever it holds
+        caches' occupancy; ``degradations``, the ledger (ladder steps,
+        poison, quarantine, retire and watchdog events), whenever it holds
         events. ``{}`` while there is neither, as in the reference."""
         s = summarize_stats(self.stats)
         if s:

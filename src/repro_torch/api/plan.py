@@ -16,6 +16,7 @@ import numpy as np
 from repro_torch.core import subnet_policy as sp
 from repro_torch.core.patching import PatchGeometry, get_geometry
 from repro_torch.core.pipeline import DEFAULT_BUCKETS, FUSION_MODES, HEALTH_POLICIES
+from repro_torch.runtime.guard import FaultPlan
 
 SUBNET_POLICIES = ("threshold", "all_bilinear", "all_c27", "all_c54")
 DISPATCH_MODES = ("host", "fused")
@@ -54,7 +55,21 @@ _FIELD_RULES: Dict[str, Tuple[Callable, str]] = {
                  "None or a tuple of ints >= 0"),
     "inflight": (_pos_int, "a positive int"),
     "stats_window": (_pos_int, "a positive int"),
+    "streams": (_pos_int, "a positive int"),
+    "stream_shares": (lambda v: v is None or (bool(v)
+                      and all(s > 0 and np.isfinite(s) for s in v)),
+                      "None or a tuple of finite floats > 0"),
     "on_poison": (lambda v: v in HEALTH_POLICIES, f"one of {HEALTH_POLICIES}"),
+    # the text names the reference's class, word for word; the port takes
+    # its own `repro_torch.runtime.guard.FaultPlan`
+    "faults": (lambda v: v is None or isinstance(v, FaultPlan),
+               "None or a repro.runtime.guard.FaultPlan"),
+    "max_retries": (lambda v: _is_int(v) and v >= 0, "an int >= 0"),
+    "quarantine_ticks": (lambda v: _is_int(v) and v >= 0,
+                         "an int >= 0 (0 retires a quarantined stream "
+                         "permanently)"),
+    "watchdog_s": (lambda v: v is None or (_is_num(v) and v > 0),
+                   "None or a number > 0"),
 }
 
 _CROSS_RULES: Tuple[Tuple[str, Callable, Callable], ...] = (
@@ -64,6 +79,21 @@ _CROSS_RULES: Tuple[Tuple[str, Callable, Callable], ...] = (
     ("inflight", lambda p: p.inflight == 1 or p.dispatch == "fused",
      lambda p: "1 unless dispatch='fused' (host dispatch serves "
                "synchronously)"),
+    # every tick is one fused dispatch; there is no host-dispatch multiplexer
+    ("streams", lambda p: p.streams == 1 or p.dispatch == "fused",
+     lambda p: "1 unless dispatch='fused' (stream packing rides the fused "
+               "executable)"),
+    # per-stream QoS adapts thresholds; a forced policy has none to adapt
+    ("streams", lambda p: p.streams == 1 or p.subnet_policy == "threshold",
+     lambda p: "1 unless subnet_policy='threshold' (per-stream QoS adapts "
+               "thresholds)"),
+    ("stream_shares", lambda p: (p.stream_shares is None
+                                 or len(p.stream_shares) == p.streams),
+     lambda p: f"None or a tuple of exactly streams={p.streams} shares"),
+    # the watchdog meters fused launches and ticks; host dispatch has none
+    ("watchdog_s", lambda p: p.watchdog_s is None or p.dispatch == "fused",
+     lambda p: "None unless dispatch='fused' (the watchdog meters fused "
+               "admission ticks)"),
 )
 
 
@@ -102,6 +132,32 @@ class ExecutionPlan:
     inflight: int = 1
     #: bound on the per-frame records ``SREngine.stats`` keeps
     stats_window: int = 4096
+    #: tenant streams multiplexed into one fused dispatch per admission tick
+    #: (`SREngine.serve_streams`); >= 2 needs dispatch="fused" and the
+    #: threshold policy. Each stream keeps its own switcher; the tick's graph
+    #: and the calibration behind it are shared
+    streams: int = 1
+    #: relative QoS weight per stream (len == streams), normalised by the
+    #: engine: stream s gets share_s / sum(shares) of the C54 budget and of
+    #: the trim bands. None: equal shares
+    stream_shares: Optional[Tuple[float, ...]] = None
+    #: an optional seeded chaos schedule (`runtime.guard.FaultPlan`): poison
+    #: pixels, iterator errors, backend failures and launch delays. None: no
+    #: injection; fault handling itself is always on
+    faults: Optional[FaultPlan] = None
+    #: extra launch attempts the degradation ladder may spend per frame or
+    #: tick (`runtime.guard.ResilienceGuard`): a failed launch steps down
+    #: (fusion group->layer, backend ->ref, quant ->fp32; sticky) or retries
+    #: at the floor, at most this many times, then raises
+    max_retries: int = 2
+    #: multi-tenant quarantine under on_poison="raise": a poisoned stream is
+    #: not admitted for this many ticks, then re-admitted; 0 retires it.
+    #: An iterator that raises always retires its stream
+    quarantine_ticks: int = 0
+    #: wall-clock budget (s) per fused launch or admission tick: a slower one
+    #: steps the ladder down one rung, as a "watchdog" event. None: no
+    #: watchdog
+    watchdog_s: Optional[float] = None
 
     def __post_init__(self):
         object.__setattr__(self, "buckets", tuple(self.buckets))
@@ -112,6 +168,13 @@ class ExecutionPlan:
                 raise _plan_error("capacity", self.capacity,
                                   _FIELD_RULES["capacity"][1]) from e
             object.__setattr__(self, "capacity", caps)
+        if self.stream_shares is not None:
+            try:
+                shares = tuple(float(s) for s in self.stream_shares)
+            except (TypeError, ValueError) as e:
+                raise _plan_error("stream_shares", self.stream_shares,
+                                  _FIELD_RULES["stream_shares"][1]) from e
+            object.__setattr__(self, "stream_shares", shares)
         for field, (ok, allowed) in _FIELD_RULES.items():
             value = getattr(self, field)
             if not ok(value):
@@ -132,8 +195,9 @@ class ExecutionPlan:
                  "all_c54": sp.C54}[self.subnet_policy]
         return np.full(scores.shape, fixed, dtype=np.int64)
 
-    def geometry(self, h: int, w: int, scale: int, device: str) -> PatchGeometry:
-        """Cached patch geometry of an (h, w) frame on ``device``."""
+    def geometry(self, h: int, w: int, scale: int, device: str = "cuda") -> PatchGeometry:
+        """Cached patch geometry of an (h, w) frame on ``device`` ("cuda",
+        the engine's default device, unless given)."""
         return get_geometry(int(h), int(w), self.patch, self.overlap, int(scale), str(device))
 
     @property

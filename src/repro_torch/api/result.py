@@ -42,11 +42,18 @@ class FrameResult:
     # frame of a capacity profile: its graph capture); excluded from
     # latency aggregates
     compiled: bool = True
+    # multi-stream serving (plan.streams > 1): the tenant stream this frame
+    # belongs to (its index in serve_streams' argument), else None. There
+    # deadline_missed means this stream was blamed for a missed tick (by
+    # share-weighted cost), and latency_s is the tick's marginal time: a
+    # tick's streams are served together
+    stream_id: Optional[int] = None
     # (nan, inf, out-of-[0,1]) pixel counts of the raw frame; None when
     # plan.on_poison == "off"
     health: Optional[Tuple[int, int, int]] = None
-    # degradation steps taken while serving this frame; the port has no
-    # ladder (a failed launch raises), so always ()
+    # degradation-ladder steps newly taken while serving this frame or tick
+    # (e.g. "backend:->ref"); the whole ledger is in
+    # SREngine.summary()["degradations"]
     degraded: Tuple[str, ...] = ()
 
     @property
@@ -68,6 +75,8 @@ class FrameResult:
             "compiled": bool(self.compiled),
             "compiled_caches": compiled_cache_occupancy(),
         }
+        if self.stream_id is not None:
+            out["stream_id"] = int(self.stream_id)
         if self.health is not None:
             out["health"] = tuple(int(c) for c in self.health)
         if self.degraded:
@@ -79,7 +88,8 @@ def summarize_stats(stats) -> dict:
     """Aggregate over frame records: routing shares, MAC saving, latency of
     the frames that paid no set-up (all frames if every one did), deadline
     misses, the last frame's thresholds and, under fused dispatch, the
-    spilled patches per subnet."""
+    spilled patches per subnet; under multi-stream serving a "streams" block
+    per tenant (its routing mix, deadline misses and last thresholds)."""
     stats = list(stats)
     if not stats:
         return {}
@@ -104,4 +114,19 @@ def summarize_stats(stats) -> dict:
     poisoned = sum(1 for s in stats if any(s.health or ()))
     if poisoned:
         out["poison_frames"] = poisoned
+    sids = sorted({s.stream_id for s in stats if s.stream_id is not None})
+    if sids:
+        per = {}
+        for sid in sids:
+            recs = [s for s in stats if s.stream_id == sid]
+            c = np.array([r.counts for r in recs])
+            per[sid] = {
+                "frames": len(recs),
+                "subnet_share": dict(zip(sp.SUBNET_NAMES,
+                                         (c.sum(0) / max(c.sum(), 1)).round(4).tolist())),
+                "mean_mac_saving": float(np.mean([r.mac_saving for r in recs])),
+                "deadline_misses": int(sum(r.deadline_missed for r in recs)),
+                "final_thresholds": recs[-1].thresholds,
+            }
+        out["streams"] = per
     return out

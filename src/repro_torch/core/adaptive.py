@@ -1,5 +1,5 @@
 """Resource-adaptive model switching, paper Sec. IV-A, Algorithm 1 (twin of
-the single-stream half of ``repro.core.adaptive``).
+``repro.core.adaptive`` for one stream and for multi-tenant serving).
 
 Host-side feedback controller over the two edge thresholds:
 
@@ -12,11 +12,16 @@ Host-side feedback controller over the two edge thresholds:
 A missed frame deadline raises the thresholds too (straggler demotion).
 Host numpy throughout; the serving path feeds it the frame's scores (host
 dispatch) or its materialized C54 count (fused dispatch).
+
+Multi-tenant serving (`StreamSwitcherBank`) gives every tenant stream a
+controller of its own, its budgets split by the stream's share
+(`per_stream_config`); a missed tick deadline demotes only the streams whose
+share-weighted MAC cost runs past the mean.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -94,3 +99,90 @@ class AdaptiveSwitcher:
     @property
     def thresholds(self) -> Tuple[float, float]:
         return (self.t1, self.t2)
+
+
+# ---------------------------------------------------------------------------
+# multi-stream serving: one Algorithm-1 controller per tenant stream
+# ---------------------------------------------------------------------------
+
+def per_stream_config(cfg: SwitchingConfig, share: float) -> SwitchingConfig:
+    """``cfg`` scaled to one tenant's normalised share in (0, 1]: the C54
+    budget a second and the trim bands scale with it (positive values
+    floored at 1; 0 stays 0, since ``frame_low=0`` means "never decay");
+    thresholds, steps and bounds stay."""
+    if not (0.0 < share <= 1.0):
+        raise ValueError(f"share must be in (0, 1], got {share}")
+    if share == 1.0:
+        return cfg
+    split = lambda v: max(1, int(v * share)) if v > 0 else v
+    return dataclasses.replace(cfg, c54_per_sec_budget=split(cfg.c54_per_sec_budget),
+                               frame_high=split(cfg.frame_high),
+                               frame_low=split(cfg.frame_low))
+
+
+class StreamSwitcherBank:
+    """One `AdaptiveSwitcher` per tenant stream, each on ``cfg`` split by the
+    stream's normalised share, so one tenant's content never moves another's
+    thresholds. ``tick_quotas`` gives each stream's C54 slots for one tick
+    (the tick graph's ``quotas`` input); ``note_tick`` attributes a missed
+    tick deadline by share-weighted cost."""
+
+    def __init__(self, cfg: Optional[SwitchingConfig] = None, streams: int = 1,
+                 shares: Optional[Sequence[float]] = None):
+        cfg = cfg if cfg is not None else SwitchingConfig()
+        if streams < 1:
+            raise ValueError(f"streams must be >= 1, got {streams}")
+        if shares is None:
+            shares = (1.0,) * streams
+        if len(shares) != streams:
+            raise ValueError(f"got {len(shares)} shares for {streams} streams")
+        total = float(sum(shares))
+        if not (total > 0 and np.isfinite(total)):
+            raise ValueError(f"shares must sum to a positive finite value, "
+                             f"got {tuple(shares)}")
+        self.streams = streams
+        self.shares: Tuple[float, ...] = tuple(float(s) / total for s in shares)
+        self.switchers: List[AdaptiveSwitcher] = [
+            AdaptiveSwitcher(per_stream_config(cfg, sh)) for sh in self.shares]
+
+    def tick_quotas(self) -> Tuple[int, ...]:
+        """Each stream's C54 slots for one tick: its budget a second over its
+        fps, floored at 1 (a share lowers quality, never starves a stream)."""
+        return tuple(max(1, sw.cfg.c54_per_sec_budget // max(1, sw.cfg.fps))
+                     for sw in self.switchers)
+
+    def observe(self, stream: int, n_c54: int) -> None:
+        """One stream's served C54 count, to its own controller."""
+        self.switchers[stream].observe_frame(n_c54)
+
+    def note_tick(self, missed: bool, costs: Sequence[float],
+                  streams: Optional[Sequence[int]] = None) -> Tuple[bool, ...]:
+        """One tick's outcome; returns which streams were demoted.
+
+        ``costs``: the live streams' MAC costs this tick; ``streams``: their
+        ids (default all). On a miss, the streams whose cost over share runs
+        past the mean are demoted with severity = that ratio (capped at 3);
+        a tick loaded exactly in share proportion demotes every live one."""
+        live = tuple(range(self.streams)) if streams is None else tuple(streams)
+        if len(costs) != len(live):
+            raise ValueError(f"got {len(costs)} costs for {len(live)} live streams")
+        if not missed:
+            return (False,) * self.streams
+        weighted = np.asarray([float(c) / self.shares[s] for c, s in zip(costs, live)],
+                              np.float64)
+        mean = float(weighted.mean())
+        demoted = [False] * self.streams
+        if mean <= 0 or np.allclose(weighted, mean):
+            for s in live:
+                demoted[s] = True
+                self.switchers[s].demote_for_straggler(severity=1.0)
+        else:
+            for w, s in zip(weighted, live):
+                if w > mean:
+                    demoted[s] = True
+                    self.switchers[s].demote_for_straggler(severity=min(float(w / mean), 3.0))
+        return tuple(demoted)
+
+    @property
+    def thresholds(self) -> Tuple[Tuple[float, float], ...]:
+        return tuple(sw.thresholds for sw in self.switchers)

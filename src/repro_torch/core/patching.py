@@ -92,12 +92,15 @@ class PatchGeometry:
         p = self.patch
         return flat.index_select(0, self.gather_idx).reshape(self.n, p, p, -1)
 
-    def fuse_average(self, sr: torch.Tensor) -> torch.Tensor:
+    def fuse_average(self, sr: torch.Tensor, out: torch.Tensor = None) -> torch.Tensor:
         """(N, p*s, p*s, C) -> (H*s, W*s, C): overlap-and-average.
 
         The averaging weights are pre-applied per patch row and column (the
         per-pixel count is the outer product of the axis counts), then the
-        rows and columns are folded with ordered slice adds."""
+        rows and columns are folded with ordered slice adds. ``out``: a
+        (padded H*s, padded W*s, C) buffer to fold into (zeroed first; the
+        result is a view of it), for a captured graph whose image lives
+        outside its memory pool."""
         s, ps = self.scale, self.patch * self.scale
         n_y, n_x = len(self.ys), len(self.xs)
         hp, wp = self.padded_hw
@@ -109,7 +112,10 @@ class PatchGeometry:
         for i, y0 in enumerate(self.ys):
             acc[y0 * s:y0 * s + ps] += t[i * ps:(i + 1) * ps]
         acc = acc.reshape(hp * s, n_x * ps, c)
-        out = torch.zeros((hp * s, wp * s, c), dtype=sr.dtype, device=sr.device)
+        if out is None:
+            out = torch.zeros((hp * s, wp * s, c), dtype=sr.dtype, device=sr.device)
+        else:
+            out.zero_()
         for j, x0 in enumerate(self.xs):
             out[:, x0 * s:x0 * s + ps] += acc[:, j * ps:(j + 1) * ps]
         h, w = self.hw

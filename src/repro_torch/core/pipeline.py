@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -340,6 +341,38 @@ def capacity_combine(out_patches: torch.Tensor, sr_slots: torch.Tensor,
     return torch.where(member[:, None, None, None], taken, out_patches)
 
 
+def _fused_setup(geometry: PatchGeometry, caps: Tuple[int, ...], cfg: ESSRConfig,
+                 backend: str, quant, fusion: str, on_poison: str):
+    """Checks shared by the fused frame and the fused tick; returns (the
+    per-subnet forward, the edge score)."""
+    if on_poison not in HEALTH_POLICIES:
+        raise ValueError(f"unknown on_poison {on_poison!r}; choose from {HEALTH_POLICIES}")
+    widths = cfg.subnet_widths()
+    if len(caps) != len(widths):
+        raise ValueError(f"capacity profile {caps} must have one entry per "
+                         f"subnet width {widths}")
+    forward = resolve_forward(backend, quant, fusion)
+    if backend == "cuda":
+        from repro_torch.kernels.edge import edge_score_fused as score
+    else:
+        score = edge_score
+    return forward, score
+
+
+def _conv_lanes(params, patches: torch.Tensor, eff: torch.Tensor, caps: Tuple[int, ...],
+                cfg: ESSRConfig, forward) -> torch.Tensor:
+    """Bilinear for every patch (the dense floor), then per conv subnet with
+    a non-zero capacity: dispatch into its slots, forward, combine."""
+    widths = cfg.subnet_widths()
+    out = bilinear_resize(patches, cfg.scale)
+    for k in range(1, len(widths)):
+        if caps[k] == 0:
+            continue
+        disp, slot, member = capacity_dispatch(patches, eff, k, caps[k])
+        out = capacity_combine(out, forward(params, disp, cfg, widths[k]), slot, member)
+    return out
+
+
 def _fused_run(params, geometry: PatchGeometry, caps: Tuple[int, ...], cfg: ESSRConfig,
                backend: str, quant, fusion: str, on_poison: str):
     """The fused frame as one function of (frame, t1, t2) -> (image, eff_ids,
@@ -352,20 +385,11 @@ def _fused_run(params, geometry: PatchGeometry, caps: Tuple[int, ...], cfg: ESSR
     3. decide and :func:`capacity_route`;
     4. bilinear for every patch, the dense floor;
     5. per conv subnet with a non-zero capacity: dispatch, forward, combine;
-    6. ``fuse_average``."""
-    if on_poison not in HEALTH_POLICIES:
-        raise ValueError(f"unknown on_poison {on_poison!r}; choose from {HEALTH_POLICIES}")
+    6. ``fuse_average``, into ``out`` when given (a graph's image buffer)."""
+    forward, score = _fused_setup(geometry, caps, cfg, backend, quant, fusion, on_poison)
     widths = cfg.subnet_widths()
-    if len(caps) != len(widths):
-        raise ValueError(f"capacity profile {caps} must have one entry per "
-                         f"subnet width {widths}")
-    forward = resolve_forward(backend, quant, fusion)
-    if backend == "cuda":
-        from repro_torch.kernels.edge import edge_score_fused as score
-    else:
-        score = edge_score
 
-    def run(frame: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor):
+    def run(frame: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, out=None):
         if on_poison == "off":
             health = torch.zeros((3,), dtype=torch.int32, device=frame.device)
         else:
@@ -379,23 +403,94 @@ def _fused_run(params, geometry: PatchGeometry, caps: Tuple[int, ...], cfg: ESSR
             # a poisoned frame serves every patch from the bilinear floor;
             # the conv lanes still run on their now empty slots
             eff = torch.where((health > 0).any(), torch.zeros_like(eff), eff)
-        out = bilinear_resize(patches, cfg.scale)
-        for k in range(1, len(widths)):
-            if caps[k] == 0:
-                continue
-            disp, slot, member = capacity_dispatch(patches, eff, k, caps[k])
-            out = capacity_combine(out, forward(params, disp, cfg, widths[k]), slot, member)
+        sr = _conv_lanes(params, patches, eff, caps, cfg, forward)
         counts = torch.stack([(eff == k).sum() for k in range(len(widths))]).to(torch.int32)
-        return geometry.fuse_average(out), eff, scores, counts, spills, health
+        return geometry.fuse_average(sr, out=out), eff, scores, counts, spills, health
 
     return run
 
 
+def _fused_stream_run(params, geometry: PatchGeometry, streams: int, caps: Tuple[int, ...],
+                      cfg: ESSRConfig, backend: str, quant, fusion: str, on_poison: str):
+    """The multi-tenant admission tick as one function (the reference's
+    ``fused_stream_frame_fn`` ``run``): ``streams`` same-geometry frames
+    (S, H, W, C), per-stream thresholds ``t1s``/``t2s`` (S,) and C54 quotas
+    (S,) -> (images (S, sH, sW, C), eff_ids (S*N,), scores (S*N,), counts
+    (S, K), spills (S, K), health (S, 3)), all on the frames' device.
+
+    The patch axis is stream-major (stream ``i // N``, patch ``i % N``), so
+    the capacity cascade runs on the shared pool of slots unchanged, and
+    each stream's frame is fused on its own. Each stream's top-subnet (C54)
+    patches past its quota are demoted to the next subnet in raster order
+    before the cascade, so an overload degrades by share, and no frame is
+    dropped. ``spills[s, k]`` counts stream s's patches that wanted ``k``
+    or more (before the quota) and ran below ``k``: quota demotions and the
+    cascade land in one hop ledger. Under "bilinear" only the poisoned
+    streams drop to the dense floor."""
+    forward, score = _fused_setup(geometry, caps, cfg, backend, quant, fusion, on_poison)
+    if streams < 1:
+        raise ValueError(f"streams must be >= 1, got {streams}")
+    widths = cfg.subnet_widths()
+    top, n = len(widths) - 1, geometry.n
+    (h, w), (hp, wp), s = geometry.hw, geometry.padded_hw, cfg.scale
+
+    def run(frames: torch.Tensor, t1s: torch.Tensor, t2s: torch.Tensor,
+            quotas: torch.Tensor, out=None):
+        if on_poison == "off":
+            health = torch.zeros((streams, 3), dtype=torch.int32, device=frames.device)
+        else:
+            health = torch.stack([_health_counts(frames[i]) for i in range(streams)])
+            if on_poison in ("sanitize", "bilinear"):
+                frames = _sanitize(frames)
+        flat = torch.cat([geometry.extract(frames[i]) for i in range(streams)])
+        scores = score(flat)
+        want2 = _decide(scores, t1s.repeat_interleave(n), t2s.repeat_interleave(n)
+                        ).reshape(streams, n)
+        routed2 = want2
+        if top > 0:
+            member = want2 == top
+            pos = torch.cumsum(member.to(torch.int64), 1) - 1
+            over = member & (pos >= quotas[:, None])
+            routed2 = torch.where(over, top - 1, want2)
+        if on_poison == "bilinear":
+            poisoned = (health > 0).any(1)
+            routed2 = torch.where(poisoned[:, None], torch.zeros_like(routed2), routed2)
+        eff, _ = capacity_route(routed2.reshape(-1), caps)
+        sr = _conv_lanes(params, flat, eff, caps, cfg, forward)
+        buf = out if out is not None else torch.empty(
+            (streams, hp * s, wp * s, flat.shape[-1]), dtype=sr.dtype, device=sr.device)
+        for i in range(streams):
+            geometry.fuse_average(sr[i * n:(i + 1) * n], out=buf[i])
+        eff2 = eff.reshape(streams, n)
+        counts = torch.stack([(eff2 == k).sum(1) for k in range(len(widths))], 1)
+        spills = torch.stack([torch.zeros_like(counts[:, 0])] +
+                             [((want2 >= k) & (eff2 < k)).sum(1) for k in range(1, len(widths))],
+                             1)
+        return (buf[:, :h * s, :w * s], eff, scores, counts.to(torch.int32),
+                spills.to(torch.int32), health)
+
+    return run
+
+
+def _frame_tick(run):
+    """A frame's run as a tick of one stream, so frames and ticks share the
+    graph machinery: frames (1, H, W, C), t1s, t2s and quotas (1,) -> the
+    tick's six outputs. The quota is unused: a frame's C54 ceiling is its
+    capacity profile."""
+    def tick(frames, t1s, t2s, quotas, out=None):
+        image, eff, scores, counts, spills, health = run(
+            frames[0], t1s[0], t2s[0], out=None if out is None else out[0])
+        return image[None], eff, scores, counts[None], spills[None], health[None]
+
+    return tick
+
+
 @dataclasses.dataclass
 class _InFlight:
-    """One launched fused frame: its own copies of the image, ids and scores
-    (a later replay overwrites the graph's outputs), the host buffer its
-    counts, spills and health land in, and the event its copies end on."""
+    """One launched fused tick (a frame is a tick of one stream): its own
+    copies of the images (S, sH, sW, C), ids and scores (a later replay
+    overwrites the graph's outputs), the host buffer its counts, spills and
+    health land in, and the event its copies end on."""
     image: torch.Tensor
     ids: torch.Tensor
     scores: torch.Tensor
@@ -403,58 +498,125 @@ class _InFlight:
     done: Optional[torch.cuda.Event]
     keep: Any                        # what the queued copies still read
 
-    def wait(self) -> Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, int, int]]:
-        """Block on this frame's event alone; (counts, spills, health)."""
+    def wait(self):
+        """Block on this launch's event alone; (counts, spills, health),
+        each a tuple with one tuple of ints per stream."""
         if self.done is not None:
             self.done.synchronize()
         v = [int(x) for x in self.telemetry.tolist()]
-        k = (len(v) - 3) // 2
-        return tuple(v[:k]), tuple(v[k:2 * k]), tuple(v[2 * k:])
+        s = self.image.shape[0]
+        k = (len(v) - 3 * s) // (2 * s)
+
+        def rows(a, width):
+            return tuple(tuple(a[i * width:(i + 1) * width]) for i in range(s))
+
+        return rows(v[:s * k], k), rows(v[s * k:2 * s * k], k), rows(v[2 * s * k:], 3)
+
+
+#: One graph memory pool per CUDA device, shared by every fused frame and
+#: tick captured there: device index -> (pool handle, the live fused frames
+#: captured into it). Safe because replays run one at a time on one stream,
+#: each replay's outputs are copied out before the next, and the graphs'
+#: inputs and images live outside the pool: what one capture frees, the next
+#: reuses, so the reserved memory follows the largest graph, not the number
+#: of graphs. A pool is shared only while a graph captured into it lives:
+#: PyTorch refuses to share a pool whose graphs are gone while a block of it
+#: is still held (a library workspace first allocated during a capture).
+_GRAPH_POOLS: Dict[int, Tuple[Any, "weakref.WeakSet"]] = {}
+
+#: The frame and image buffers the fused graphs read and write, outside the
+#: pool, one per (role, shape, device): graphs of one frame shape share them
+#: (their replays are ordered, each frame is copied in right before its
+#: replay and each image cloned out right after).
+_static_buffers = BoundedCache(
+    lambda role, shape, device: torch.zeros(shape, dtype=torch.float32, device=device),
+    maxsize=16)
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _graph_pool(device: torch.device):
+    """The device's shared pool, or a fresh one when no graph of it lives."""
+    index = _device_index(device)
+    if index not in _GRAPH_POOLS or not _GRAPH_POOLS[index][1]:
+        _GRAPH_POOLS[index] = (torch.cuda.graph_pool_handle(), weakref.WeakSet())
+    return _GRAPH_POOLS[index]
+
+
+def _retire_pool(device: torch.device, pool) -> None:
+    """After a failed capture: end the allocator's recording into ``pool``
+    (PyTorch's capture_end can raise before it does, and a pool left
+    recording refuses every later capture) and give the device a fresh pool;
+    the old one lives on with the graphs captured into it."""
+    index = _device_index(device)
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError as e:
+        if "not currently recording" not in str(e):
+            raise                          # only "capture_end had ended it" is expected
+    if index in _GRAPH_POOLS and _GRAPH_POOLS[index][0] == pool:
+        del _GRAPH_POOLS[index]
 
 
 class _FusedFrame:
-    """The fused frame of one (weights, geometry, capacity profile, backend,
-    quant, fusion, on_poison, device). On a CUDA device it is captured once
-    as a CUDA graph: a warm-up run on a side stream first pays every lazy
-    first use (kernel builds, occupancy queries, packed and prepared
-    weights, index maps), then the capture. A frame then costs a copy into
-    the graph's input, two ``fill_`` of the t1/t2 tensors (a threshold
-    change never recaptures) and one replay. A capture that fails raises;
-    nothing runs eagerly in its place. On the CPU the function runs eagerly.
+    """The fused tick of ``streams`` frames of one (weights, geometry,
+    capacity profile, backend, quant, fusion, on_poison, device); a single
+    frame is a tick of one stream (`_frame_tick`). On a CUDA device it is
+    captured once as a CUDA graph into the device's shared pool: a warm-up
+    run on a side stream first pays every lazy first use (kernel builds,
+    occupancy queries, packed and prepared weights, index maps), then the
+    capture. A launch then costs a copy into the graph's frames, the
+    thresholds and quotas copied from pinned host memory into theirs (a
+    threshold change never recaptures, and nothing waits for the device)
+    and one replay. A capture that fails raises; nothing runs eagerly in its
+    place (the engine's degradation ladder may then step down, for an
+    injected fault). On the CPU the function runs eagerly.
 
     A replay calls no kernel wrapper, so the wrappers' launch counts move by
     the deltas recorded at capture (``launches``), once a replay.
-    ``pool_bytes`` is the device memory the capture reserved for the
-    graph's private pool; dropping the object frees graph and pool."""
+    ``pool_bytes`` is the device memory the capture added to the shared
+    pool (the first graph of a pool pays for the rest); dropping the object
+    frees the graph and returns its blocks to the pool."""
 
-    def __init__(self, run, shape: Tuple[int, ...], device: torch.device):
+    def __init__(self, run, streams: int, shape: Tuple[int, ...], out_shape: Tuple[int, ...],
+                 device: torch.device):
         self.run = run
+        self.streams = streams
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
         self.pool_bytes = 0
         if device.type == "cuda":
-            self._capture(shape, device)
+            self._capture(shape, out_shape, device)
 
-    def _capture(self, shape, device) -> None:
+    def _capture(self, shape, out_shape, device) -> None:
         from repro_torch.kernels.ops import KERNELS
-        self.frame = torch.zeros(shape, dtype=torch.float32, device=device)
-        self.t1 = torch.zeros((), dtype=torch.float32, device=device)
-        self.t2 = torch.zeros((), dtype=torch.float32, device=device)
+        s = (self.streams,)
+        self._thresholds = torch.zeros((2,) + s, dtype=torch.float32, device=device)
+        self._quotas = torch.zeros(s, dtype=torch.int64, device=device)
+        self.inputs = (_static_buffers("frame", s + tuple(shape), str(device)),
+                       self._thresholds[0], self._thresholds[1], self._quotas)
+        self.image = _static_buffers("image", s + tuple(out_shape), str(device))
         here = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(here)
         with torch.cuda.stream(side):
-            self.run(self.frame, self.t1, self.t2)
+            self.run(*self.inputs, out=self.image)
         here.wait_stream(side)
         before = {k: fn.launches for k, fn in KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
+        pool, members = _graph_pool(device)
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=pool):
                 # entering synchronizes and empties the allocator's cache,
-                # so the pool is what the capture reserves from here
+                # so the pool grows by what the capture reserves from here
                 reserved = torch.cuda.memory_reserved(device)
-                outs = self.run(self.frame, self.t1, self.t2)
-                telemetry = torch.cat([o.to(torch.int32) for o in outs[3:]])
+                outs = self.run(*self.inputs, out=self.image)
+                telemetry = torch.cat([o.to(torch.int32).reshape(-1) for o in outs[3:]])
+        except BaseException:
+            _retire_pool(device, pool)
+            raise
         finally:
             delta = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
             for k, fn in KERNELS.items():
@@ -463,21 +625,27 @@ class _FusedFrame:
         self.launches = {k: v for k, v in delta.items() if v}
         self.outs, self.telemetry = outs[:3], telemetry
         self.graph = graph
+        members.add(self)
 
-    def launch(self, frame: torch.Tensor, t1: float, t2: float) -> _InFlight:
-        """Enqueue one frame; returns without waiting for the device.
-        ``frame``: (H, W, 3) float32 on the device, or in pinned host memory
-        (copied without blocking)."""
+    def launch(self, frames: torch.Tensor, t1s, t2s, quotas) -> _InFlight:
+        """Enqueue one tick: ``frames`` (S, H, W, C) float32 on the device or
+        in pinned host memory, per-stream thresholds and quotas as sequences
+        of S numbers; returns without waiting for the device."""
         if self.graph is None:
-            th = torch.tensor(t1, dtype=torch.float32, device=frame.device)
-            tl = torch.tensor(t2, dtype=torch.float32, device=frame.device)
-            outs = self.run(frame, th, tl)
-            return _InFlight(*outs[:3], torch.cat([o.to(torch.int32) for o in outs[3:]]),
-                             None, None)
+            dev = frames.device
+            outs = self.run(frames, torch.tensor(t1s, dtype=torch.float32, device=dev),
+                            torch.tensor(t2s, dtype=torch.float32, device=dev),
+                            torch.tensor(quotas, dtype=torch.int64, device=dev))
+            return _InFlight(*outs[:3], torch.cat([o.to(torch.int32).reshape(-1)
+                                                   for o in outs[3:]]), None, None)
         from repro_torch.kernels.ops import KERNELS
-        self.frame.copy_(frame, non_blocking=True)
-        self.t1.fill_(t1)
-        self.t2.fill_(t2)
+        # pinned sources, so the copies queue behind the previous replay
+        # instead of waiting for it
+        thresholds = torch.tensor([list(t1s), list(t2s)], dtype=torch.float32).pin_memory()
+        quota = torch.tensor(list(quotas), dtype=torch.int64).pin_memory()
+        self.inputs[0].copy_(frames, non_blocking=True)
+        self._thresholds.copy_(thresholds, non_blocking=True)
+        self._quotas.copy_(quota, non_blocking=True)
         self.graph.replay()
         for k, v in self.launches.items():
             KERNELS[k].launches += v
@@ -486,14 +654,30 @@ class _FusedFrame:
         image, ids, scores = (o.clone() for o in self.outs)
         done = torch.cuda.Event()
         done.record()
-        return _InFlight(image, ids, scores, telemetry, done, (frame, self))
+        return _InFlight(image, ids, scores, telemetry, done,
+                         (frames, thresholds, quota, self))
+
+
+def _out_shape(geometry: PatchGeometry, cfg: ESSRConfig) -> Tuple[int, int, int]:
+    hp, wp = geometry.padded_hw
+    return (hp * cfg.scale, wp * cfg.scale, cfg.in_channels)
 
 
 def _build_fused_frame(weights, geometry: PatchGeometry, caps: Tuple[int, ...],
                        cfg: ESSRConfig, backend: str, quant, fusion: str, on_poison: str,
                        device: str) -> _FusedFrame:
     run = _fused_run(weights.tree, geometry, caps, cfg, backend, quant, fusion, on_poison)
-    return _FusedFrame(run, tuple(geometry.hw) + (cfg.in_channels,), torch.device(device))
+    return _FusedFrame(_frame_tick(run), 1, tuple(geometry.hw) + (cfg.in_channels,),
+                       _out_shape(geometry, cfg), torch.device(device))
+
+
+def _build_fused_tick(weights, geometry: PatchGeometry, streams: int, caps: Tuple[int, ...],
+                      cfg: ESSRConfig, backend: str, quant, fusion: str, on_poison: str,
+                      device: str) -> _FusedFrame:
+    run = _fused_stream_run(weights.tree, geometry, streams, caps, cfg, backend, quant, fusion,
+                            on_poison)
+    return _FusedFrame(run, streams, tuple(geometry.hw) + (cfg.in_channels,),
+                       _out_shape(geometry, cfg), torch.device(device))
 
 
 #: The fused frames, one per (weights, geometry, capacity profile, backend,
@@ -501,8 +685,13 @@ def _build_fused_frame(weights, geometry: PatchGeometry, caps: Tuple[int, ...],
 #: `_TreeKey`: a graph reads the weights at the addresses it was captured
 #: with. Sized with get_geometry's cache (an evicted geometry re-keys its
 #: frames); `configure_compiled_caches` resizes both. Eviction drops the
-#: frame, and with it the graph and its memory pool.
+#: frame and its graph, whose blocks go back to the shared pool.
 _fused_frame_fn = BoundedCache(_build_fused_frame, maxsize=128)
+
+#: The fused ticks of multi-tenant serving, one per (weights, geometry, live
+#: stream count, capacity profile, backend, quant, fusion, on_poison,
+#: device), in the same pool.
+_fused_stream_fn = BoundedCache(_build_fused_tick, maxsize=128)
 
 
 def _fused_frame_forward(params, frame: torch.Tensor, cfg: ESSRConfig, *,
@@ -517,9 +706,9 @@ def _fused_frame_forward(params, frame: torch.Tensor, cfg: ESSRConfig, *,
     from repro_torch.kernels.megakernel import _TreeKey
     fn = _fused_frame_fn(_TreeKey(params), geometry, tuple(int(c) for c in caps), cfg,
                          backend, quant, fusion, on_poison, str(frame.device))
-    flight = fn.launch(frame, t1, t2)
-    counts, spills, health = flight.wait()
-    return (flight.image, flight.ids, flight.scores, torch.tensor(counts, dtype=torch.int32),
+    flight = fn.launch(frame[None], (t1,), (t2,), (0,))
+    counts, spills, health = (rows[0] for rows in flight.wait())
+    return (flight.image[0], flight.ids, flight.scores, torch.tensor(counts, dtype=torch.int32),
             torch.tensor(spills, dtype=torch.int32), torch.tensor(health, dtype=torch.int32))
 
 
@@ -527,9 +716,11 @@ def _fused_frame_forward(params, frame: torch.Tensor, cfg: ESSRConfig, *,
 # bounded compiled-object caches (runtime-sized, occupancy-observable)
 # ---------------------------------------------------------------------------
 
-#: The process-wide caches of per-frame objects: the fused frames (captured
-#: graphs on the card) and the patch geometries they are keyed on.
-COMPILED_CACHES = {"fused_frame_fn": _fused_frame_fn, "get_geometry": get_geometry}
+#: The process-wide caches of per-frame objects: the fused frames and ticks
+#: (captured graphs on the card) and the patch geometries they are keyed on,
+#: under the reference's names.
+COMPILED_CACHES = {"fused_frame_fn": _fused_frame_fn, "fused_stream_frame_fn": _fused_stream_fn,
+                   "get_geometry": get_geometry}
 
 
 def configure_compiled_caches(maxsize: int) -> None:

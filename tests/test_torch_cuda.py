@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version, and
 the serving path's "cuda" frames (layer and group fusion, and quantized
 under both) against its "ref" frame, its integer reference or its layer
-chain. Marked ``cuda``;
+chain; the fused graphs (frames and multi-tenant ticks, one shared pool a
+device) against host dispatch and solo serving; the degradation ladder on
+the card against the same faults on the CPU. Marked ``cuda``;
 skipped where no CUDA device is visible. Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -763,7 +765,9 @@ def test_fused_inflight_stream_equals_sync_stream(cuda, inflight):
 
 def test_fused_capture_that_fails_raises(cuda, monkeypatch):
     """A host sync inside the captured frame fails the capture, and the
-    frame raises: nothing runs eagerly in its place, nothing is cached."""
+    frame raises: nothing runs eagerly in its place, nothing is cached, and
+    the ladder records the failure without stepping down (on the card only
+    an injected fault steps down)."""
     from repro_torch.core import pipeline as pl
     real = pl._decide
 
@@ -775,6 +779,8 @@ def test_fused_capture_that_fails_raises(cuda, monkeypatch):
     _, fused = _fused_pair(None, "group")
     with pytest.raises(RuntimeError):
         fused.upscale(_fused_frame(4))
+    assert [e["kind"] for e in fused.guard.events] == ["failure"]
+    assert fused.guard.level == 0
     assert pl._fused_frame_fn.occupancy()["size"] == 0
     torch.cuda.synchronize()
     pl._fused_frame_fn.cache_clear()
@@ -795,3 +801,153 @@ def test_fused_eviction_drops_the_graph(cuda):
     finally:
         pl.configure_compiled_caches(128)
         pl._fused_frame_fn.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# one graph pool a device (fault 5), fused ticks, the ladder on the card
+# ---------------------------------------------------------------------------
+
+def test_fused_graphs_share_one_pool(cuda):
+    """Four pinned capacity profiles of one 540x960 frame: four graphs, each
+    frame torch.equal to host dispatch, and the reserved memory grows by far
+    less than the first graph's pool per added graph (private pools grew by
+    a whole pool each)."""
+    from repro_torch.core import pipeline as pl
+    pl._fused_frame_fn.cache_clear()
+    frame = _fused_frame(0, h=540, w=960)
+    host = SREngine.from_config(ESSRConfig(scale=4), seed=5)
+    want = host.upscale(frame).image
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    reserved, engines = [], []
+    for j in range(4):
+        eng = SREngine(host.model, plan=ExecutionPlan(dispatch="fused",
+                                                      capacity=(0, 256 + 64 * j, 256)))
+        r = eng.upscale(frame)
+        assert r.spill_counts == (0, 0, 0) and torch.equal(r.image, want)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved() - base)
+        engines.append(eng)
+    graphs = pl._fused_frame_fn.values()
+    assert len(graphs) == 4 and graphs[0].pool_bytes > 0
+    assert reserved[-1] - reserved[0] < 3 * graphs[0].pool_bytes / 4
+    del engines, graphs
+    pl._fused_frame_fn.cache_clear()
+
+
+TICK_MODES = [(None, "layer"), (None, "group"), ("int8", "group")]
+
+
+@pytest.mark.parametrize("quant,fusion", TICK_MODES)
+def test_fused_tick_equals_solo_frames(cuda, monkeypatch, quant, fusion):
+    """Three tenants (3, 3 and 2 frames) with pinned capacity: each tenant's
+    frames torch.equal to the same tenant served solo, round-robin order,
+    one graph per live count (3, then 2), and a second run replays without
+    a capture or a wrapper call, its launches the captures' deltas."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.adaptive import SwitchingConfig
+    stable = SwitchingConfig(frame_high=10 ** 9, frame_low=0)
+    tenants = [[_fused_frame(10 * s + i) for i in range(n)] for s, n in enumerate((3, 3, 2))]
+    plan = ExecutionPlan(dispatch="fused", quant=quant, fusion=fusion, capacity=(0, 24, 24))
+    solo = SREngine.from_config(ESSRConfig(scale=4), seed=5, plan=plan, switching=stable)
+    mux = SREngine(solo.model, plan=plan.replace(streams=3), switching=stable)
+    got = list(mux.serve_streams(tenants))
+    assert [r.stream_id for r in got] == [0, 1, 2, 0, 1, 2, 0, 1]
+    for s in range(3):
+        one = SREngine(solo.model, plan=plan, switching=stable)
+        for a, b in zip([r for r in got if r.stream_id == s], one.stream(tenants[s])):
+            assert a.counts == b.counts and a.spill_counts == b.spill_counts == (0, 0, 0)
+            assert torch.equal(a.ids, b.ids) and torch.equal(a.image, b.image)
+            assert a.backend == b.backend and a.dispatch == "fused"
+    ticks = pl._fused_stream_fn.values()
+    assert sorted(t.streams for t in ticks) == [2, 3] and all(t.graph is not None for t in ticks)
+    misses = pl._fused_stream_fn.occupancy()["misses"]
+    calls = _entry_calls(monkeypatch)
+    ops.reset_launch_counts()
+    again = list(mux.serve_streams(tenants))
+    assert calls == [] and pl._fused_stream_fn.occupancy()["misses"] == misses
+    want = {}
+    for t, n_ticks in zip(sorted(ticks, key=lambda t: t.streams), (1, 2)):
+        for k, v in t.launches.items():
+            want[k] = want.get(k, 0) + n_ticks * v
+    assert {k: v for k, v in ops.launch_counts().items() if v} == want
+    for a, b in zip(got, again):
+        assert torch.equal(a.image, b.image)
+    del ticks
+    pl._fused_stream_fn.cache_clear()
+    pl._fused_frame_fn.cache_clear()
+
+
+def test_fused_ticks_in_flight_equal_synchronous(cuda):
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.adaptive import SwitchingConfig
+    stable = SwitchingConfig(frame_high=10 ** 9, frame_low=0)
+    tenants = [[_fused_frame(20 * s + i) for i in range(n)] for s, n in enumerate((4, 3))]
+    runs = {}
+    for n in (1, 2):
+        eng = SREngine.from_config(ESSRConfig(scale=4), seed=5, switching=stable,
+                                   plan=ExecutionPlan(dispatch="fused", streams=2, inflight=n))
+        runs[n] = list(eng.serve_streams(tenants))
+    assert [r.stream_id for r in runs[1]] == [r.stream_id for r in runs[2]] == [0, 1] * 3 + [0]
+    for a, b in zip(runs[1], runs[2]):
+        assert a.counts == b.counts and torch.equal(a.image, b.image)
+    pl._fused_stream_fn.cache_clear()
+
+
+def test_ladder_steps_down_on_the_card(cuda):
+    """Injected backend failures on every launch: the fp32 group engine
+    steps to the layer chain, then to the plain model, then retries at the
+    floor; each frame says what served it, the layer frame is torch.equal
+    to the group frame of an engine without faults, and the ledger equals
+    the same engine's on the CPU."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.runtime.guard import FaultPlan
+    plan = ExecutionPlan(dispatch="fused", fusion="group",
+                         faults=FaultPlan(seed=4, backend_failure_rate=1.0))
+    frames = [_fused_frame(s) for s in range(3)]
+    card = SREngine.from_config(ESSRConfig(scale=4), seed=5, plan=plan)
+    outs = [card.upscale(f) for f in frames]
+    assert [o.degraded for o in outs] == [("fusion:group->layer",), ("backend:->ref",),
+                                          ("retry",)]
+    assert [o.backend for o in outs] == ["cuda", "ref", "ref"]
+    clean = SREngine(card.model, plan=plan.replace(faults=None))
+    assert torch.equal(outs[0].image, clean.upscale(frames[0]).image)
+    want = clean.upscale(frames[1]).image
+    np.testing.assert_allclose(outs[1].image.cpu().numpy(), want.cpu().numpy(), **CHAIN_TOL)
+    assert clean.guard.level == 0 and clean.guard.events == []
+    cpu = SREngine.from_config(ESSRConfig(scale=4), seed=5, plan=plan, device="cpu")
+    for f in frames:
+        cpu.upscale(f)
+    assert card.summary()["degradations"] == cpu.summary()["degradations"]
+    pl._fused_frame_fn.cache_clear()
+
+
+@pytest.mark.parametrize("tenants", [1, 2])
+def test_kernel_failure_without_faults_raises_on_the_card(cuda, monkeypatch, tenants):
+    """A kernel entry that fails on the card, with no FaultPlan (capacity
+    pinned, so the first launch is the capture's warm-up): the frame (or the
+    tick) raises, the ladder stays at level 0 with one "failure"
+    event, and nothing is served by the plain versions in its place."""
+    from repro_torch.core import pipeline as pl
+    from repro_torch.kernels import _build
+    pl._fused_frame_fn.cache_clear()
+    pl._fused_stream_fn.cache_clear()
+
+    def broken(*args):
+        raise RuntimeError("kernel entry failed")
+
+    monkeypatch.setattr(_build, "entry", broken)
+    eng = SREngine.from_config(ESSRConfig(scale=4), seed=5,
+                               plan=ExecutionPlan(dispatch="fused", fusion="group",
+                                                  streams=tenants, capacity=(0, 24, 24)))
+    frames = [[_fused_frame(s)] for s in range(tenants)]
+    with pytest.raises(RuntimeError, match="kernel entry failed"):
+        if tenants == 1:
+            eng.upscale(frames[0][0])
+        else:
+            list(eng.serve_streams(frames))
+    assert eng.guard.level == 0 and [e["kind"] for e in eng.guard.events] == ["failure"]
+    assert pl._fused_frame_fn.occupancy()["size"] == 0
+    assert pl._fused_stream_fn.occupancy()["size"] == 0
+    torch.cuda.synchronize()

@@ -161,7 +161,15 @@ def test_plan_validation_text_matches_reference():
                dict(buckets=(16, 8)), dict(on_poison="loud"), dict(dispatch="gpu"),
                dict(capacity=(0, -1, 4)), dict(capacity=("a", 2)), dict(inflight=0),
                dict(inflight=2), dict(inflight=2, dispatch="host"),
-               dict(dispatch="fused", inflight=1.5)]:
+               dict(dispatch="fused", inflight=1.5),
+               # multi-stream and resilience fields (field rules, then cross rules)
+               dict(streams=0), dict(streams=True), dict(streams=2),
+               dict(streams=2, dispatch="fused", subnet_policy="all_c54"),
+               dict(streams=2, dispatch="fused", stream_shares=(1.0,)),
+               dict(stream_shares=(0.0,)), dict(stream_shares=(float("inf"),)),
+               dict(stream_shares=("a",)), dict(stream_shares=()), dict(faults="chaos"),
+               dict(max_retries=-1), dict(max_retries=1.0), dict(quarantine_ticks=-2),
+               dict(watchdog_s=0.0), dict(watchdog_s=1.0), dict(watchdog_s=True)]:
         with pytest.raises(ValueError) as mine:
             ExecutionPlan(**kw)
         with pytest.raises(ValueError) as theirs:
@@ -174,6 +182,19 @@ def test_plan_validation_text_matches_reference():
         mine, theirs = ExecutionPlan(**kw), JPlan(**kw)   # constructs, as in the reference
         assert (mine.fusion, mine.quant, mine.dispatch, mine.capacity, mine.inflight) == \
             (theirs.fusion, theirs.quant, theirs.dispatch, theirs.capacity, theirs.inflight)
+    from repro.runtime.guard import FaultPlan as JFaultPlan
+    from repro_torch.runtime.guard import FaultPlan
+    fields = ("streams", "stream_shares", "max_retries", "quarantine_ticks", "watchdog_s")
+    for kw in [dict(), dict(dispatch="fused", streams=3, stream_shares=[2, 1, 1]),
+               dict(dispatch="fused", streams=2, max_retries=0, quarantine_ticks=3,
+                    watchdog_s=0.25)]:
+        mine, theirs = ExecutionPlan(**kw), JPlan(**kw)
+        assert [getattr(mine, f) for f in fields] == [getattr(theirs, f) for f in fields]
+        assert mine.faults is theirs.faults is None
+        hash(mine)                                       # frozen and hashable
+    fkw = dict(seed=3, poison_rate=0.5, poison_kinds=["nan", "inf"], target_streams=[1])
+    assert ExecutionPlan(faults=FaultPlan(**fkw)).faults == FaultPlan(**fkw)
+    assert JPlan(faults=JFaultPlan(**fkw)).faults.poison_kinds == FaultPlan(**fkw).poison_kinds
     # quant under fusion="group": the "cuda" engine serves the quantized
     # megakernel, the "ref" engine (which ignores fusion) the fake-quant model
     plan = ExecutionPlan(quant="int8", fusion="group")
@@ -182,6 +203,47 @@ def test_plan_validation_text_matches_reference():
     assert r.backend == "cuda-plain-int8" and tuple(r.image.shape) == (64, 64, 3)
     r = SREngine.from_config(CFG, plan=plan, backend="ref", device="cpu").upscale(frame)
     assert r.backend == "ref-int8" and tuple(r.image.shape) == (64, 64, 3)
+
+
+def test_public_signatures_accept_the_reference_arguments(engines, tmp_path, capsys):
+    """Every parameter of the reference's public SREngine and ExecutionPlan
+    methods is a parameter of the port's, under the same name, except the
+    documented ones: the constructor's ``(params, cfg)`` (the port's is
+    ``from_params``), ``interpret`` (no interpreter) and ``shards`` (the
+    sharded stream is not ported yet). Then the two that were missing,
+    called as the reference's callers call them."""
+    import inspect
+    exempt = {("__init__", "params"), ("__init__", "cfg")}
+    checked = 0
+    for mine, theirs in ((SREngine, JEngine), (ExecutionPlan, JPlan)):
+        for name, attr in vars(theirs).items():
+            if (name.startswith("_") and name != "__init__") or not callable(attr) \
+                    and not isinstance(attr, classmethod):
+                continue
+            want = inspect.signature(getattr(theirs, name)).parameters
+            have = inspect.signature(getattr(mine, name)).parameters
+            for pname in want:
+                if (name, pname) in exempt or pname in ("interpret", "shards"):
+                    continue
+                assert pname in have, f"{mine.__name__}.{name} lacks {pname!r}"
+                checked += 1
+    assert checked > 40
+    assert inspect.signature(ExecutionPlan.geometry).parameters["device"].default == "cuda"
+    g = ExecutionPlan().geometry(64, 64, 2, "cpu")
+    jg = JPlan().geometry(64, 64, 2)
+    assert g.n == jg.n == 9 and np.array_equal(g.pos, np.asarray(jg.pos))
+    pytest.importorskip("msgpack")
+    pytest.importorskip("zstandard")
+    from repro.ckpt.checkpoint import CheckpointManager
+    ref, _ = engines
+    CheckpointManager(str(tmp_path / "ck")).save(1, {"params": ref.params, "ema": ref.params})
+    capsys.readouterr()
+    JEngine.from_checkpoint(str(tmp_path / "ck"), cfg=JCFG, bench_cache=None, verbose=True)
+    theirs = capsys.readouterr().out
+    port = SREngine.from_checkpoint(str(tmp_path / "ck"), cfg=CFG, bench_cache=None,
+                                    verbose=True, device="cpu")
+    assert capsys.readouterr().out == theirs == f"(restored 'ema' weights from {tmp_path / 'ck'})\n"
+    assert port.backend_label == "cuda-plain"
 
 
 def test_engine_runs_on_the_card_unless_asked(monkeypatch):
