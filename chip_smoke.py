@@ -2,10 +2,11 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multicard    # phases 1, 2 and 25 over every card
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
-8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 10; any failure
-exits non-zero before the last line:
+8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 25, 26, 10; any
+failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -175,7 +176,32 @@ exits non-zero before the last line:
      that raises retires its stream alone; the ledgers equal the CPU's.
      Then every engine of the run built without a FaultPlan must have left
      its ladder at level 0 with no degrade or watchdog event ("ladder"); a
-     "streams:" JSON line before the kernels line holds phases 22-24.
+     "streams:" JSON line before the kernels line holds phases 22-24;
+ 25. the sharded patch stream ("shards"): the three frames under
+     ExecutionPlan(shards=4) on the one card warn as the reference does
+     (single-device dispatch, per-shard routing unchanged); each frame's ids
+     and per-shard thresholds equal a host-only ShardSwitcherBank fed the
+     same scores, its image torch.equal to upscale(ids_override=ids) at
+     shards=1, the layer kernels launched for its buckets; the split forward
+     over cuda:0 named four times torch.equal to the unsplit kernels at
+     N = 2,303 in fp32 layer and group and int8 layer and group, every
+     kernel of the mode launched once a chunk; an impossible deadline
+     demotes the overloaded top strip alone. With --multicard, on a host of
+     several cards, phase 25 runs alone after the build, over the first
+     min(4, cards) cards: the frames' chunks and the split forward on their
+     own cards (each must hold its weight copy), still torch.equal to one
+     card, the split timed beside the unsplit forward, fused dispatch
+     refused (ROADMAP item 12b);
+ 26. supernet training ("train"): ESSRConfig(scale=4) (C54, 5 SFBs) from a
+     seeded init, patch_batches(batch=16, lr_patch=24), Lamb with a cosine
+     lr of 3e-3, TF32 off: the first three steps' losses (rtol 1e-4) and
+     weights (within 1e-4 of each leaf's max) equal to the same steps on the
+     CPU; then 100 steps, whose loss must fall, with steps a second and peak
+     memory beside the card; the megakernel's gradients at C27 and C54, N =
+     16 32x32, against the plain forward's (normalized atol 1e-3), one mega
+     launch each; two GAN steps; a checkpoint written from the card served
+     by SREngine.from_checkpoint, torch.equal to from_params of the same
+     EMA; a "train:" JSON line before the kernels line holds phases 25-26.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -223,6 +249,15 @@ TENANT_SHARES = (2.0, 1.0, 1.0, 1.0)
 TENANT_CAPACITY = (0, 256, 256)
 #: Phase 24: the tenants' frame size, small enough to serve on the CPU too.
 FAULT_HW = (96, 160)
+#: Phase 25: the logical shards, and the patches of the split forward (not a
+#: multiple of SHARDS, so the last chunk is padded).
+SHARDS, SHARD_N = 4, 2303
+#: Phase 25 on several cards: the timed calls of the split and unsplit forward.
+SHARD_REPEATS = 7
+#: Phase 26: the training batch (the reference launcher's 16 LR patches of
+#: 24x24), the first steps held against the CPU, then the steps timed.
+TRAIN_BATCH, TRAIN_PATCH = 16, 24
+TRAIN_CHECK, TRAIN_STEPS = 3, 100
 #: Every engine the phases construct: (phase, its guard, its FaultPlan). A
 #: phase without a FaultPlan must leave the ladder where it started.
 GUARDS = []
@@ -1210,7 +1245,344 @@ def fault_phase(engine, torch) -> dict:
     return report
 
 
+def shard_phase(engine, frames, torch) -> dict:
+    """25. The sharded patch stream: the three 1080p frames under
+    ExecutionPlan(shards=SHARDS) warn as the reference does (on one card:
+    single-device dispatch); each frame's ids and per-shard thresholds
+    equal a host-only ShardSwitcherBank fed the same scores; each image
+    torch.equal to upscale(frame, ids_override=ids) at shards=1 on one card.
+    Then the split forward, torch.equal to the unsplit kernels at N =
+    SHARD_N (not a multiple of SHARDS) in fp32 layer and group and int8
+    layer and group, each kernel of the mode launched once a chunk; then an
+    impossible deadline demotes the overloaded strip alone. On one card the
+    split runs over the card named SHARDS times. On several (``--multicard``)
+    the frames and the split run over the first min(SHARDS, cards) cards,
+    each of which must hold its weight copy, the split is timed beside the
+    unsplit forward, and fused dispatch must refuse the devices (ROADMAP
+    item 12b)."""
+    import tempfile
+    import warnings
+    import numpy as np
+    from repro_torch.api import ExecutionPlan, SREngine
+    from repro_torch.core import subnet_policy as sp
+    from repro_torch.core.adaptive import ShardSwitcherBank, SwitchingConfig
+    from repro_torch.core.pipeline import _sharded_forward, resolve_forward
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_patch_devices
+    dev = engine.device
+    plan = ExecutionPlan(shards=SHARDS)
+    cards = torch.cuda.device_count()
+    spread = min(SHARDS, cards)
+    if cards == 1:
+        want_warnings = [f"plan.shards={SHARDS} on a single-device host; dispatch falls back "
+                         f"to one device (per-shard routing control unchanged)"]
+    elif cards < SHARDS:
+        want_warnings = [f"plan.shards={SHARDS} but only {cards} devices visible; dispatching "
+                         f"over {cards} (per-shard routing control unchanged)"]
+    else:
+        want_warnings = []
+    want_devices = None if cards == 1 else make_patch_devices(spread)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sharded = SREngine(engine.model, plan=plan, device=dev)
+    texts = [str(w.message) for w in caught]
+    say(f"phase shards: {cards} card(s) visible; devices {sharded.devices}; warnings {texts}")
+    if texts != want_warnings or sharded.devices != want_devices:
+        fail(f"plan.shards={SHARDS} on {cards} card(s) did not warn or pick its devices as "
+             f"the reference does")
+    single = SREngine(engine.model, device=dev)
+    shadow = ShardSwitcherBank(SwitchingConfig(), SHARDS)
+    macs = sp.SubnetMacs.make(sharded.cfg, plan.patch)
+    report = {"cards": cards, "warnings": texts, "frames": []}
+    reset_launch_counts()
+    served = [sharded.serve(f) for f in frames]
+    launches = launch_counts()
+    for i, (f, r) in enumerate(zip(frames, served)):
+        slices = plan.geometry(*f.shape[:2], sharded.cfg.scale, dev).shard_slices(SHARDS)
+        ids = shadow.assign(r.scores, slices)
+        counts = [sp.subnet_counts(ids[sl]) for sl in slices]
+        shadow.note_frame(r.deadline_missed, [macs.total(c) for c in counts])
+        alone = single.upscale(f, ids_override=r.ids)
+        ok_ids = np.array_equal(r.ids, ids) and r.shard_thresholds == shadow.thresholds
+        same = torch.equal(r.image, alone.image)
+        say(f"phase shards frame {i}: shard counts {r.shard_counts}, thresholds "
+            f"{r.shard_thresholds}, ids and thresholds equal to a host-only bank {ok_ids}, "
+            f"image torch.equal to upscale(ids_override=ids) at shards=1 {same}")
+        if not (ok_ids and same and list(r.shard_counts) == counts):
+            fail(f"sharded frame {i} disagrees with the host-only bank or its "
+                 f"ids_override frame")
+        report["frames"].append({"shard_counts": r.shard_counts,
+                                 "shard_thresholds": r.shard_thresholds})
+    # on several cards every conv bucket runs as one chunk a card
+    conv = sum(1 for r in served for c in (r.counts[1], r.counts[2]) if c)
+    conv *= 1 if cards == 1 else spread
+    want = {"edge": len(frames), "bsconv": conv, "sfb": 5 * conv, "dsconv": conv}
+    say(f"phase shards launches: {launches} (expected {want} and nothing else)")
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        fail("the sharded frames did not launch the layer kernels of their buckets")
+    # the split forward (over the card named SHARDS times, or over the
+    # cards), against the unsplit kernels on the first card
+    cfg = sharded.cfg
+    x = torch.rand((SHARD_N, 32, 32, 3), generator=torch.Generator().manual_seed(SEED)).to(dev)
+    alphas = tempfile.mkdtemp(prefix="essr_alphas_")
+    qeng = SREngine(engine.model, plan=ExecutionPlan(quant="int8"), device=dev,
+                    quant_cache=alphas)
+    devices = (torch.device("cuda", 0),) * SHARDS if cards == 1 else want_devices
+    where = "cuda:0" if cards == 1 else f"cuda:0..{spread - 1}"
+    kernels = {("fp32", "layer"): ("bsconv", "sfb", "dsconv"), ("fp32", "group"): ("mega",),
+               ("int8", "layer"): ("quantize", "qbsconv", "qsfb", "qdsconv"),
+               ("int8", "group"): ("qmega",)}
+    report["split"] = {}
+    with torch.inference_mode():
+        for (mode, fusion), ks in kernels.items():
+            pack = qeng.qpack if mode == "int8" else None
+            reset_launch_counts()
+            got = _sharded_forward(engine.params, x, cfg, 54, devices=devices, backend="cuda",
+                                   quant=pack, fusion=fusion)
+            torch.cuda.synchronize()
+            split = launch_counts()
+            want_out = resolve_forward("cuda", pack, fusion)(engine.params, x, cfg, 54)
+            same = torch.equal(got, want_out)
+            per = {k: split[k] for k in ks}
+            say(f"phase shards split {mode} {fusion}: N={SHARD_N} over {len(devices)} chunks "
+                f"of {-(-SHARD_N // len(devices))} on {where}, torch.equal to the unsplit "
+                f"forward {same}; launches {per}")
+            expect = {q: (5 if q in ("sfb", "qsfb") else 1) * len(devices) for q in ks}
+            if not same or per != expect:
+                fail(f"the split {mode} {fusion} forward differs from the unsplit one or "
+                     f"launched {per} (expected {expect})")
+            report["split"][f"{mode} {fusion}"] = {"equal": same, "launches": per}
+            del got, want_out
+        if cards > 1:
+            report["multicard"] = multicard_checks(engine, sharded, frames[0], x, devices,
+                                                   torch)
+    # an impossible deadline: the noisy top strip is the overload, demoted alone
+    h, w = frames[0].shape[:2]
+    top = np.broadcast_to(np.linspace(0, 1, w, dtype=np.float32)[None, :, None],
+                          (h, w, 3)).copy()
+    top[: h // SHARDS] = np.random.default_rng(SEED).random((h // SHARDS, w, 3), np.float32)
+    flat = SwitchingConfig(c54_per_sec_budget=10 ** 9, frame_high=10 ** 9, frame_low=0)
+    late = SREngine(engine.model, plan=plan, device=dev, deadline_s=1e-9, switching=flat)
+    r1, r2 = late.serve(top), late.serve(top)
+    base = flat.t1, flat.t2
+    say(f"phase shards deadline: shard C54 counts {[c[2] for c in r1.shard_counts]} -> "
+        f"{[c[2] for c in r2.shard_counts]}, demoted {r1.shard_deadline_missed}, thresholds "
+        f"{r2.shard_thresholds}")
+    heavy = r1.shard_deadline_missed
+    if not (r1.deadline_missed and heavy[0] and not any(heavy[1:])
+            and r2.shard_thresholds[0] > r1.shard_thresholds[0] > base
+            and all(t == base for t in r2.shard_thresholds[1:])
+            and r2.shard_counts[0][2] <= r1.shard_counts[0][2]):
+        fail("the missed deadline did not demote the overloaded strip alone")
+    report["deadline"] = {"demoted": heavy, "thresholds": r2.shard_thresholds,
+                          "c54": [[c[2] for c in r.shard_counts] for r in (r1, r2)]}
+    torch.cuda.empty_cache()
+    return report
+
+
+def multicard_checks(engine, sharded, frame, x, devices, torch) -> dict:
+    """Phase 25 on several cards: each card holds its copy of the weights,
+    the fp32 group split over the cards is timed beside the unsplit forward
+    on the first card (every card synchronized around each call: a median
+    wall time), and fused dispatch refuses the
+    devices (item 12b)."""
+    from repro_torch.api import SREngine
+    from repro_torch.core.pipeline import _sharded_forward, resolve_forward
+    held = [torch.cuda.memory_allocated(d) for d in devices]
+    say(f"phase shards cards: bytes allocated a card after the split {held}")
+    if not all(held):
+        fail("a card of the split holds nothing: its chunk did not run there")
+
+    def wall_ms(fn) -> float:
+        times = []
+        for _ in range(SHARD_REPEATS):
+            for d in devices:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            fn()
+            for d in devices:
+                torch.cuda.synchronize(d)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    with torch.inference_mode():
+        whole = resolve_forward("cuda", None, "group")
+        split_ms = wall_ms(lambda: _sharded_forward(engine.params, x, engine.cfg, 54,
+                                                    devices=devices, fusion="group"))
+        one_ms = wall_ms(lambda: whole(engine.params, x, engine.cfg, 54))
+    say(f"phase shards cards time: fp32 group, N={SHARD_N} 32x32 at C54: over {len(devices)} "
+        f"cards {split_ms:.3f} ms, on one card {one_ms:.3f} ms (median wall of "
+        f"{SHARD_REPEATS}, copies included)")
+    fused = SREngine(engine.model, plan=sharded.plan.replace(dispatch="fused"),
+                     device=engine.device)
+    try:
+        fused.serve(frame)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    say(f"phase shards cards fused: {refused or 'served, not refused'}")
+    if "12b" not in refused:
+        fail("fused dispatch over several cards was not refused")
+    return {"bytes_held": held, "split_ms": split_ms, "one_card_ms": one_ms,
+            "fused_refused": refused}
+
+
+def train_phase(torch) -> dict:
+    """26. Supernet training at full width on the card: ESSRConfig(scale=4)
+    (C54, 5 SFBs) from a seeded init, patch_batches(batch=TRAIN_BATCH,
+    lr_patch=TRAIN_PATCH), Lamb with a cosine lr of 3e-3, TF32 off. The
+    first TRAIN_CHECK steps' losses and weights against the same steps on
+    the CPU (rtol 1e-4; weights within 1e-4 of each leaf's max); then
+    TRAIN_STEPS steps: the loss must fall (first against the mean of the
+    last 10), steps a second and peak memory. The megakernel's gradients at
+    C54, N = 16 32x32 patches, against the plain forward's (normalized atol
+    1e-3), with its launches counted; two GAN steps; a checkpoint written
+    from the card served by SREngine.from_checkpoint, torch.equal to
+    from_params of the same EMA."""
+    import tempfile
+    import numpy as np
+    from repro_torch.api import SREngine
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import patch_batches
+    from repro_torch.kernels.megakernel import essr_forward_megakernel
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.essr import ESSRConfig, essr_forward, init_essr
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.gan import train_essr_gan
+    from repro_torch.train.trainer import train_essr_supernet
+    cfg = ESSRConfig(scale=4)
+    dev = torch.device("cuda")
+    steps = TRAIN_CHECK + TRAIN_STEPS
+    t0 = time.perf_counter()
+    data = patch_batches(SEED, batch=TRAIN_BATCH, lr_patch=TRAIN_PATCH, scale=cfg.scale,
+                         device=dev)
+    first = [next(data) for _ in range(TRAIN_CHECK)]
+    say(f"phase train data: a pool of 16 256x256 HR images and the first {TRAIN_CHECK} "
+        f"batches in {time.perf_counter() - t0:.1f} s")
+    report = {"card": card_line(), "batch": TRAIN_BATCH, "lr_patch": TRAIN_PATCH}
+    # the first steps on the card and on the CPU, from the same weights and batches
+    runs = {}
+    for where in ("cuda", "cpu"):
+        model = init_essr(cfg, torch.Generator().manual_seed(SEED)).to(where)
+        batches = iter([(a.to(where), b.to(where)) for a, b in first])
+        opt = O.lamb(O.cosine_decay(3e-3, steps))
+        m, ema, hist = train_essr_supernet(model, cfg, batches, TRAIN_CHECK, opt=opt, seed=SEED,
+                                           log_every=0)
+        runs[where] = ([p.detach().cpu() for p in tree_leaves(m.tree())], hist)
+    (card_w, card_h), (cpu_w, cpu_h) = runs["cuda"], runs["cpu"]
+    loss_ok = np.allclose(card_h, cpu_h, rtol=1e-4, atol=0)
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+                for a, b in zip(card_w, cpu_w))
+    say(f"phase train check: {TRAIN_CHECK} steps, losses card {card_h} cpu {cpu_h} (rtol 1e-4 "
+        f"{'ok' if loss_ok else 'MISMATCH'}); weights worst leaf max_abs / leaf max "
+        f"{worst:.3e} (1e-4)")
+    if not loss_ok or worst > 1e-4:
+        fail("the first training steps on the card disagree with the same steps on the CPU")
+    report.update(check_losses_card=card_h, check_losses_cpu=cpu_h, check_worst_leaf=worst)
+    # TRAIN_STEPS steps on the card: the loss falls; steps a second, peak memory
+    warm = init_essr(cfg, torch.Generator().manual_seed(SEED + 1)).to(dev)
+    train_essr_supernet(warm, cfg, iter(first), 1, log_every=0)      # warm-up, thrown away
+    del warm
+    model = init_essr(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+    opt = O.lamb(O.cosine_decay(3e-3, TRAIN_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()         # earlier phases' tensors and the model
+    t0 = time.perf_counter()
+    model, ema, hist = train_essr_supernet(model, cfg, data, TRAIN_STEPS, opt=opt, seed=SEED,
+                                           log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    last = float(np.mean(hist[-10:]))
+    say(f"phase train: {TRAIN_STEPS} steps at C54 x4, batch {TRAIN_BATCH} of {TRAIN_PATCH}x"
+        f"{TRAIN_PATCH} LR patches, Lamb cosine 3e-3, TF32 off: loss {hist[0]:.5f} -> mean of "
+        f"the last 10 {last:.5f}; {TRAIN_STEPS / wall:.2f} steps/s "
+        f"({wall * 1e3 / TRAIN_STEPS:.2f} ms a step incl. the data and a loss copy a step); "
+        f"peak memory allocated {peak:.1f} "
+        f"MiB above the {held / 2 ** 20:.1f} MiB held before ({card_line()})")
+    if not (np.all(np.isfinite(hist)) and last < hist[0]):
+        fail("the training loss did not fall")
+    report.update(steps=TRAIN_STEPS, loss_first=hist[0], loss_last10=last,
+                  steps_per_s=TRAIN_STEPS / wall, peak_mib=peak)
+    # three more steps under the profiler: device kernels a step, busy share
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_essr_supernet(model, cfg, data, 3, opt=O.lamb(3e-3), seed=SEED, log_every=0)
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) / 3
+    dev_rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "Activity Buffer" not in e.key]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in dev_rows) / 1e3 / 3
+    kernels = sum(e.count for e in dev_rows) / 3
+    say(f"phase train profile: {kernels:.0f} device kernels a step, device busy {busy:.3f} ms "
+        f"of a profiled step's {pwall * 1e3:.2f} ms wall (idle share "
+        f"{max(0.0, 1 - busy / (pwall * 1e3)):.3f}); the most launched:")
+    for e in sorted(dev_rows, key=lambda e: -e.count)[:6]:
+        ms = getattr(e, "self_device_time_total", 0) / 3e3
+        say(f"  x{e.count / 3:6.0f} a step, {ms:.3f} ms  {e.key[:90]}")
+    report.update(kernels_per_step=kernels, busy_ms_per_step=busy, profiled_step_ms=pwall * 1e3)
+    # the megakernel's gradients on the card at C54
+    x = torch.rand((16, 32, 32, 3), generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    params = model.tree()
+    leaves = tree_leaves(params)
+    worst = 0.0
+    for width in (27, 54):
+        xg = x.clone().requires_grad_(True)
+        reset_launch_counts()
+        out = essr_forward_megakernel(params, xg, cfg, width=width)
+        got = torch.autograd.grad(torch.sum(out ** 2), [xg] + leaves)
+        torch.cuda.synchronize()
+        mega = launch_counts()["mega"]
+        want = torch.autograd.grad(torch.sum(essr_forward(params, xg, cfg, width=width) ** 2),
+                                   [xg] + leaves)
+        err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6)
+                  for a, b in zip(got, want))
+        worst = max(worst, err)
+        say(f"phase train mega grad C{width}: N=16 32x32, {mega} mega launch(es), the gradient "
+            f"of x and {len(leaves)} weight leaves against the plain forward's, worst "
+            f"normalized max_abs {err:.3e} (atol 1e-3)")
+        if err > 1e-3 or mega != 1:
+            fail("the megakernel's gradient disagrees with the plain forward's")
+    report["mega_grad_worst"] = worst
+    # two GAN steps
+    _, _, ghist = train_essr_gan(model, cfg, data, 2, seed=SEED, log_every=0)
+    say(f"phase train gan: 2 steps, (G, D) losses {ghist}")
+    if len(ghist) != 2 or not np.all(np.isfinite(ghist)):
+        fail("the GAN steps did not run")
+    report["gan"] = ghist
+    # a checkpoint from the card, served
+    ckdir = tempfile.mkdtemp(prefix="essr_ckpt_")
+    CheckpointManager(ckdir).save(steps, {"params": model.tree(), "ema": ema})
+    frame = mixed_frame(SEED + 7, 270, 480)
+    a = SREngine.from_checkpoint(ckdir, cfg=cfg, device=dev).upscale(frame)
+    b = SREngine.from_params(params_to_numpy_tree(ema), cfg, device=dev).upscale(frame)
+    same = torch.equal(a.image, b.image)
+    say(f"phase train checkpoint: written from the card to {ckdir}, SREngine.from_checkpoint "
+        f"torch.equal to from_params of the same EMA {same}")
+    if not same:
+        fail("the checkpoint's EMA serves differently from the same EMA through from_params")
+    report["checkpoint_equal"] = same
+    torch.cuda.empty_cache()
+    return report
+
+
+def params_to_numpy_tree(tree):
+    """A param tree of tensors as numpy leaves (the form from_params takes)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_numpy_tree(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
 def main() -> None:
+    multicard = sys.argv[1:] == ["--multicard"]
+    if sys.argv[1:] and not multicard:
+        fail(f"usage: python3 {Path(__file__).name} [--multicard]")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1252,6 +1624,17 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _build.build(["bsconv", "sfb", "dsconv", "mega", "qconv", "qsfb", "qmega", "edge"])
     say(f"phase build: {time.perf_counter() - t0:.1f} s")
+    if multicard:
+        # phase 25 alone, over the cards of this host
+        if torch.cuda.device_count() < 2:
+            fail(f"--multicard needs two cards or more, {torch.cuda.device_count()} visible")
+        engine = SREngine.from_config(ESSRConfig(scale=4), seed=SEED, device="cuda")
+        report = shard_phase(engine, [mixed_frame(SEED + i) for i in range(3)], torch)
+        say(card)
+        say("shards: " + json.dumps(report))
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                               "count": torch.cuda.device_count()}}))
+        return
     for lib, rep in reports.items():
         for line in rep.splitlines():
             if "Compiling entry function" in line:
@@ -2098,6 +2481,8 @@ def main() -> None:
     pool_report = pool_phase(engine, frames, torch)
     stream_report = stream_phase(engine, torch)
     fault_report = fault_phase(engine, torch)
+    shard_report = shard_phase(engine, frames, torch)
+    train_report = train_phase(torch)
 
     # no phase without a FaultPlan moved the ladder
     moved = [(phase, g.level, g.summary()["by_kind"]) for phase, g, faults in GUARDS
@@ -2143,6 +2528,7 @@ def main() -> None:
     say("fused: " + json.dumps(fused_report))
     say("streams: " + json.dumps({"pools": pool_report, "streams": stream_report,
                                   "faults": fault_report}))
+    say("train: " + json.dumps({"shards": shard_report, "train": train_report}))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

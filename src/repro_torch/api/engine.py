@@ -68,13 +68,15 @@ import torch
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.result import FrameResult, summarize_stats
 from repro_torch.core import subnet_policy as sp
-from repro_torch.core.adaptive import AdaptiveSwitcher, StreamSwitcherBank, SwitchingConfig
+from repro_torch.core.adaptive import (AdaptiveSwitcher, ShardSwitcherBank, StreamSwitcherBank,
+                                       SwitchingConfig)
 from repro_torch.core.pipeline import (BACKENDS, _edge_selective_sr, _fused_frame_fn,
                                        _health_counts, _host_scores, _sanitize,
                                        _sr_all_patches_result, _sr_whole,
                                        compiled_cache_occupancy, configure_compiled_caches,
                                        snap_capacity)
 from repro_torch.kernels.megakernel import _TreeKey
+from repro_torch.launch.mesh import make_patch_devices
 from repro_torch.models.essr import ESSR, ESSRConfig
 from repro_torch.runtime.guard import FaultInjector, PoisonFrameError, ResilienceGuard
 
@@ -105,6 +107,20 @@ def default_calibration_batch(patch: int, scale: int, n: int = 16,
                         for i in range(n)])
 
 
+def _serving_copy(model: ESSR, device: torch.device) -> ESSR:
+    """The module an engine serves: ``model`` itself on ``device``, frozen,
+    unless its weights take gradients (a model under training), which keeps
+    its tensors; then a detached copy of its current weights. Engines built
+    from one frozen model share its tensors, and with them every cache
+    keyed by the param tree (packed weights, prepared quantized operands,
+    captured fused frames and ticks), so they are not copied."""
+    if any(p.requires_grad for p in model.parameters()):
+        twin = ESSR(model.cfg)
+        twin.load_state_dict(model.state_dict())
+        model = twin
+    return model.to(device).requires_grad_(False)
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -125,7 +141,7 @@ class SREngine:
             raise ValueError(f"unknown backend {backend!r}; choose from {sorted(BACKENDS)}")
         self.plan = plan if plan is not None else ExecutionPlan()
         self.device = _resolve_device(device)
-        self.model = model.to(self.device).requires_grad_(False)
+        self.model = _serving_copy(model, self.device)
         self.cfg: ESSRConfig = model.cfg
         self.params = self.model.tree()
         self.backend = backend
@@ -145,6 +161,28 @@ class SREngine:
         base_switching = (switching if switching is not None
                           else SwitchingConfig(t1=self.plan.t1, t2=self.plan.t2))
         self.switcher = AdaptiveSwitcher(base_switching)
+        # the sharded patch stream (plan.shards > 1): routing and straggler
+        # control are per shard whatever the hardware (one controller a
+        # raster strip); the devices exist only where more than one card is
+        # visible, otherwise dispatch stays on one device, with the
+        # reference's warnings
+        self.bank: Optional[ShardSwitcherBank] = None
+        self.devices: Optional[Tuple[torch.device, ...]] = None
+        if self.plan.shards > 1:
+            self.bank = ShardSwitcherBank(base_switching, shards=self.plan.shards)
+            avail = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            if avail > 1:
+                self.devices = make_patch_devices(min(self.plan.shards, avail))
+                if avail < self.plan.shards:
+                    warnings.warn(
+                        f"plan.shards={self.plan.shards} but only {avail} "
+                        f"devices visible; dispatching over {avail} "
+                        f"(per-shard routing control unchanged)")
+            else:
+                warnings.warn(
+                    f"plan.shards={self.plan.shards} on a single-device "
+                    f"host; dispatch falls back to one device "
+                    f"(per-shard routing control unchanged)")
         # multi-stream serving: one Algorithm-1 controller per tenant, the
         # budgets split by share; engine state (a per-call plan cannot change
         # the tenants)
@@ -176,7 +214,7 @@ class SREngine:
         ``switching`` / ``deadline_s``: the stream's Algorithm-1 controller
         (default: the plan's thresholds) and per-frame deadline."""
         cfg = cfg if cfg is not None else ESSRConfig()
-        model = ESSR(cfg, generator=torch.Generator().manual_seed(seed))
+        model = ESSR(cfg, generator=torch.Generator().manual_seed(seed)).requires_grad_(False)
         return cls(model, plan=plan, backend=backend, device=device, calibrate=calibrate,
                    quant_cache=quant_cache, switching=switching, deadline_s=deadline_s)
 
@@ -188,9 +226,9 @@ class SREngine:
                     deadline_s: Optional[float] = None) -> "SREngine":
         """Engine over a reference param tree with numpy leaves."""
         from repro_torch.models.convert import params_from_numpy
-        return cls(params_from_numpy(params, cfg), plan=plan, backend=backend,
-                   device=device, calibrate=calibrate, quant_cache=quant_cache,
-                   switching=switching, deadline_s=deadline_s)
+        return cls(params_from_numpy(params, cfg).requires_grad_(False), plan=plan,
+                   backend=backend, device=device, calibrate=calibrate,
+                   quant_cache=quant_cache, switching=switching, deadline_s=deadline_s)
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: Optional[str] = None, *,
@@ -468,6 +506,15 @@ class SREngine:
         new = self._snap_profile([c + s for c, s in zip(counts, spills)], p, limit)
         self._fused_caps[key] = tuple(max(o, n) for o, n in zip(old, new))
 
+    def _refuse_devices(self, what: str) -> None:
+        """A CUDA graph is captured on one device: fused dispatch over more
+        than one distinct device is not ported (ROADMAP item 12b)."""
+        if self.devices is not None and len(set(self.devices)) > 1:
+            raise ValueError(
+                f"{what} over {len(set(self.devices))} devices (plan.shards="
+                f"{self.plan.shards}) is not ported (ROADMAP item 12b): a CUDA graph is "
+                f"captured on one device; serve with dispatch='host' or on one card")
+
     def _launch_fused(self, frame, p: ExecutionPlan, thresholds: Tuple[float, float],
                       streaming: bool) -> dict:
         """Enqueue one frame on its fused frame without waiting for the
@@ -475,6 +522,7 @@ class SREngine:
         The launch runs under the degradation ladder: a failure steps down
         and runs again (on the card only an injected one; a real capture or
         launch failure raises)."""
+        self._refuse_devices("fused dispatch")
         with torch.inference_mode():
             t0 = time.perf_counter()
             index = self._next_index()
@@ -527,18 +575,26 @@ class SREngine:
             steps = steps + self.guard.note_watchdog(rec["index"], dt, p.watchdog_s)
         macs = self._macs if p.patch == self.plan.patch else sp.SubnetMacs.make(self.cfg, p.patch)
         self._grow_caps(geom.cache_key, p, geom.n, counts, spills)
-        live, missed = rec["thresholds"], False
+        live, missed, shard_counts = rec["thresholds"], False, None
         if streaming:
             self.switcher.observe_frame(counts[sp.C54])
             missed = bool(self.deadline_s and dt > self.deadline_s)
             if missed:
                 self.switcher.demote_for_straggler(severity=1.0)
             live = self.switcher.thresholds
+            if self.bank is not None:
+                # reporting only: the fused frame routes in one decision on
+                # the device, so per-shard control is host dispatch's; the
+                # strips' counts are still reported
+                ids = flight.ids.cpu().numpy()
+                shard_counts = tuple(sp.subnet_counts(ids[sl])
+                                     for sl in geom.shard_slices(self.plan.shards))
         out = FrameResult(image=flight.image[0], mode="edge_select",
                           backend=self._variant_label(p, rec["variant"]), ids=flight.ids,
                           scores=flight.scores, counts=counts,
                           mac_saving=macs.saving_vs_c54(counts), latency_s=dt, thresholds=live,
-                          deadline_missed=missed, dispatch="fused", spill_counts=spills,
+                          deadline_missed=missed, shards=self.plan.shards,
+                          shard_counts=shard_counts, dispatch="fused", spill_counts=spills,
                           compiled=rec["compiled"], health=health, degraded=steps)
         if streaming:
             self.stats.append(dataclasses.replace(out, image=None, ids=None, scores=None))
@@ -600,7 +656,7 @@ class SREngine:
             compiled = self._mark_warm(("host", hw, p.patch, p.overlap, p.fusion))
             common = dict(patch=p.patch, overlap=p.overlap, buckets=p.buckets,
                           backend=self.backend, fusion=p.fusion, quant=self.qpack,
-                          geometry=geom)
+                          geometry=geom, devices=self.devices)
             result_mode, scored = mode, False
             if mode == "all_patches":
                 if width not in widths:
@@ -623,7 +679,7 @@ class SREngine:
                               counts=res.counts, mac_saving=res.mac_saving,
                               latency_s=time.perf_counter() - t0,
                               thresholds=p.thresholds if scored else (0.0, 0.0),
-                              compiled=compiled, health=health)
+                              shards=self.plan.shards, compiled=compiled, health=health)
         return out
 
     def reference(self, frame, width: Optional[int] = None) -> FrameResult:
@@ -675,24 +731,41 @@ class SREngine:
             compiled = self._mark_warm(("host", hw, p.patch, p.overlap, p.fusion))
             patches = geom.extract(frame)
             scores = _host_scores(patches, self.backend)
+            slices = geom.shard_slices(self.plan.shards) if self.bank is not None else None
             if force_bilinear:
                 # the dense fallback lane; the switcher observes nothing
                 ids = np.zeros(len(scores), np.int64)
+            elif slices is not None:
+                ids = self.bank.assign(scores, slices)
             else:
                 ids = self.switcher.assign(scores)
             res = _edge_selective_sr(self.params, frame, self.cfg, patch=p.patch,
                                      overlap=p.overlap, ids_override=ids, buckets=p.buckets,
                                      backend=self.backend, fusion=p.fusion, quant=self.qpack,
-                                     geometry=geom, precomputed=(patches, scores))
+                                     geometry=geom, precomputed=(patches, scores),
+                                     devices=self.devices)
             self._sync()
             dt = time.perf_counter() - t0
         missed = bool(self.deadline_s and dt > self.deadline_s)
-        if missed:
-            self.switcher.demote_for_straggler(severity=1.0)
+        shard_counts = shard_thresholds = shard_missed = None
+        if slices is not None:
+            # each strip's MAC cost decides which shards a miss demotes; the
+            # scalar thresholds are the mean over shards
+            shard_counts = tuple(sp.subnet_counts(ids[sl]) for sl in slices)
+            shard_missed = self.bank.note_frame(missed, [self._macs.total(c)
+                                                         for c in shard_counts])
+            shard_thresholds = self.bank.thresholds
+            live = tuple(float(np.mean([t[i] for t in shard_thresholds])) for i in (0, 1))
+        else:
+            if missed:
+                self.switcher.demote_for_straggler(severity=1.0)
+            live = self.switcher.thresholds
         out = FrameResult(image=res.image, mode="edge_select", backend=self.backend_label,
                           ids=ids, scores=scores, counts=res.counts, mac_saving=res.mac_saving,
-                          latency_s=dt, thresholds=self.switcher.thresholds,
-                          deadline_missed=missed, compiled=compiled, health=health)
+                          latency_s=dt, thresholds=live, deadline_missed=missed,
+                          shards=self.plan.shards, shard_counts=shard_counts,
+                          shard_thresholds=shard_thresholds,
+                          shard_deadline_missed=shard_missed, compiled=compiled, health=health)
         # the compact record only: a long stream must not hold every image
         self.stats.append(dataclasses.replace(out, image=None, ids=None, scores=None))
         return out
@@ -748,6 +821,7 @@ class SREngine:
         if self.plan.streams == 1:
             yield from self.stream(streams[0])
             return
+        self._refuse_devices("serve_streams")
         from repro_torch.runtime.multiplex import StreamMultiplexer
         yield from StreamMultiplexer(self).serve(streams)
 

@@ -55,6 +55,7 @@ _FIELD_RULES: Dict[str, Tuple[Callable, str]] = {
                  "None or a tuple of ints >= 0"),
     "inflight": (_pos_int, "a positive int"),
     "stats_window": (_pos_int, "a positive int"),
+    "shards": (_pos_int, "a positive int"),
     "streams": (_pos_int, "a positive int"),
     "stream_shares": (lambda v: v is None or (bool(v)
                       and all(s > 0 and np.isfinite(s) for s in v)),
@@ -132,6 +133,13 @@ class ExecutionPlan:
     inflight: int = 1
     #: bound on the per-frame records ``SREngine.stats`` keeps
     stats_window: int = 4096
+    #: data-parallel patch-stream shards: 1 is the single-device path; > 1
+    #: gives each raster strip of a frame its own Algorithm-1 controller and
+    #: splits every routed bucket across that many CUDA devices. With fewer
+    #: devices visible (one card, or a CPU engine) the engine warns and
+    #: dispatches on those; routing control stays per shard. Engine state,
+    #: like quant
+    shards: int = 1
     #: tenant streams multiplexed into one fused dispatch per admission tick
     #: (`SREngine.serve_streams`); >= 2 needs dispatch="fused" and the
     #: threshold policy. Each stream keeps its own switcher; the tick's graph

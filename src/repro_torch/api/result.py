@@ -42,6 +42,15 @@ class FrameResult:
     # frame of a capacity profile: its graph capture); excluded from
     # latency aggregates
     compiled: bool = True
+    # the sharded patch stream (plan.shards > 1): the logical shards, and
+    # per shard, in raster-strip order, its (bilinear, C27, C54) counts, its
+    # (t1, t2) after this frame and whether this frame demoted it; None on
+    # single-shard runs (and the thresholds and demotions under fused
+    # dispatch, which reports the counts only)
+    shards: int = 1
+    shard_counts: Optional[Tuple[Tuple[int, int, int], ...]] = None
+    shard_thresholds: Optional[Tuple[Tuple[float, float], ...]] = None
+    shard_deadline_missed: Optional[Tuple[bool, ...]] = None
     # multi-stream serving (plan.streams > 1): the tenant stream this frame
     # belongs to (its index in serve_streams' argument), else None. There
     # deadline_missed means this stream was blamed for a missed tick (by
@@ -77,6 +86,8 @@ class FrameResult:
         }
         if self.stream_id is not None:
             out["stream_id"] = int(self.stream_id)
+        if self.shards > 1:
+            out["shards"] = int(self.shards)
         if self.health is not None:
             out["health"] = tuple(int(c) for c in self.health)
         if self.degraded:
@@ -88,7 +99,8 @@ def summarize_stats(stats) -> dict:
     """Aggregate over frame records: routing shares, MAC saving, latency of
     the frames that paid no set-up (all frames if every one did), deadline
     misses, the last frame's thresholds and, under fused dispatch, the
-    spilled patches per subnet; under multi-stream serving a "streams" block
+    spilled patches per subnet; under the sharded stream the shards, their
+    demotions and their last thresholds; under multi-stream serving a "streams" block
     per tenant (its routing mix, deadline misses and last thresholds)."""
     stats = list(stats)
     if not stats:
@@ -114,6 +126,20 @@ def summarize_stats(stats) -> dict:
     poisoned = sum(1 for s in stats if any(s.health or ()))
     if poisoned:
         out["poison_frames"] = poisoned
+    shards = max(s.shards for s in stats)
+    if shards > 1:
+        # straggler demotions per shard over the window, and the newest
+        # per-shard thresholds
+        out["shards"] = shards
+        misses = np.zeros(shards, np.int64)
+        for s in stats:
+            if s.shard_deadline_missed is not None:
+                misses[: len(s.shard_deadline_missed)] += np.asarray(s.shard_deadline_missed,
+                                                                     np.int64)
+        out["shard_deadline_misses"] = misses.tolist()
+        last = next((s for s in reversed(stats) if s.shard_thresholds is not None), None)
+        if last is not None:
+            out["final_shard_thresholds"] = last.shard_thresholds
     sids = sorted({s.stream_id for s in stats if s.stream_id is not None})
     if sids:
         per = {}

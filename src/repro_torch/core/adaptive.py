@@ -13,6 +13,11 @@ A missed frame deadline raises the thresholds too (straggler demotion).
 Host numpy throughout; the serving path feeds it the frame's scores (host
 dispatch) or its materialized C54 count (fused dispatch).
 
+The sharded patch stream (`ShardSwitcherBank`) gives each raster strip of
+a frame a controller of its own, its budgets split evenly
+(`per_shard_config`); a missed frame deadline demotes the strips whose MAC
+cost runs past the mean.
+
 Multi-tenant serving (`StreamSwitcherBank`) gives every tenant stream a
 controller of its own, its budgets split by the stream's share
 (`per_stream_config`); a missed tick deadline demotes only the streams whose
@@ -99,6 +104,76 @@ class AdaptiveSwitcher:
     @property
     def thresholds(self) -> Tuple[float, float]:
         return (self.t1, self.t2)
+
+
+# ---------------------------------------------------------------------------
+# the sharded patch stream: one Algorithm-1 controller per shard
+# ---------------------------------------------------------------------------
+
+def per_shard_config(cfg: SwitchingConfig, shards: int) -> SwitchingConfig:
+    """``cfg`` split across ``shards`` equal shards: each sees ~1/shards of
+    a frame's patches, so the C54 budget a second and the trim bands scale
+    down with it (positive values floored at 1; 0 stays 0, since
+    ``frame_low=0`` means "never decay"); thresholds, steps and bounds
+    stay."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    if shards == 1:
+        return cfg
+    split = lambda v: max(1, v // shards) if v > 0 else v
+    return dataclasses.replace(cfg, c54_per_sec_budget=split(cfg.c54_per_sec_budget),
+                               frame_high=split(cfg.frame_high),
+                               frame_low=split(cfg.frame_low))
+
+
+class ShardSwitcherBank:
+    """One `AdaptiveSwitcher` per shard (a contiguous raster strip of the
+    frame's patches), each on ``cfg`` split by `per_shard_config`.
+    ``assign`` routes each strip under its own thresholds; ``note_frame``
+    attributes a missed frame deadline by the shards' estimated MAC costs:
+    the shards past the mean are demoted with severity = cost / mean
+    (capped at 3), and a frame loaded evenly demotes every shard."""
+
+    def __init__(self, cfg: Optional[SwitchingConfig] = None, shards: int = 1):
+        cfg = cfg if cfg is not None else SwitchingConfig()
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        self.shards = shards
+        self.switchers: List[AdaptiveSwitcher] = [
+            AdaptiveSwitcher(per_shard_config(cfg, shards)) for _ in range(shards)]
+
+    def assign(self, scores, slices: Sequence[slice]) -> np.ndarray:
+        """A frame's scores (raster order) and its shard slices -> subnet ids."""
+        if len(slices) != self.shards:
+            raise ValueError(f"got {len(slices)} slices for {self.shards} shards")
+        scores = np.asarray(scores)
+        ids = np.empty(len(scores), dtype=np.int64)
+        for sw, sl in zip(self.switchers, slices):
+            ids[sl] = sw.assign(scores[sl])
+        return ids
+
+    def note_frame(self, missed: bool, costs: Sequence[float]) -> Tuple[bool, ...]:
+        """One frame's outcome; returns which shards were demoted.
+        ``costs``: each shard's estimated MAC cost of that frame."""
+        if len(costs) != self.shards:
+            raise ValueError(f"got {len(costs)} costs for {self.shards} shards")
+        if not missed:
+            return (False,) * self.shards
+        costs = np.asarray(costs, np.float64)
+        mean = float(costs.mean())
+        if mean <= 0 or np.allclose(costs, mean):
+            demoted, severities = [True] * self.shards, [1.0] * self.shards
+        else:
+            demoted = [bool(c > mean) for c in costs]
+            severities = [min(float(c / mean), 3.0) for c in costs]
+        for sw, d, sev in zip(self.switchers, demoted, severities):
+            if d:
+                sw.demote_for_straggler(severity=sev)
+        return tuple(demoted)
+
+    @property
+    def thresholds(self) -> Tuple[Tuple[float, float], ...]:
+        return tuple(sw.thresholds for sw in self.switchers)
 
 
 # ---------------------------------------------------------------------------

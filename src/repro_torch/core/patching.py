@@ -34,6 +34,22 @@ def grid_starts(size: int, patch: int, overlap: int) -> np.ndarray:
     return np.array(sorted(set(starts)), dtype=np.int64)
 
 
+def shard_slices(n: int, shards: int) -> Tuple[slice, ...]:
+    """Partition ``n`` raster-order patches into ``shards`` contiguous
+    slices, balanced as ``np.array_split`` is: the first ``n % shards`` take
+    one patch more. ``shards > n`` leaves empty trailing slices (a shard
+    with no patches this frame; its switcher sees no scores)."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    base, extra = divmod(n, shards)
+    out, start = [], 0
+    for k in range(shards):
+        stop = start + base + (1 if k < extra else 0)
+        out.append(slice(start, stop))
+        start = stop
+    return tuple(out)
+
+
 def _reflect_pad_hw(img: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
     """Reflect-pad the bottom/right of (H,W,C) ``img``; edge-pad what a
     dimension too short to reflect cannot cover (as the reference does)."""
@@ -81,6 +97,11 @@ class PatchGeometry:
     def cache_key(self) -> Tuple[Tuple[int, int], int, int, int]:
         """The tiling's identity, device aside: (hw, patch, overlap, scale)."""
         return (self.hw, self.patch, self.overlap, self.scale)
+
+    def shard_slices(self, shards: int) -> Tuple[slice, ...]:
+        """Contiguous raster strips of this tiling's patches: the unit of
+        per-shard routing and straggler control (`core.adaptive`)."""
+        return shard_slices(self.n, shards)
 
     def extract(self, img: torch.Tensor) -> torch.Tensor:
         """(H,W,C) -> (N,patch,patch,C): one gather."""

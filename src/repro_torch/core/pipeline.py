@@ -26,6 +26,7 @@ Routing stays fp32 either way: the edge scores come from the fp frame.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import weakref
@@ -38,6 +39,7 @@ from repro_torch.core import subnet_policy as sp
 from repro_torch.core.caching import BoundedCache
 from repro_torch.core.edge_score import edge_score
 from repro_torch.core.patching import PatchGeometry, get_geometry
+from repro_torch.core.tree import tree_map
 from repro_torch.models.essr import ESSRConfig, essr_forward
 from repro_torch.models.layers import bilinear_resize
 
@@ -154,6 +156,74 @@ def resolve_forward(backend: str, quant=None, fusion: str = "layer"):
     return functools.partial(QUANT_BACKENDS[backend], quant=quant)
 
 
+# ---------------------------------------------------------------------------
+# data-parallel per-subnet forward (the sharded patch stream)
+# ---------------------------------------------------------------------------
+
+def _device(d) -> torch.device:
+    """``d`` as a device with its index ("cuda" is the current card)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _replica(params, device: torch.device):
+    """``params`` on ``device``: the tree itself where it already lives
+    there, else a copy made once per (tree, device) and cached, so each
+    device's megakernel packs its own copy once."""
+    if params["first"]["pw"].device == device:
+        return params
+    from repro_torch.kernels.megakernel import _TreeKey
+    return _replicas(_TreeKey(params), device)
+
+
+#: Weight copies by (param tree, device).
+_replicas = BoundedCache(lambda key, device: tree_map(lambda t: t.detach().to(device), key.tree),
+                         maxsize=16)
+
+
+def _sharded_forward(params, patches: torch.Tensor, cfg: ESSRConfig, width: int, *,
+                     devices: Tuple[torch.device, ...], backend: str = "cuda", quant=None,
+                     fusion: str = "layer") -> torch.Tensor:
+    """One subnet's patch batch, data-parallel over ``devices`` (the twin of
+    the reference's ``sharded_forward``): padded to a multiple of the
+    device count by repeating the last patch (duplicate work, never another
+    subnet's patch), cut into contiguous chunks, each chunk through the
+    resolved forward on its device with the weights copied there, gathered
+    back onto the patches' device and sliced back to N. Each chunk runs with
+    its card as the current device, since the wrappers launch onto the
+    stream of the chunk's device and CUDA launches only onto the current
+    device's streams. Every copy in goes before the first launch and every
+    copy out after the last: a copy between cards waits on both cards'
+    streams, so one interleaved with the launches would hold each chunk
+    behind the one before. ``devices`` may name one device more than once;
+    every kernel computes each patch on its own, so the result equals the
+    unsplit forward's."""
+    forward = resolve_forward(backend, quant, fusion)
+    devices = tuple(_device(d) for d in devices)
+    home = patches.device
+    n, k = int(patches.shape[0]), len(devices)
+    pad = (-n) % k
+    if pad:
+        patches = torch.cat([patches, patches[-1:].expand(pad, *patches.shape[1:])])
+    chunk = patches.shape[0] // k
+
+    def current(dev):
+        return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+    staged = []
+    for i, dev in enumerate(devices):
+        with current(dev):
+            staged.append((_replica(params, dev), patches[i * chunk:(i + 1) * chunk].to(dev)))
+    outs = []
+    for dev, (weights, part) in zip(devices, staged):
+        with current(dev):
+            outs.append(forward(weights, part, cfg, width))
+    out = torch.cat([o.to(home) for o in outs])
+    return out[:n] if pad else out
+
+
 def _health_counts(frame: torch.Tensor) -> torch.Tensor:
     """(nan, inf, out-of-[0,1]) pixel counts of one frame, int32 (3,)."""
     nan = torch.isnan(frame).sum()
@@ -194,14 +264,20 @@ def _edge_selective_sr(params: Dict[str, Any], frame: torch.Tensor, cfg: ESSRCon
                        buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                        backend: str = "cuda", fusion: str = "layer", quant=None,
                        geometry: Optional[PatchGeometry] = None,
-                       precomputed: Optional[Tuple[torch.Tensor, np.ndarray]] = None
-                       ) -> SRResult:
+                       precomputed: Optional[Tuple[torch.Tensor, np.ndarray]] = None,
+                       devices: Optional[Tuple[torch.device, ...]] = None) -> SRResult:
     """frame: (H,W,3) in [0,1] -> SRResult with the (H*s, W*s, 3) image.
     ``ids_override`` forces the routing and skips the edge scores (reported
     as zeros). ``quant``: a `QuantPack` for quantized serving.
     ``precomputed``: (patches, scores) of this frame from a caller that
-    already extracted and scored it (the stream scores for its switcher)."""
+    already extracted and scored it (the stream scores for its switcher).
+    ``devices``: with more than one, every subnet's batch is split across
+    them (:func:`_sharded_forward`, where the reference takes ``mesh=``);
+    None or one device is the single-device path."""
     forward = resolve_forward(backend, quant, fusion)
+    if devices is not None and len(devices) > 1:
+        forward = functools.partial(_sharded_forward, devices=tuple(devices), backend=backend,
+                                    quant=quant, fusion=fusion)
     s = cfg.scale
     h, w = int(frame.shape[0]), int(frame.shape[1])
     g = geometry if geometry is not None else get_geometry(
@@ -244,8 +320,10 @@ def _sr_all_patches_result(params, frame: torch.Tensor, cfg: ESSRConfig, width: 
                            patch: int = 32, overlap: int = 2,
                            buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                            backend: str = "cuda", fusion: str = "layer", quant=None,
-                           geometry: Optional[PatchGeometry] = None) -> SRResult:
-    """Every patch through one subnet (the non-edge-selective reference)."""
+                           geometry: Optional[PatchGeometry] = None,
+                           devices: Optional[Tuple[torch.device, ...]] = None) -> SRResult:
+    """Every patch through one subnet (the non-edge-selective reference);
+    ``devices`` as in :func:`_edge_selective_sr`."""
     widths = cfg.subnet_widths()
     if width not in widths:
         raise ValueError(f"width {width} not one of the subnet widths {widths}")
@@ -255,7 +333,7 @@ def _sr_all_patches_result(params, frame: torch.Tensor, cfg: ESSRConfig, width: 
     ids = np.full((g.n,), widths.index(width), dtype=np.int64)
     return _edge_selective_sr(params, frame, cfg, patch=patch, overlap=overlap,
                               ids_override=ids, buckets=buckets, backend=backend,
-                              fusion=fusion, quant=quant, geometry=g)
+                              fusion=fusion, quant=quant, geometry=g, devices=devices)
 
 
 def _sr_whole(params, frame: torch.Tensor, cfg: ESSRConfig,

@@ -1,5 +1,6 @@
-"""Procedural stand-in dataset, in PyTorch (partial twin of
-``repro.data.synthetic``: the images and their bicubic degradation).
+"""Procedural stand-in dataset, in PyTorch (twin of
+``repro.data.synthetic``: the images, their bicubic degradation, the
+evaluation set and the training patch stream).
 
 Images mix the three content classes the edge-selective router tells apart
 (plain gradients, band-limited textures, strokes), HR in [0,1] RGB, drawn
@@ -12,6 +13,8 @@ renormalised, as ``jax.image.resize(method="cubic")`` does (within 4e-7 of
 it on the CPU, tests/test_torch_quant.py).
 """
 from __future__ import annotations
+
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
@@ -90,3 +93,33 @@ def degrade(hr, scale: int) -> torch.Tensor:
     _, h, w, _ = hr.shape
     lr = torch.clamp(_cubic_resize(hr, h // scale, w // scale), 0.0, 1.0)
     return lr[0] if single else lr
+
+
+def make_eval_set(seed: int, n: int, hr: int = 128, device="cuda") -> torch.Tensor:
+    """n HR images (n, hr, hr, 3) on ``device``, image i from seed + i (the
+    caller degrades them to its scale)."""
+    return torch.from_numpy(np.stack([random_image(seed + i, hr, hr) for i in range(n)])
+                            ).to(device)
+
+
+def patch_batches(seed: int, batch: int, lr_patch: int, scale: int, pool: int = 16,
+                  pool_hw: int = 256, device="cuda"
+                  ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Infinite iterator of (lr (B,p,p,3), hr (B,p*s,p*s,3)) training pairs
+    on ``device``: a pool of HR images made once (degraded on the CPU, then
+    kept on ``device``), aligned patch pairs cropped from it at random with
+    the same numpy generator calls as the reference, so the crops are the
+    reference's."""
+    rng = np.random.default_rng(seed)
+    hr_np = np.stack([random_image(seed + 1000 + i, pool_hw, pool_hw) for i in range(pool)])
+    lr_pool = degrade(hr_np, scale).to(device)
+    hr_pool = torch.from_numpy(hr_np).to(device)
+    lp = lr_patch
+    while True:
+        idx = rng.integers(0, pool, size=batch)
+        ys = rng.integers(0, lr_pool.shape[1] - lp + 1, size=batch)
+        xs = rng.integers(0, lr_pool.shape[2] - lp + 1, size=batch)
+        lr = torch.stack([lr_pool[i, y:y + lp, x:x + lp] for i, y, x in zip(idx, ys, xs)])
+        hr = torch.stack([hr_pool[i, y * scale:(y + lp) * scale, x * scale:(x + lp) * scale]
+                          for i, y, x in zip(idx, ys, xs)])
+        yield lr, hr

@@ -13,7 +13,10 @@ cluster of 1 to 16 blocks, one strip of full-width rows per block, sized by
 every patch of the paper's Table I (16, 32, 48 and 64) at C27 and C54. The
 weights of one (param tree, width) are packed once into a single zero-padded
 buffer of per-layer pieces (:func:`pack_weights`, cached), which the kernel
-stages one layer ahead. ``mega_fused.launches`` counts launches.
+stages one layer ahead. ``mega_fused.launches`` counts launches. Outside
+inference mode the fp32 forward is differentiable in both modes, as the
+reference's ``custom_jvp`` makes it: the kernel computes the value, the
+plain forward (recomputed) its gradient and tangent (`_MegaForward`).
 
 The quantized twin (``essr_forward_qmegakernel``, ``csrc/qmega.cu``) serves
 ``ExecutionPlan(quant=..., fusion="group")``: quantize once, the whole
@@ -47,10 +50,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.caching import BoundedCache
+from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.kernels import _build
 from repro_torch.kernels._launch import check_channels, check_operands, stream_of
 from repro_torch.kernels.ref import mega_ref, qmega_ref
-from repro_torch.models.essr import ESSRConfig, slice_width
+from repro_torch.models.essr import ESSRConfig, essr_forward, slice_width
 from repro_torch.models.layers import pixel_shuffle
 from repro_torch.quant.pams import QuantPack, code_dtype
 
@@ -545,12 +549,77 @@ def resident_clusters(width: int, patch: Union[int, Tuple[int, int]], scale: int
                   rep["rows_per_cta"], rep["cluster"], rep["threads"], rep["pixel_pad"]))
 
 
+class _MegaForward(torch.autograd.Function):
+    """The megakernel made differentiable (twin of the reference's
+    ``jax.custom_jvp`` on ``_mega_forward``): the primal launches the
+    kernel; the gradient (backward) and the tangent (jvp) come from the
+    plain `essr_forward` of the same tree at the same width, recomputed,
+    the same math in another order. Inputs: (x, the packed weights, (cfg,
+    width, the tree's structure), *the full tree's leaves in flatten
+    order); the gradients reach the full leaves, zero past the width."""
+
+    @staticmethod
+    def forward(x, wbuf, spec, *leaves):
+        cfg, width, _ = spec
+        up = mega_fused(x, wbuf, width=width, n_sfb=cfg.n_sfb, out_channels=cfg.out_channels)
+        return pixel_shuffle(up, cfg.scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, _, spec, *leaves = inputs
+        ctx.spec = spec
+        ctx.save_for_backward(x, *leaves)
+        ctx.save_for_forward(x, *leaves)
+
+    @staticmethod
+    def _plain(ctx, need):
+        """The plain forward on detached copies of (x, *leaves), each
+        taking gradients where ``need`` says; returns (output, inputs)."""
+        cfg, width, structure = ctx.spec
+        ins = [t.detach().requires_grad_(bool(n)) for t, n in zip(ctx.saved_tensors, need)]
+        tree = tree_unflatten(structure, ins[1:])
+        return essr_forward(tree, ins[0], cfg, width=width), ins
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = (ctx.needs_input_grad[0],) + tuple(ctx.needs_input_grad[3:])
+        with torch.enable_grad():
+            out, ins = _MegaForward._plain(ctx, need)
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+        grads = [next(got) if t.requires_grad else None for t in ins]
+        grads = [torch.zeros_like(t) if n and g is None else g
+                 for t, n, g in zip(ins, need, grads)]
+        return (grads[0], None, None, *grads[1:])
+
+    @staticmethod
+    def jvp(ctx, x_t, wbuf_t, spec_t, *leaf_t):
+        # J t through the plain forward's reverse mode, twice: with
+        # v(u) = J^T u, the gradient of <v(u), t> in u is J t
+        tangents = (x_t,) + leaf_t
+        with torch.enable_grad():
+            out, ins = _MegaForward._plain(ctx, [t is not None for t in tangents])
+            if not any(t.requires_grad for t in ins):
+                return torch.zeros_like(out)
+            u = torch.zeros_like(out, requires_grad=True)
+            wanted = [(i, t) for i, t in zip(ins, tangents) if t is not None]
+            vjp = torch.autograd.grad(out, [i for i, _ in wanted], u, create_graph=True,
+                                      allow_unused=True)
+            dot = sum((v * t).sum() for v, (_, t) in zip(vjp, wanted) if v is not None)
+            return torch.autograd.grad(dot, u)[0].detach()
+
+
 def essr_forward_megakernel(params: Dict[str, Any], x: torch.Tensor, cfg: ESSRConfig,
                             width: Optional[int] = None) -> torch.Tensor:
     """x: (N,p,p,3) -> (N,p*s,p*s,3) through one megakernel launch (same
     contract as `kernels.ops.essr_forward_kernels`). ``width`` in {C/2, C}
     (None = C); bilinear patches never reach the kernel. The packed weights
-    are cached by the tree's tensors and the width."""
+    are cached by the tree's tensors and their in-place versions, and the
+    width, so an optimizer's in-place update repacks them.
+
+    Differentiable in both modes (`_MegaForward`) outside inference mode;
+    the serving path runs under ``torch.inference_mode`` and builds no
+    graph."""
     w = width if width is not None else cfg.channels
     if w == 0:
         raise ValueError("the bilinear subnet does not use the conv kernels")
@@ -559,9 +628,12 @@ def essr_forward_megakernel(params: Dict[str, Any], x: torch.Tensor, cfg: ESSRCo
     if x.shape[0] == 0:
         s = cfg.scale
         return x.new_zeros((0, x.shape[1] * s, x.shape[2] * s, cfg.in_channels))
-    wbuf = packed_weights(_TreeKey(params), w)
-    up = mega_fused(x, wbuf, width=w, n_sfb=cfg.n_sfb, out_channels=cfg.out_channels)
-    return pixel_shuffle(up, cfg.scale)
+    with torch.no_grad():
+        wbuf = packed_weights(_TreeKey(params), w)
+    if torch.is_inference_mode_enabled():
+        up = mega_fused(x, wbuf, width=w, n_sfb=cfg.n_sfb, out_channels=cfg.out_channels)
+        return pixel_shuffle(up, cfg.scale)
+    return _MegaForward.apply(x, wbuf, (cfg, w, params), *tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------

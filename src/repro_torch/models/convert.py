@@ -22,7 +22,8 @@ def _copy_into(module_tree: Dict[str, Any], src: Dict[str, Any], where: str) -> 
         if isinstance(dst, dict):
             _copy_into(dst, src[k], f"{where}.{k}")
             continue
-        a = np.asarray(src[k])
+        a = src[k].detach().cpu().numpy() if isinstance(src[k], torch.Tensor) \
+            else np.asarray(src[k])
         if tuple(a.shape) != tuple(dst.shape):
             raise ValueError(f"{where}.{k}: shape {a.shape} != expected {tuple(dst.shape)}")
         with torch.no_grad():

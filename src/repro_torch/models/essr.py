@@ -53,10 +53,10 @@ class BSConv(nn.Module):
 
     def __init__(self, cin: int, cout: int, bias: bool, g: torch.Generator):
         super().__init__()
-        self.pw = nn.Parameter(L.conv_init((1, 1, cin, cout), g))
-        self.dw = nn.Parameter(L.conv_init((3, 3, 1, cout), g))
-        self.pw_b = nn.Parameter(torch.zeros(cout)) if bias else None
-        self.dw_b = nn.Parameter(torch.zeros(cout)) if bias else None
+        p = L.init_bsconv(cin, cout, g, bias=bias)
+        self.pw, self.dw = nn.Parameter(p["pw"]), nn.Parameter(p["dw"])
+        self.pw_b = nn.Parameter(p["pw_b"]) if bias else None
+        self.dw_b = nn.Parameter(p["dw_b"]) if bias else None
 
     def tree(self) -> Dict[str, torch.Tensor]:
         out = {"pw": self.pw, "dw": self.dw}
@@ -70,10 +70,10 @@ class DSConv(nn.Module):
 
     def __init__(self, cin: int, cout: int, bias: bool, g: torch.Generator):
         super().__init__()
-        self.dw = nn.Parameter(L.conv_init((3, 3, 1, cin), g))
-        self.pw = nn.Parameter(L.conv_init((1, 1, cin, cout), g))
-        self.dw_b = nn.Parameter(torch.zeros(cin)) if bias else None
-        self.pw_b = nn.Parameter(torch.zeros(cout)) if bias else None
+        p = L.init_dsconv(cin, cout, g, bias=bias)
+        self.dw, self.pw = nn.Parameter(p["dw"]), nn.Parameter(p["pw"])
+        self.dw_b = nn.Parameter(p["dw_b"]) if bias else None
+        self.pw_b = nn.Parameter(p["pw_b"]) if bias else None
 
     def tree(self) -> Dict[str, torch.Tensor]:
         out = {"dw": self.dw, "pw": self.pw}
@@ -121,6 +121,13 @@ class ESSR(nn.Module):
 
     def forward(self, x: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
         return essr_forward(self.tree(), x, self.cfg, width=width)
+
+
+def init_essr(cfg: ESSRConfig = ESSR_X4, generator: Optional[torch.Generator] = None) -> ESSR:
+    """A fresh supernet: He-normal weights and zero biases drawn from
+    ``generator`` (seeded with 0 when None), on the CPU. Weights equal to
+    the reference's come through `models.convert.params_from_numpy`."""
+    return ESSR(cfg, generator=generator)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -22,9 +23,63 @@ def conv_init(shape: Tuple[int, ...], generator: torch.Generator,
     return std * torch.randn(shape, generator=generator, dtype=dtype)
 
 
+def init_bsconv(cin: int, cout: int, generator: torch.Generator, *, bias: bool = True,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """BSConv weights: He-normal 1x1 pointwise (cin->cout), then 3x3
+    depthwise (cout), drawn in that order; zero biases."""
+    p = {"pw": conv_init((1, 1, cin, cout), generator, dtype),
+         "dw": conv_init((3, 3, 1, cout), generator, dtype)}
+    if bias:
+        p["pw_b"] = torch.zeros(cout, dtype=dtype)
+        p["dw_b"] = torch.zeros(cout, dtype=dtype)
+    return p
+
+
+def init_dsconv(cin: int, cout: int, generator: torch.Generator, *, bias: bool = True,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """DSConv weights: He-normal 3x3 depthwise (cin), then 1x1 pointwise
+    (cin->cout), drawn in that order; zero biases."""
+    p = {"dw": conv_init((3, 3, 1, cin), generator, dtype),
+         "pw": conv_init((1, 1, cin, cout), generator, dtype)}
+    if bias:
+        p["dw_b"] = torch.zeros(cin, dtype=dtype)
+        p["pw_b"] = torch.zeros(cout, dtype=dtype)
+    return p
+
+
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's "SAME" padding of one axis: the output is ceil(size / stride),
+    the pad total what that needs, its floor half before and the rest
+    after (so a stride-2 3x3 on an even size pads (0, 1))."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
+           stride: int = 1, padding="SAME") -> torch.Tensor:
+    """Standard conv, as ``lax.conv_general_dilated`` computes it. x:
+    (N,H,W,Cin), w: (kh,kw,Cin,Cout). ``padding``: "SAME", "VALID" or
+    ((top, bottom), (left, right)); the pads are applied explicitly, since
+    ``F.conv2d`` pads both sides alike."""
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    if padding == "SAME":
+        (pt, pb), (pl, pr) = (_same_pads(int(x.shape[1]), kh, stride),
+                              _same_pads(int(x.shape[2]), kw, stride))
+    elif padding == "VALID":
+        pt = pb = pl = pr = 0
+    else:
+        (pt, pb), (pl, pr) = padding
+    xc = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
+    return y + b if b is not None else y
+
+
 def _dw3_shift(x: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     """3x3 SAME depthwise via 9 shifted multiply-accumulates. x: (N,H,W,C),
-    w3: (3,3,C). Zero padding, accumulated in (dy, dx) raster order."""
+    w3: (3,3,C). Zero padding, accumulated in (dy, dx) raster order. Its
+    gradient is autograd's of these shifts: the same math as the
+    reference's ``_dw3`` custom VJP (the rotated-kernel shift for x, a
+    shifted product sum for w3)."""
     _, h, w, _ = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     y = torch.zeros_like(x)
@@ -85,3 +140,17 @@ def rgb_to_luma(x: torch.Tensor) -> torch.Tensor:
     order matches the reference: the score it feeds decides routing."""
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
     return (65.481 * r + 128.553 * g + 24.966 * b) + 16.0
+
+
+def count_params(tree) -> int:
+    """Elements over the leaves of a param tree (tensors or numpy arrays),
+    or over an ``nn.Module``'s parameters."""
+    if isinstance(tree, torch.nn.Module):
+        return sum(int(p.numel()) for p in tree.parameters())
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    if tree is None:
+        return 0
+    return int(tree.numel()) if isinstance(tree, torch.Tensor) else int(np.size(tree))

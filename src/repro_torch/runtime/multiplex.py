@@ -289,7 +289,8 @@ class StreamMultiplexer:
                 thresholds=self.bank.switchers[s].thresholds,
                 deadline_missed=bool(demoted[s]), dispatch="fused",
                 spill_counts=tuple(int(x) for x in spills_np[i]),
-                compiled=rec["compiled"], stream_id=s, health=health_t, degraded=steps)
+                compiled=rec["compiled"], shards=eng.plan.shards, stream_id=s,
+                health=health_t, degraded=steps)
             eng.stats.append(dataclasses.replace(out, image=None, ids=None, scores=None))
             results.append(out)
         return results

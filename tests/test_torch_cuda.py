@@ -34,7 +34,7 @@ from repro_torch.kernels.bsconv import bsconv_fused
 from repro_torch.kernels.dsconv import dsconv_fused
 from repro_torch.kernels.edge import edge_score_fused
 from repro_torch.kernels.sfb import SFB_KEYS, sfb_fused
-from repro_torch.models.essr import ESSR, ESSRConfig
+from repro_torch.models.essr import ESSR, ESSRConfig, essr_forward
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -951,3 +951,73 @@ def test_kernel_failure_without_faults_raises_on_the_card(cuda, monkeypatch, ten
     assert pl._fused_frame_fn.occupancy()["size"] == 0
     assert pl._fused_stream_fn.occupancy()["size"] == 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the sharded patch stream and training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quant,fusion", [(None, "layer"), (None, "group"), ("int8", "layer"),
+                                          ("int8", "group")])
+def test_sharded_forward_on_the_card_equals_unsplit(cuda, quant, fusion):
+    """The split forward over the card named four times, at N not a
+    multiple of four: torch.equal to the unsplit kernels (each patch is
+    computed on its own), one launch of each kernel a chunk."""
+    from repro_torch.core.pipeline import _sharded_forward, resolve_forward
+    eng = SREngine.from_config(ESSRConfig(scale=2), plan=ExecutionPlan(quant=quant),
+                               device="cuda")
+    x = torch.rand((103, 32, 32, 3), generator=torch.Generator().manual_seed(0)).cuda()
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got = _sharded_forward(eng.params, x, eng.cfg, 54, devices=("cuda:0",) * 4,
+                               backend="cuda", quant=eng.qpack, fusion=fusion)
+        counts = ops.launch_counts()
+        want = resolve_forward("cuda", eng.qpack, fusion)(eng.params, x, eng.cfg, 54)
+    assert torch.equal(got, want)
+    kernel = {(None, "layer"): "bsconv", (None, "group"): "mega", ("int8", "layer"): "qbsconv",
+              ("int8", "group"): "qmega"}[(quant, fusion)]
+    assert counts[kernel] == 4
+
+
+@pytest.mark.parametrize("quant,fusion", [(None, "layer"), (None, "group"), ("int8", "layer"),
+                                          ("int8", "group")])
+def test_sharded_forward_over_several_cards_equals_one_card(cuda, quant, fusion):
+    """The split forward over up to four real cards, from patches on the
+    last of them: each card runs its chunk (its own current device) and
+    holds its weight copy, and the gathered result, back on the patches'
+    card, is torch.equal to the unsplit kernels on one card."""
+    from repro_torch.core.pipeline import _sharded_forward, resolve_forward
+    from repro_torch.launch.mesh import make_patch_devices
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two CUDA devices or more")
+    devices = make_patch_devices(min(4, cards))
+    eng = SREngine.from_config(ESSRConfig(scale=2), plan=ExecutionPlan(quant=quant),
+                               device="cuda:0")
+    x = torch.rand((103, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        got = _sharded_forward(eng.params, x.to(devices[-1]), eng.cfg, 54, devices=devices,
+                               backend="cuda", quant=eng.qpack, fusion=fusion)
+        want = resolve_forward("cuda", eng.qpack, fusion)(eng.params, x.cuda(), eng.cfg, 54)
+    assert got.device == devices[-1]
+    assert torch.equal(got.cpu(), want.cpu())
+    assert all(torch.cuda.memory_allocated(d) > 0 for d in devices)
+
+
+def test_megakernel_gradient_on_the_card_matches_plain(cuda):
+    """The megakernel's backward (the plain forward's, recomputed) for x and
+    every weight leaf at C54, N = 4 32x32, normalized atol 1e-3."""
+    from repro_torch.core.tree import tree_leaves
+    model = ESSR(ESSRConfig(scale=4), generator=torch.Generator().manual_seed(1)).cuda()
+    params, cfg = model.tree(), model.cfg
+    leaves = tree_leaves(params)
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(2)).cuda()
+    x.requires_grad_(True)
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(mk.essr_forward_megakernel(params, x, cfg).square().sum(),
+                              [x] + leaves)
+    assert ops.launch_counts()["mega"] == 1
+    want = torch.autograd.grad(essr_forward(params, x, cfg).square().sum(), [x] + leaves)
+    for a, b in zip(got, want):
+        scale = max(float(b.abs().max()), 1e-6)
+        assert float((a - b).abs().max()) / scale <= 1e-3

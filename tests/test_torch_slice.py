@@ -209,9 +209,8 @@ def test_public_signatures_accept_the_reference_arguments(engines, tmp_path, cap
     """Every parameter of the reference's public SREngine and ExecutionPlan
     methods is a parameter of the port's, under the same name, except the
     documented ones: the constructor's ``(params, cfg)`` (the port's is
-    ``from_params``), ``interpret`` (no interpreter) and ``shards`` (the
-    sharded stream is not ported yet). Then the two that were missing,
-    called as the reference's callers call them."""
+    ``from_params``) and ``interpret`` (no interpreter). Then the two that
+    were missing, called as the reference's callers call them."""
     import inspect
     exempt = {("__init__", "params"), ("__init__", "cfg")}
     checked = 0
@@ -223,7 +222,7 @@ def test_public_signatures_accept_the_reference_arguments(engines, tmp_path, cap
             want = inspect.signature(getattr(theirs, name)).parameters
             have = inspect.signature(getattr(mine, name)).parameters
             for pname in want:
-                if (name, pname) in exempt or pname in ("interpret", "shards"):
+                if (name, pname) in exempt or pname == "interpret":
                     continue
                 assert pname in have, f"{mine.__name__}.{name} lacks {pname!r}"
                 checked += 1
