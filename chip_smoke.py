@@ -5,8 +5,8 @@
     python3 chip_smoke.py --multicard    # phases 1, 2 and 25 over every card
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
-8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 25, 26, 10; any
-failure exits non-zero before the last line:
+8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 25, 26, 27,
+28, 29, 10; any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -201,7 +201,29 @@ failure exits non-zero before the last line:
      16 32x32, against the plain forward's (normalized atol 1e-3), one mega
      launch each; two GAN steps; a checkpoint written from the card served
      by SREngine.from_checkpoint, torch.equal to from_params of the same
-     EMA; a "train:" JSON line before the kernels line holds phases 25-26.
+     EMA; a "train:" JSON line before the kernels line holds phases 25-26;
+ 27. the baselines ("baselines"), library convolutions (cuDNN; the
+     reference's are lax convolutions outside any Pallas kernel), at their
+     published widths on one synthetic 1920x1080 LR frame, TF32 off:
+     bicubic x4 to 8K, FSRCNN x4 (d 56, s 12, m 4) on its luma, pruned RLFN
+     x4 (46 channels, 4 RLFBs) and base RLFN x4 (52, 6), each against the
+     same module on the CPU in float64 on a 128x128 crop (rtol 1e-3 / atol
+     1e-3; its distance to the CPU's fp32 output beside it), timed
+     at 1080p (CUDA events, median of BASELINE_RUNS) beside its MACs a
+     frame, its bound and ESSR's fp32 layer frame of phase 20; then
+     extract_patches and fuse_patches_average at 1080p -> 8K torch.equal to
+     PatchGeometry.extract and within rtol 1e-6 of fuse_average;
+ 28. the training supervisor ("supervisor"): TrainSupervisor around the
+     supernet step as phase 26 trains, 30 steps, async checkpoints every 10,
+     uninterrupted and with an InjectedFailure at step 23: one restart, a
+     resume at step 20, params, optimizer state and EMA torch.equal to the
+     uninterrupted run; both wall times;
+ 29. the examples ("examples"): examples/torch_quickstart.py,
+     torch_serve_8k.py --frames 4 --hw 96 under host and fused dispatch
+     (--inflight 2) and torch_train_essr.py --steps 20 as subprocesses on
+     the card, together, then torch_serve_8k.py from the training's
+     checkpoint; each must exit 0. A "baselines:" JSON line before the
+     kernels line holds phases 27-29.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -258,6 +280,13 @@ SHARD_REPEATS = 7
 #: 24x24), the first steps held against the CPU, then the steps timed.
 TRAIN_BATCH, TRAIN_PATCH = 16, 24
 TRAIN_CHECK, TRAIN_STEPS = 3, 100
+#: Phase 27: the baselines' CPU check crop and the timed calls a model.
+BASELINE_CROP, BASELINE_RUNS = 128, 10
+#: Phase 28: the supervised steps, the checkpoint interval and the step
+#: whose failure hook raises once.
+SUPERVISED_STEPS, SUPERVISED_CKPT_EVERY, SUPERVISED_FAIL_AT = 30, 10, 23
+#: Phase 29: seconds each example may take (the kernels are built by then).
+EXAMPLE_TIMEOUT_S = 300
 #: Every engine the phases construct: (phase, its guard, its FaultPlan). A
 #: phase without a FaultPlan must leave the ladder where it started.
 GUARDS = []
@@ -709,11 +738,11 @@ def psnr(a, b, torch) -> float:
     return float("inf") if mse == 0 else -10.0 * math.log10(mse)
 
 
-def median_ms(fn, torch) -> float:
+def median_ms(fn, torch, runs: int = TIMING_RUNS) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIMING_RUNS):
+    for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         fn()
@@ -1568,6 +1597,250 @@ def train_phase(torch) -> dict:
     report["checkpoint_equal"] = same
     torch.cuda.empty_cache()
     return report
+
+
+# ---------------------------------------------------------------------------
+# phases 27-29: the baselines, the training supervisor, the examples
+# ---------------------------------------------------------------------------
+
+def baselines_phase(essr_row, torch) -> dict:
+    """27. The paper's baselines at their published widths on one synthetic
+    1920x1080 LR frame (data/synthetic.py random_image), TF32 off: bicubic
+    x4 to 8K, FSRCNN x4 (d 56, s 12, m 4) on its luma, pruned RLFN x4 (46
+    channels, 4 RLFBs, ESA 16) and base RLFN x4 (52, 6). Each against the
+    same module on the CPU in float64 on a BASELINE_CROP crop (rtol 1e-3 /
+    atol 1e-3; its distance to the CPU's fp32 output, and that output's to
+    fp64, are printed: random-weight RLFN's fp32 rounding reaches ~1e-3, so
+    two fp32 results differ by about the sum of two), then timed at 1080p
+    (CUDA events, median of BASELINE_RUNS) beside its
+    MACs a frame, its bound and ESSR's fp32 frame from phase 20. These are
+    library convolutions (cuDNN), as the reference's are lax convolutions
+    outside any Pallas kernel: no hand-written kernel runs here. Then
+    extract_patches and fuse_patches_average at 1080p -> 8K against the
+    frame geometry's extract (torch.equal) and fuse_average (rtol 1e-6)."""
+    import numpy as np
+    from repro_torch.core import patching as P
+    from repro_torch.data.synthetic import random_image
+    from repro_torch.models import fsrcnn as F
+    from repro_torch.models import rlfn as R
+    from repro_torch.models.essr import ESSRConfig, essr_macs
+    from repro_torch.models.layers import bicubic_resize, rgb_to_luma
+    dev = torch.device("cuda")
+    peak_flops, peak_bw = peaks_for(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    lr = torch.from_numpy(random_image(SEED, 1080, 1920))[None]
+    say(f"phase baselines data: one 1920x1080 LR frame (random_image) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = lambda: torch.Generator().manual_seed(SEED)
+    fsrcnn = F.init_fsrcnn(F.FSRCNNConfig(), g())
+    pruned, base = R.init_rlfn(R.RLFN_PRUNED_X4, g()), R.init_rlfn(R.RLFN_BASE_X4, g())
+    luma = lambda x: rgb_to_luma(x)[..., None] / 255.0
+    px = 1080 * 1920
+    models = (
+        ("bicubic", lambda x: bicubic_resize(x, (x.shape[1] * 4, x.shape[2] * 4)), None, 0),
+        ("fsrcnn", lambda x: fsrcnn(luma(x)), fsrcnn, F.fsrcnn_macs_per_lr_pixel(fsrcnn.cfg) * px),
+        ("rlfn_pruned", pruned, pruned, R.rlfn_macs_per_lr_pixel(pruned.cfg) * px),
+        ("rlfn_base", base, base, R.rlfn_macs_per_lr_pixel(base.cfg) * px))
+    crop = lr[:, :BASELINE_CROP, :BASELINE_CROP]
+    rows = []
+    for name, fn, module, macs in models:
+        with torch.inference_mode():
+            want = fn(crop)
+            if module is not None:
+                module.double()
+            exact = fn(crop.double())
+            if module is not None:
+                module.float()                   # fp32 -> fp64 -> fp32 is exact
+        if module is not None:
+            module.to(dev)
+        x = lr.to(dev)
+        with torch.inference_mode():
+            got = fn(crop.to(dev)).cpu()
+            err = float((got.double() - exact).abs().max())
+            err32 = float((got - want).abs().max())
+            cpu_err = float((want.double() - exact).abs().max())
+            close = torch.allclose(got.double(), exact, **CHAIN_TOL)
+            out = fn(x)
+            shape = tuple(out.shape)
+            finite = bool(torch.isfinite(out).all())
+            del out
+            ms = median_ms(lambda: fn(x), torch, BASELINE_RUNS)
+        nbytes = 4 * (3 * px + 16 * px * shape[-1])      # the RGB frame in, the 8K frame out
+        flops = 2 * macs if macs else 2 * 8 * 16 * px * 3   # bicubic: 4 + 4 taps a pixel
+        t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_flops * 1e3
+        row = dict(name=name, route="library convs (cuDNN)" if module is not None
+                   else "library (F.interpolate)", macs_per_frame=macs, ms=ms,
+                   bound_ms=max(t_bytes, t_flops),
+                   bound_by="bytes" if t_bytes >= t_flops else "operations",
+                   max_abs_err_vs_cpu_fp64=err, max_abs_err_vs_cpu_fp32=err32,
+                   cpu_fp32_max_abs_err_vs_fp64=cpu_err, out_shape=shape)
+        rows.append(row)
+        say(f"phase baselines {name}: {shape} from the 1080p frame, {ms:.3f} ms (median of "
+            f"{BASELINE_RUNS}, CUDA events; {row['route']}, not a hand-written kernel), "
+            f"{macs / 1e9:.1f} GMAC a frame, bound {row['bound_ms']:.3f} ms by "
+            f"{row['bound_by']}; at {BASELINE_CROP}x{BASELINE_CROP} against the CPU in fp64 "
+            f"max_abs {err:.3e} (rtol 1e-3 atol 1e-3) {'ok' if close else 'MISMATCH'}, against "
+            f"the CPU in fp32 {err32:.3e}, the CPU's fp32 against its fp64 {cpu_err:.3e} "
+            f"({card_line()})")
+        if not (close and finite and shape[1:3] == (4320, 7680)):
+            fail(f"the {name} baseline on the card disagrees with the CPU or is not finite")
+        if module is not None:
+            module.cpu()
+        del x
+        torch.cuda.empty_cache()
+    essr = essr_macs(ESSRConfig(scale=4), (1080, 1920))
+    say(f"phase baselines essr: ESSR C54 x4 fp32 layer frame of phase 20, host median "
+        f"{essr_row['host']['median_ms']:.3f} ms, fused median "
+        f"{essr_row['fused']['median_ms']:.3f} ms (routed (1152, 576, 576)); "
+        f"{essr / 1e9:.1f} GMAC a frame at all-C54")
+    # the patching helpers on the card, against the frame geometry's maps
+    x = torch.from_numpy(mixed_frame(SEED)).to(dev)
+    geom = P.get_geometry(1080, 1920, 32, 2, 4, str(dev))
+    with torch.inference_mode():
+        patches, pos = P.extract_patches(x)
+        same = torch.equal(patches, geom.extract(x)) and np.array_equal(pos, geom.pos)
+        sr = torch.rand((geom.n, 128, 128, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED))
+        got = P.fuse_patches_average(sr, pos, 4, (4320, 7680))
+        want = geom.fuse_average(sr)
+        fuse_err = float((got - want).abs().max())
+        close = torch.allclose(got, want, rtol=1e-6, atol=0)
+        del got, want
+        t_fuse = median_ms(lambda: P.fuse_patches_average(sr, pos, 4, (4320, 7680)), torch,
+                           BASELINE_RUNS)
+        t_geom = median_ms(lambda: geom.fuse_average(sr), torch, BASELINE_RUNS)
+    say(f"phase baselines patching: extract_patches on the card torch.equal to "
+        f"PatchGeometry.extract {same} ({geom.n} patches); fuse_patches_average to 8K against "
+        f"fuse_average max_abs {fuse_err:.3e} (rtol 1e-6) {'ok' if close else 'MISMATCH'}; "
+        f"{t_fuse:.3f} ms against {t_geom:.3f} ms")
+    if not (same and close):
+        fail("extract_patches / fuse_patches_average on the card disagree with the geometry's")
+    del x, sr, patches
+    torch.cuda.empty_cache()
+    return {"card": card_line(), "models": rows, "essr_c54_macs": essr,
+            "essr_fp32_layer_host_ms": essr_row["host"]["median_ms"],
+            "essr_fp32_layer_fused_ms": essr_row["fused"]["median_ms"],
+            "fuse_patches_average_ms": t_fuse, "fuse_average_ms": t_geom}
+
+
+def supervisor_phase(torch) -> dict:
+    """28. TrainSupervisor around the port's supernet step on the card, as
+    phase 26 trains (C54 x4, batch 16 of 24x24, Lamb cosine 3e-3, EMA, TF32
+    off): SUPERVISED_STEPS steps with a checkpoint every
+    SUPERVISED_CKPT_EVERY (async writes into a temporary directory), once
+    uninterrupted and once with an InjectedFailure at SUPERVISED_FAIL_AT.
+    The batches and widths are drawn up front (supernet_draws), so a batch
+    is a function of its step alone. The interrupted run must count one
+    restart, resume at the last checkpoint and end torch.equal to the
+    uninterrupted one in params, optimizer state and EMA."""
+    import itertools
+    import tempfile
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core import supernet
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import patch_batches
+    from repro_torch.models.essr import ESSRConfig, init_essr
+    from repro_torch.runtime.fault_tolerance import (InjectedFailure, SupervisorConfig,
+                                                     TrainSupervisor)
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import make_supervised_step, supernet_draws
+    cfg, dev = ESSRConfig(scale=4), torch.device("cuda")
+    data = patch_batches(SEED, batch=TRAIN_BATCH, lr_patch=TRAIN_PATCH, scale=cfg.scale,
+                         device=dev)
+    draws = list(itertools.islice(supernet_draws(data, cfg, SEED), SUPERVISED_STEPS))
+    resume = SUPERVISED_FAIL_AT // SUPERVISED_CKPT_EVERY * SUPERVISED_CKPT_EVERY
+    runs = {}
+    for name, fail_at in (("uninterrupted", None), ("interrupted", SUPERVISED_FAIL_AT)):
+        model = init_essr(cfg, torch.Generator().manual_seed(SEED)).to(dev)
+        opt = O.lamb(O.cosine_decay(3e-3, SUPERVISED_STEPS))
+        tree = model.tree()
+        state = {"params": tree, "opt_state": opt.init(tree), "ema": supernet.ema_init(tree)}
+        seen = []
+        with tempfile.TemporaryDirectory(prefix=f"essr_sup_{name}_") as ckdir:
+            sup = TrainSupervisor(make_supervised_step(cfg, opt), draws.__getitem__,
+                                  CheckpointManager(ckdir), SupervisorConfig(
+                                      ckpt_every=SUPERVISED_CKPT_EVERY))
+
+            def hook(step, sup=sup, seen=seen, fail_at=fail_at):
+                seen.append(step)
+                if step == fail_at and not sup.restarts:
+                    raise InjectedFailure("lost the card")
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sup.run(state, 0, SUPERVISED_STEPS, failure_hook=hook)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kept = sup.ckpt.all_steps()
+        resumed_at = seen[seen.index(fail_at) + 1] if fail_at is not None else None
+        runs[name] = (out, sup, wall, resumed_at)
+        say(f"phase supervisor {name}: {SUPERVISED_STEPS} steps at C54 x4, batch "
+            f"{TRAIN_BATCH} of {TRAIN_PATCH}x{TRAIN_PATCH}, async checkpoints every "
+            f"{SUPERVISED_CKPT_EVERY} (kept {kept}): wall "
+            f"{wall:.3f} s, {len(seen)} steps run, restarts {sup.restarts}, failures "
+            f"{sup.failures}, resumed at {resumed_at}")
+    (a, sa, wa, _), (b, sb, wb, resumed_at) = runs["uninterrupted"], runs["interrupted"]
+    leaves_a, leaves_b = tree_leaves(a), tree_leaves(b)
+    equal = {k: all(torch.equal(x, y) for x, y in zip(tree_leaves(a[k]), tree_leaves(b[k])))
+             for k in ("params", "opt_state", "ema")}
+    say(f"phase supervisor: {len(leaves_b)} leaves, torch.equal to the uninterrupted run "
+        f"{equal}; the restart cost {wb - wa:.3f} s ({wb:.3f} against {wa:.3f} s: "
+        f"{SUPERVISED_FAIL_AT - resume} steps replayed, the restore) ({card_line()})")
+    if not (sa.restarts == 0 and sb.restarts == 1 and resumed_at == resume
+            and sb.failures == [f"step {SUPERVISED_FAIL_AT}: lost the card"]
+            and len(leaves_a) == len(leaves_b) and all(equal.values())):
+        fail("the supervised run with a failure did not restart once, resume at the last "
+             "checkpoint and end torch.equal to the uninterrupted run")
+    torch.cuda.empty_cache()
+    return {"card": card_line(), "steps": SUPERVISED_STEPS, "ckpt_every": SUPERVISED_CKPT_EVERY,
+            "fail_at": SUPERVISED_FAIL_AT, "resumed_at": resumed_at, "restarts": sb.restarts,
+            "equal": equal, "wall_uninterrupted_s": wa, "wall_interrupted_s": wb,
+            "restart_cost_s": wb - wa}
+
+
+def examples_phase() -> dict:
+    """29. The port's three examples as subprocesses on the card: the
+    quickstart, the serving example at 4 frames of 96x96 under host and
+    fused dispatch (two in flight), the training example for 20 steps into
+    a temporary checkpoint directory, then the serving example from it.
+    The first four run together, the last after the training; each must
+    exit 0 within EXAMPLE_TIMEOUT_S."""
+    import tempfile
+    ex = ROOT / "examples"
+    with tempfile.TemporaryDirectory(prefix="essr_example_ckpt_") as ckdir:
+        waves = ([("quickstart", ["torch_quickstart.py"]),
+                  ("serve host", ["torch_serve_8k.py", "--frames", "4", "--hw", "96"]),
+                  ("serve fused", ["torch_serve_8k.py", "--frames", "4", "--hw", "96",
+                                   "--dispatch", "fused", "--inflight", "2"]),
+                  ("train", ["torch_train_essr.py", "--steps", "20", "--ckpt-dir", ckdir])],
+                 [("serve ckpt", ["torch_serve_8k.py", "--ckpt", ckdir])])
+        report = {}
+        for wave in waves:
+            t0 = time.perf_counter()
+            procs = [(name, subprocess.Popen([sys.executable, str(ex / argv[0]), *argv[1:]],
+                                             cwd=str(ROOT), stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+                     for name, argv in wave]
+            outs = {}
+            try:
+                for name, proc in procs:
+                    outs[name] = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)[0]
+            finally:
+                for _, proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.communicate()
+            wall = time.perf_counter() - t0
+            for (name, argv), (_, proc) in zip(wave, procs):
+                lines = outs.get(name, "").strip().splitlines()
+                say(f"phase examples {name}: python3 examples/{' '.join(argv)} exit "
+                    f"{proc.returncode} (this wave {wall:.1f} s); its last lines:")
+                for line in lines[-4:]:
+                    say(f"  {line[:200]}")
+                report[name] = {"exit": proc.returncode, "last": lines[-1] if lines else ""}
+                if proc.returncode != 0:
+                    fail(f"the example {argv[0]} ({name}) exited {proc.returncode}")
+        return report
 
 
 def params_to_numpy_tree(tree):
@@ -2483,6 +2756,10 @@ def main() -> None:
     fault_report = fault_phase(engine, torch)
     shard_report = shard_phase(engine, frames, torch)
     train_report = train_phase(torch)
+    baseline_report = baselines_phase(
+        next(r for r in fused_report if r["mode"] == "fp32 layer"), torch)
+    supervisor_report = supervisor_phase(torch)
+    examples_report = examples_phase()
 
     # no phase without a FaultPlan moved the ladder
     moved = [(phase, g.level, g.summary()["by_kind"]) for phase, g, faults in GUARDS
@@ -2529,6 +2806,9 @@ def main() -> None:
     say("streams: " + json.dumps({"pools": pool_report, "streams": stream_report,
                                   "faults": fault_report}))
     say("train: " + json.dumps({"shards": shard_report, "train": train_report}))
+    say("baselines: " + json.dumps({"baselines": baseline_report,
+                                    "supervisor": supervisor_report,
+                                    "examples": examples_report}))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

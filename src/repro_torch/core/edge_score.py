@@ -24,4 +24,9 @@ def laplacian_response(luma: torch.Tensor) -> torch.Tensor:
 
 def edge_score(patches: torch.Tensor) -> torch.Tensor:
     """(N,h,w,3) RGB in [0,1] -> (N,) edge scores in [0,255]."""
-    return laplacian_response(rgb_to_luma(patches)).mean(dim=(1, 2))
+    return edge_score_luma(rgb_to_luma(patches))
+
+
+def edge_score_luma(luma: torch.Tensor) -> torch.Tensor:
+    """(N,h,w) luma in [0,255] -> (N,) edge scores."""
+    return laplacian_response(luma).mean(dim=(1, 2))

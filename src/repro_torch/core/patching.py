@@ -122,25 +122,44 @@ class PatchGeometry:
         (padded H*s, padded W*s, C) buffer to fold into (zeroed first; the
         result is a view of it), for a captured graph whose image lives
         outside its memory pool."""
-        s, ps = self.scale, self.patch * self.scale
-        n_y, n_x = len(self.ys), len(self.xs)
-        hp, wp = self.padded_hw
-        c = sr.shape[-1]
-        t = sr.reshape(n_y, n_x, ps, ps, c).permute(0, 2, 1, 3, 4)
-        t = t.reshape(n_y * ps, n_x, ps, c)
-        t = t * self.wy[:, None, None, None] * self.wx.reshape(n_x, ps)[None, :, :, None]
-        acc = torch.zeros((hp * s, n_x, ps, c), dtype=sr.dtype, device=sr.device)
-        for i, y0 in enumerate(self.ys):
-            acc[y0 * s:y0 * s + ps] += t[i * ps:(i + 1) * ps]
-        acc = acc.reshape(hp * s, n_x * ps, c)
-        if out is None:
-            out = torch.zeros((hp * s, wp * s, c), dtype=sr.dtype, device=sr.device)
-        else:
-            out.zero_()
-        for j, x0 in enumerate(self.xs):
-            out[:, x0 * s:x0 * s + ps] += acc[:, j * ps:(j + 1) * ps]
         h, w = self.hw
-        return out[:h * s, :w * s]
+        s = self.scale
+        return _fold(sr, self.ys, self.xs, self.wy, self.wx, s, self.padded_hw, out)[:h * s, :w * s]
+
+
+def _fold(sr: torch.Tensor, ys, xs, wy: torch.Tensor, wx: torch.Tensor, scale: int,
+          plane_hw: Tuple[int, int], out: torch.Tensor = None) -> torch.Tensor:
+    """Separable overlap-add of a cartesian grid's patches, weighted by the
+    reciprocal axis coverage ``wy`` / ``wx``, into a zeroed (plane * scale)
+    image (``out`` if given)."""
+    s = scale
+    ps = int(sr.shape[1])
+    n_y, n_x = len(ys), len(xs)
+    hp, wp = plane_hw
+    c = sr.shape[-1]
+    t = sr.reshape(n_y, n_x, ps, ps, c).permute(0, 2, 1, 3, 4)
+    t = t.reshape(n_y * ps, n_x, ps, c)
+    t = t * wy[:, None, None, None] * wx.reshape(n_x, ps)[None, :, :, None]
+    acc = torch.zeros((hp * s, n_x, ps, c), dtype=sr.dtype, device=sr.device)
+    for i, y0 in enumerate(ys):
+        acc[y0 * s:y0 * s + ps] += t[i * ps:(i + 1) * ps]
+    acc = acc.reshape(hp * s, n_x * ps, c)
+    if out is None:
+        out = torch.zeros((hp * s, wp * s, c), dtype=sr.dtype, device=sr.device)
+    else:
+        out.zero_()
+    for j, x0 in enumerate(xs):
+        out[:, x0 * s:x0 * s + ps] += acc[:, j * ps:(j + 1) * ps]
+    return out
+
+
+def _axis_weights(starts, patch: int, scale: int, plane: int) -> np.ndarray:
+    """(len(starts) * patch * scale,) reciprocal coverage of each patch row
+    (or column): the reciprocal first, then gathered, as the reference's
+    ``take(1 / cnt, idx)``."""
+    inv = np.float32(1.0) / _axis_cnt(starts, patch, scale, plane)
+    ps = patch * scale
+    return np.concatenate([inv[s0 * scale:s0 * scale + ps] for s0 in starts])
 
 
 @bounded_cache(maxsize=128)
@@ -155,15 +174,122 @@ def get_geometry(h: int, w: int, patch: int = 32, overlap: int = 2,
     rows = pos[:, 0][:, None] + ar
     cols = pos[:, 1][:, None] + ar
     gather = (rows[:, :, None] * wp + cols[:, None, :]).reshape(-1)
-    ps = patch * scale
-    y_cnt = _axis_cnt(ys, patch, scale, hp)
-    x_cnt = _axis_cnt(xs, patch, scale, wp)
-    # reciprocal first, then gather: the reference's take(1/cnt, idx)
-    wy = np.concatenate([(np.float32(1.0) / y_cnt)[y0 * scale:y0 * scale + ps] for y0 in ys])
-    wx = np.concatenate([(np.float32(1.0) / x_cnt)[x0 * scale:x0 * scale + ps] for x0 in xs])
+    wy = _axis_weights(ys, patch, scale, hp)
+    wx = _axis_weights(xs, patch, scale, wp)
     dev = torch.device(device)
     return PatchGeometry(
         hw=(h, w), padded_hw=(hp, wp), patch=patch, overlap=overlap, scale=scale,
         pos=pos, ys=tuple(int(y) for y in ys), xs=tuple(int(x) for x in xs),
         gather_idx=torch.from_numpy(gather).to(dev),
         wy=torch.from_numpy(wy).to(dev), wx=torch.from_numpy(wx).to(dev))
+
+
+def extract_patches(img: torch.Tensor, patch: int = 32, overlap: int = 2
+                    ) -> Tuple[torch.Tensor, np.ndarray]:
+    """(H,W,C) -> ((N,patch,patch,C), positions (N,2) int64): one gather
+    over the cached geometry's map, on ``img``'s device."""
+    geom = get_geometry(int(img.shape[0]), int(img.shape[1]), patch, overlap, 1,
+                        str(img.device))
+    return geom.extract(img), geom.pos
+
+
+def _is_cartesian(pos: np.ndarray) -> bool:
+    """True when ``pos`` is the row-major cartesian product of its unique
+    y and x starts (every `grid_starts` tiling is)."""
+    ys, xs = np.unique(pos[:, 0]), np.unique(pos[:, 1])
+    if len(ys) * len(xs) != len(pos):
+        return False
+    grid = np.array([(y, x) for y in ys for x in xs], dtype=pos.dtype)
+    return bool(np.array_equal(pos, grid))
+
+
+def _overlap_add(sr: torch.Tensor, pos: np.ndarray, scale: int,
+                 plane_hw: Tuple[int, int]) -> torch.Tensor:
+    """Each patch added into a zeroed (H, W, C) plane at its scaled start,
+    in patch order."""
+    ph = int(sr.shape[1])
+    out = torch.zeros((plane_hw[0], plane_hw[1], sr.shape[-1]), dtype=sr.dtype,
+                      device=sr.device)
+    for i, (y, x) in enumerate(pos):
+        yy, xx = int(y) * scale, int(x) * scale
+        out[yy:yy + ph, xx:xx + ph] += sr[i]
+    return out
+
+
+def fuse_patches_average(sr_patches: torch.Tensor, pos_lr: np.ndarray, scale: int,
+                         out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Overlap-and-average of SR patches (N, p*s, p*s, C) at LR starts
+    ``pos_lr`` into (out_h, out_w, C). A cartesian grid folds separably, as
+    `PatchGeometry.fuse_average` does; any other position list adds patch by
+    patch in order and divides by the coverage (at least 1)."""
+    pos = np.asarray(pos_lr, dtype=np.int64)
+    ph = int(sr_patches.shape[1])
+    patch = ph // scale
+    # the LR plane holds every patch; it exceeds out_hw only for frames
+    # reflect-padded up to a patch (cropped below)
+    plane_h = max(-(-out_hw[0] // scale), int(pos[:, 0].max()) + patch)
+    plane_w = max(-(-out_hw[1] // scale), int(pos[:, 1].max()) + patch)
+    if _is_cartesian(pos):
+        ys, xs = np.unique(pos[:, 0]), np.unique(pos[:, 1])
+        dev = sr_patches.device
+        wy = torch.from_numpy(_axis_weights(ys, patch, scale, plane_h)).to(dev)
+        wx = torch.from_numpy(_axis_weights(xs, patch, scale, plane_w)).to(dev)
+        out = _fold(sr_patches, [int(y) for y in ys], [int(x) for x in xs], wy, wx, scale,
+                    (plane_h, plane_w))
+        return out[:out_hw[0], :out_hw[1]]
+    plane = (plane_h * scale, plane_w * scale)
+    cnt = _overlap_add(torch.ones_like(sr_patches[..., :1]), pos, scale, plane)
+    out = _overlap_add(sr_patches, pos, scale, plane) / cnt.clamp_(min=1.0)
+    return out[:out_hw[0], :out_hw[1]]
+
+
+def fuse_patches_crop(sr_patches: torch.Tensor, pos_lr: np.ndarray, scale: int,
+                      out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Naive fusion: each patch overwrites what earlier ones wrote there
+    (Table III's zero-cost floor). A loop, since last-write-wins is the
+    contract."""
+    ph = int(sr_patches.shape[1])
+    out = torch.zeros((out_hw[0], out_hw[1], sr_patches.shape[-1]), dtype=sr_patches.dtype,
+                      device=sr_patches.device)
+    for i, (y, x) in enumerate(pos_lr):
+        yy, xx = int(y) * scale, int(x) * scale
+        out[yy:yy + ph, xx:xx + ph] = sr_patches[i]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# loop oracles (the reference's seed implementations): tests only
+# ---------------------------------------------------------------------------
+
+def extract_patches_loop(img: torch.Tensor, patch: int = 32, overlap: int = 2
+                         ) -> Tuple[torch.Tensor, np.ndarray]:
+    """One slice per patch."""
+    h, w = int(img.shape[0]), int(img.shape[1])
+    ys, xs = grid_starts(h, patch, overlap), grid_starts(w, patch, overlap)
+    pos = np.array([(y, x) for y in ys for x in xs], dtype=np.int64)
+    return torch.stack([img[y:y + patch, x:x + patch] for y, x in pos]), pos
+
+
+def fuse_patches_average_loop(sr_patches: torch.Tensor, pos_lr: np.ndarray, scale: int,
+                              out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Patch by patch: add each patch and a patch of ones, then divide."""
+    out = _overlap_add(sr_patches, pos_lr, scale, out_hw)
+    ones = torch.ones_like(sr_patches[..., :1])
+    return out / _overlap_add(ones, pos_lr, scale, out_hw)
+
+
+# ---------------------------------------------------------------------------
+# cost accounting for the boundary benchmark (Tables III / IV)
+# ---------------------------------------------------------------------------
+
+def overlap_mac_overhead(patch: int, overlap: int) -> float:
+    """MAC multiplier of slim-overlap tiling against no overlap (Table IV)."""
+    stride = patch - overlap
+    return (patch / stride) ** 2
+
+
+def boundary_sram_bytes(lr_w: int, overlap_lr: int, channels: int,
+                        bytes_per: float = 1.25) -> float:
+    """Boundary buffer estimate: one stripe of halo rows across the LR
+    frame's width and the feature channels, top and left (FXP10: 1.25 B)."""
+    return lr_w * max(overlap_lr, 1) * channels * bytes_per * 2

@@ -7,10 +7,9 @@ Images mix the three content classes the edge-selective router tells apart
 with numpy's generator exactly as the reference draws them, so the same seed
 gives the same image. LR is a bicubic downsample.
 
-The cubic resize is ``F.interpolate(mode="bicubic", antialias=True)``: Keys
-a = -0.5, antialiased on downsample, out-of-range taps dropped and the rest
-renormalised, as ``jax.image.resize(method="cubic")`` does (within 4e-7 of
-it on the CPU, tests/test_torch_quant.py).
+The cubic resize is `models.layers.bicubic_resize`, the twin of
+``jax.image.resize(method="cubic")`` (within 4e-7 of it on the CPU,
+tests/test_torch_quant.py and tests/test_torch_baselines.py).
 """
 from __future__ import annotations
 
@@ -18,19 +17,13 @@ from typing import Iterator, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-
-def _cubic_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(N,H,W,C) -> (N,h,w,C), antialiased bicubic."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bicubic",
-                      antialias=True, align_corners=False)
-    return y.permute(0, 2, 3, 1)
+from repro_torch.models.layers import bicubic_resize
 
 
 def _smooth_field(rng: np.random.Generator, h: int, w: int, grid: int = 4) -> np.ndarray:
     coarse = rng.uniform(0, 1, size=(grid, grid, 3)).astype(np.float32)
-    return _cubic_resize(torch.from_numpy(coarse)[None], h, w)[0].numpy()
+    return bicubic_resize(torch.from_numpy(coarse)[None], (h, w))[0].numpy()
 
 
 def _texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -91,7 +84,7 @@ def degrade(hr, scale: int) -> torch.Tensor:
     if single:
         hr = hr[None]
     _, h, w, _ = hr.shape
-    lr = torch.clamp(_cubic_resize(hr, h // scale, w // scale), 0.0, 1.0)
+    lr = torch.clamp(bicubic_resize(hr, (h // scale, w // scale)), 0.0, 1.0)
     return lr[0] if single else lr
 
 

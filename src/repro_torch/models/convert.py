@@ -1,9 +1,11 @@
-"""Weight bridge between the reference's param tree and the port's `ESSR`.
+"""Weight bridge between the reference's param trees and the port's
+modules (`ESSR`, and the baselines `FSRCNN` and `RLFN`).
 
-The reference keeps weights as a nested dict ``{"first", "sfbs": [...],
-"recon"}`` in HWIO layouts: pointwise ``(1,1,Cin,Cout)``, depthwise
-``(3,3,1,C)``, biases ``(C,)``. The port's modules keep the very same
-layouts, so the bridge is a shape-checked copy in both directions.
+The reference keeps weights as nested dicts and lists (ESSR: ``{"first",
+"sfbs": [...], "recon"}``) in HWIO layouts: pointwise ``(1,1,Cin,Cout)``,
+depthwise ``(3,3,1,C)``, convolutions ``(k,k,Cin,Cout)``, biases ``(C,)``.
+The port's modules keep the very same layouts, so the bridge is a
+shape-checked copy in both directions.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.essr import ESSR, ESSRConfig
+from repro_torch.models.fsrcnn import FSRCNN, FSRCNNConfig
+from repro_torch.models.rlfn import RLFN, RLFNConfig
 
 
 def _copy_into(module_tree: Dict[str, Any], src: Dict[str, Any], where: str) -> None:
@@ -21,6 +25,12 @@ def _copy_into(module_tree: Dict[str, Any], src: Dict[str, Any], where: str) -> 
     for k, dst in module_tree.items():
         if isinstance(dst, dict):
             _copy_into(dst, src[k], f"{where}.{k}")
+            continue
+        if isinstance(dst, list):
+            if len(src[k]) != len(dst):
+                raise ValueError(f"{where}.{k}: {len(src[k])} entries != expected {len(dst)}")
+            for i, (d, v) in enumerate(zip(dst, src[k])):
+                _copy_into(d, v, f"{where}.{k}[{i}]")
             continue
         a = src[k].detach().cpu().numpy() if isinstance(src[k], torch.Tensor) \
             else np.asarray(src[k])
@@ -41,6 +51,20 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ESSRConfig) -> ESSR:
                {"first": tree["first"], "recon": tree["recon"]}, "params")
     for i, (d, s) in enumerate(zip(mine["sfbs"], tree["sfbs"])):
         _copy_into(d, s, f"params.sfbs[{i}]")
+    return model
+
+
+def fsrcnn_from_numpy(tree: Dict[str, Any], cfg: FSRCNNConfig) -> FSRCNN:
+    """The reference's FSRCNN tree (numpy leaves) -> a CPU `FSRCNN`."""
+    model = FSRCNN(cfg)
+    _copy_into(model.tree(), tree, "fsrcnn")
+    return model
+
+
+def rlfn_from_numpy(tree: Dict[str, Any], cfg: RLFNConfig) -> RLFN:
+    """The reference's RLFN tree (numpy leaves) -> a CPU `RLFN`."""
+    model = RLFN(cfg)
+    _copy_into(model.tree(), tree, "rlfn")
     return model
 
 

@@ -206,3 +206,8 @@ def essr_macs_per_lr_pixel(cfg: ESSRConfig, width: Optional[int] = None) -> int:
     sfb = 2 * (c * c + 9 * c) + c * c
     recon = 9 * c + c * cfg.out_channels
     return first + cfg.n_sfb * sfb + recon
+
+
+def essr_macs(cfg: ESSRConfig, lr_hw, width: Optional[int] = None) -> int:
+    """Multiply-accumulates of one (H, W) LR frame at ``width``."""
+    return essr_macs_per_lr_pixel(cfg, width) * int(lr_hw[0]) * int(lr_hw[1])

@@ -47,6 +47,25 @@ def init_dsconv(cin: int, cout: int, generator: torch.Generator, *, bias: bool =
     return p
 
 
+class ConvWeights(torch.nn.Module):
+    """One convolution's weights in the reference's layout: ``w`` (k, k,
+    cin, cout) HWIO, He-normal from ``generator``; ``b`` (cout,) zeros;
+    with ``prelu``, ``a`` (cout,) PReLU slopes of 0.25."""
+
+    def __init__(self, k: int, cin: int, cout: int, generator: torch.Generator,
+                 prelu: bool = False):
+        super().__init__()
+        self.w = torch.nn.Parameter(conv_init((k, k, cin, cout), generator))
+        self.b = torch.nn.Parameter(torch.zeros(cout))
+        self.a = torch.nn.Parameter(torch.full((cout,), 0.25)) if prelu else None
+
+    def tree(self) -> dict:
+        out = {"w": self.w, "b": self.b}
+        if self.a is not None:
+            out["a"] = self.a
+        return out
+
+
 def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     """XLA's "SAME" padding of one axis: the output is ceil(size / stride),
     the pad total what that needs, its floor half before and the rest
@@ -132,6 +151,17 @@ def bilinear_resize(x: torch.Tensor, scale: int) -> torch.Tensor:
     upsampling)."""
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=scale,
                       mode="bilinear", align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
+
+
+def bicubic_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(N,H,W,C) -> (N,out_h,out_w,C), as ``jax.image.resize(method="cubic")``:
+    Keys' kernel at a = -0.5, half-pixel centres, antialiased when shrinking,
+    taps outside the image dropped and the rest renormalised. That is
+    ``F.interpolate``'s bicubic with ``antialias=True``; without it torch
+    uses a = -0.75 and clamps at the edge."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(int(v) for v in out_hw),
+                      mode="bicubic", align_corners=False, antialias=True)
     return y.permute(0, 2, 3, 1)
 
 

@@ -107,6 +107,13 @@ def _act_points(cfg: ESSRConfig) -> List[str]:
     return pts
 
 
+def init_act_scales(cfg: ESSRConfig, init: float = 2.0,
+                    device="cuda") -> Dict[str, torch.Tensor]:
+    """One 0-d float32 scale ``init`` per activation-quant site, on ``device``."""
+    return {k: torch.tensor(init, dtype=torch.float32, device=device)
+            for k in _act_points(cfg)}
+
+
 def effective_alpha(alpha):
     """Stored alpha -> the clip range the forward uses (shared by the
     fake-quant forward and the integer kernels)."""

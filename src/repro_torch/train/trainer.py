@@ -87,6 +87,33 @@ def make_supernet_step(cfg: ESSRConfig, opt: O.Optimizer, loss=Ls.l1_loss,
     return step
 
 
+def supernet_draws(data: Iterator, cfg: ESSRConfig, seed: int = 0) -> Iterator:
+    """``(lr, hr, width)`` in `train_essr_supernet`'s order: a batch from
+    ``data``, then its subnet width from ``np.random.default_rng(seed)``
+    with `supernet.subnet_sampling_probs`. A list of the first n draws,
+    indexed by the step, is a ``make_batch`` that a replay can repeat."""
+    rng = np.random.default_rng(seed)
+    widths = [w for w in cfg.subnet_widths() if w > 0]
+    probs = supernet.subnet_sampling_probs(cfg)
+    for lr_img, hr_img in data:
+        yield lr_img, hr_img, int(rng.choice(widths, p=probs))
+
+
+def make_supervised_step(cfg: ESSRConfig, opt: O.Optimizer):
+    """`make_supernet_step` as `runtime.fault_tolerance.TrainSupervisor`
+    calls a step: ``step_fn(state, batch) -> (state, loss)``, with the state
+    ``{"params", "opt_state", "ema"}`` and the batch ``(lr, hr, width)``."""
+    step = make_supernet_step(cfg, opt)
+
+    def step_fn(state, batch):
+        lr_img, hr_img, width = batch
+        params, opt_state, ema, val = step(state["params"], state["opt_state"], state["ema"],
+                                           lr_img, hr_img, width=width)
+        return {"params": params, "opt_state": opt_state, "ema": ema}, val
+
+    return step_fn
+
+
 def train_essr_supernet(params, cfg: ESSRConfig, data: Iterator, steps: int,
                         opt: Optional[O.Optimizer] = None, seed: int = 0, log_every: int = 50,
                         log_fn: Callable[[str], None] = print) -> Tuple[Any, Any, list]:
@@ -99,13 +126,10 @@ def train_essr_supernet(params, cfg: ESSRConfig, data: Iterator, steps: int,
     opt_state = opt.init(tree)
     ema = supernet.ema_init(tree)
     step_fn = make_supernet_step(cfg, opt)
-    rng = np.random.default_rng(seed)
-    widths = [w for w in cfg.subnet_widths() if w > 0]
-    probs = supernet.subnet_sampling_probs(cfg)
+    draws = supernet_draws(data, cfg, seed)
     history = []
     for i in range(steps):
-        lr_img, hr_img = next(data)
-        width = int(rng.choice(widths, p=probs))
+        lr_img, hr_img, width = next(draws)
         tree, opt_state, ema, val = step_fn(tree, opt_state, ema, lr_img, hr_img, width=width)
         history.append(float(val))
         if log_every and (i + 1) % log_every == 0:

@@ -1021,3 +1021,83 @@ def test_megakernel_gradient_on_the_card_matches_plain(cuda):
     for a, b in zip(got, want):
         scale = max(float(b.abs().max()), 1e-6)
         assert float((a - b).abs().max()) / scale <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["bicubic", "fsrcnn", "rlfn_pruned", "rlfn_base"])
+def test_baseline_on_the_card_matches_the_cpu(cuda, name):
+    """The baselines at their published widths (library convolutions) on a
+    96x128 LR frame, against the same module on the CPU, rtol 1e-3 / atol
+    1e-3, as chip_smoke phase 27 holds them."""
+    from repro_torch.models import fsrcnn as F
+    from repro_torch.models import rlfn as R
+    from repro_torch.models.layers import bicubic_resize, rgb_to_luma
+    g = torch.Generator().manual_seed(0)
+    module = {"bicubic": None, "fsrcnn": F.init_fsrcnn(F.FSRCNNConfig(), g),
+              "rlfn_pruned": R.init_rlfn(R.RLFN_PRUNED_X4, g),
+              "rlfn_base": R.init_rlfn(R.RLFN_BASE_X4, g)}[name]
+    x = torch.rand((1, 96, 128, 3), generator=torch.Generator().manual_seed(1))
+    if name == "bicubic":
+        def fn(t):
+            return bicubic_resize(t, (384, 512))
+    elif name == "fsrcnn":
+        def fn(t):
+            return module(rgb_to_luma(t)[..., None] / 255.0)
+    else:
+        fn = module
+    with torch.inference_mode():
+        want = fn(x)
+        if module is not None:
+            module.to(cuda)
+        got = fn(x.to(cuda)).cpu()
+    assert got.shape[1:3] == (384, 512)
+    torch.testing.assert_close(got, want, **CHAIN_TOL)
+
+
+def test_patching_helpers_on_the_card_equal_the_geometry(cuda):
+    from repro_torch.core import patching as P
+    x = torch.rand((270, 480, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
+    geom = P.get_geometry(270, 480, 32, 2, 4, "cuda")
+    patches, pos = P.extract_patches(x)
+    assert torch.equal(patches, geom.extract(x)) and np.array_equal(pos, geom.pos)
+    sr = torch.rand((geom.n, 128, 128, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    torch.testing.assert_close(P.fuse_patches_average(sr, pos, 4, (1080, 1920)),
+                               geom.fuse_average(sr), rtol=1e-6, atol=0)
+
+
+def test_supervised_supernet_replay_on_the_card_is_bit_equal(cuda, tmp_path):
+    """TrainSupervisor around the supernet step at C54 x4 on the card: a run
+    with an injected failure at step 10 resumes at 8 and ends torch.equal
+    to an uninterrupted run (params, optimizer state, EMA)."""
+    import itertools
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core import supernet
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import patch_batches
+    from repro_torch.runtime import fault_tolerance as FT
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import make_supervised_step, supernet_draws
+    cfg, steps = ESSRConfig(scale=4), 12
+    data = patch_batches(0, batch=4, lr_patch=24, scale=4, pool=4, pool_hw=128, device=cuda)
+    draws = list(itertools.islice(supernet_draws(data, cfg, 0), steps))
+    out = {}
+    for fail_at in (None, 10):
+        model = ESSR(cfg, generator=torch.Generator().manual_seed(0)).cuda()
+        opt = O.lamb(O.cosine_decay(3e-3, steps))
+        tree = model.tree()
+        state = {"params": tree, "opt_state": opt.init(tree), "ema": supernet.ema_init(tree)}
+        sup = FT.TrainSupervisor(make_supervised_step(cfg, opt), draws.__getitem__,
+                                 CheckpointManager(str(tmp_path / str(fail_at))),
+                                 FT.SupervisorConfig(ckpt_every=4))
+        seen = []
+
+        def hook(step, sup=sup, seen=seen, fail_at=fail_at):
+            seen.append(step)
+            if step == fail_at and not sup.restarts:
+                raise FT.InjectedFailure("lost the card")
+
+        out[fail_at] = (sup.run(state, 0, steps, failure_hook=hook), sup.restarts, seen)
+    (clean, r0, _), (crashed, r1, seen) = out[None], out[10]
+    assert (r0, r1) == (0, 1) and seen[seen.index(10) + 1] == 8
+    for k in ("params", "opt_state", "ema"):
+        for a, b in zip(tree_leaves(clean[k]), tree_leaves(crashed[k])):
+            assert a.device.type == "cuda" and torch.equal(a, b)

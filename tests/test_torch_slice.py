@@ -366,10 +366,13 @@ def test_from_checkpoint_serves_where_the_reference_serves(engines, tmp_path, ca
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """The port and chip_smoke.py run where JAX is not installed."""
+    """The port, its examples and chip_smoke.py run where JAX is not installed."""
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
                      r"from\s+repro(\.|\s))", re.M)
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 3
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + examples
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 10
     offenders = [f"{os.path.relpath(f, ROOT)}: {m.group(0).strip()}"
                  for f in files for m in bad.finditer(f.read_text())]
