@@ -6,7 +6,7 @@
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
 8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 25, 26, 27,
-28, 29, 10; any failure exits non-zero before the last line:
+28, 29, 30, 31, 10; any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -223,7 +223,34 @@ Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
      (--inflight 2) and torch_train_essr.py --steps 20 as subprocesses on
      the card, together, then torch_serve_8k.py from the training's
      checkpoint; each must exit 0. A "baselines:" JSON line before the
-     kernels line holds phases 27-29.
+     kernels line holds phases 27-29;
+ 30. the LM side ("lm"), which reaches no hand-written kernel (its matmuls
+     are cuBLAS; the launch counts stay 0 through it): granite-8b FULL (36
+     layers, d 4096, 32 / 8 heads, d_ff 14336) in bf16 on the card from a
+     seeded generator, after the earlier phases' graphs and caches are
+     freed, served as is and as FULL_DYNWIDTH on the same weights: for each,
+     lm_prefill of LM_BATCH x LM_PROMPT tokens (max_len LM_MAX_LEN), then
+     LM_DECODE greedy lm_decode_steps, prefill and decode timed with CUDA
+     events beside their bounds (bf16 tensor-core rate, HBM bytes; causal
+     prefill counts the keys each query needs, a decode step the positions
+     filled), peak memory; the logits finite; the static variant's decode at positions S
+     and S + LM_DECODE - 1 within rtol/atol 8e-2 of a prefill of the same
+     tokens, its argmax a near-tie (<= 0.1) of the prefill's max
+     (tests/test_lm_archs.py:90-94); the dynamic-width variant's every FFN
+     call routing exactly max(1, int(t / 2)) of its t tokens (t = 2048 at
+     prefill, 4 at decode) to the full width, the highest scores, every
+     token once. Then ("lm fp32") granite-8b FULL cut to LM_CHECK_LAYERS
+     layers in fp32 (TF32 off), built on the CPU and copied to the card:
+     a prefill of 1 x LM_CHECK_PROMPT tokens and LM_CHECK_STEPS decode
+     steps, static and dynamic width, the card's logits within rtol/atol
+     1e-3 of the CPU's, the dynamic width's routing ids equal but where a
+     score lies within float noise of the cut;
+ 31. every architecture's SMOKE config ("lm-archs": MoE, MLA, both Mamba
+     forms, the hybrid shared block, enc-dec, the VLM prefix), its port
+     init in fp32 on the CPU copied to the card: prefill and one decode
+     step (lm_ or encdec_), logits and every cache leaf within rtol/atol
+     1e-3 of the CPU's. An "lm:" JSON line before the kernels line holds
+     phases 30-31.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -231,6 +258,7 @@ when the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import json
@@ -287,6 +315,15 @@ BASELINE_CROP, BASELINE_RUNS = 128, 10
 SUPERVISED_STEPS, SUPERVISED_CKPT_EVERY, SUPERVISED_FAIL_AT = 30, 10, 23
 #: Phase 29: seconds each example may take (the kernels are built by then).
 EXAMPLE_TIMEOUT_S = 300
+#: Phase 30: granite-8b served at full width and depth: the batch, the
+#: prompt, the cache length and the greedy decode steps; the CPU check's
+#: depth, prompt and decode steps (fp32).
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_DECODE = 4, 512, 576, 32
+LM_PREFILL_RUNS = 3
+LM_CHECK_LAYERS, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 64, 4
+#: Phase 31: the smoke configs' batch, prompt and cache length
+#: (tests/test_lm_archs.py:15).
+LM_ARCH_B, LM_ARCH_S, LM_ARCH_ML = 2, 16, 24
 #: Every engine the phases construct: (phase, its guard, its FaultPlan). A
 #: phase without a FaultPlan must leave the ladder where it started.
 GUARDS = []
@@ -1843,6 +1880,418 @@ def examples_phase() -> dict:
         return report
 
 
+def tree_to(tree, device):
+    """A nested dict / list tree of tensors, copied to ``device`` (a copy
+    also where it is there already: decode writes its caches in place)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def profile_lm(fn, wall_ms: float, label: str, torch) -> dict:
+    """One call of ``fn`` under torch.profiler: device busy time against
+    the unprofiled call's ``wall_ms``, the device kernels it launched and
+    the five longest."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or "Activity Buffer" in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        say(f"phase lm profile {label}: the profiler recorded no device time (not measured)")
+        return {}
+    busy = sum(ms for ms, _, _ in rows)
+    kernels = sum(c for _, c, _ in rows)
+    groups = {}
+    for ms, count, key in rows:
+        k = key.lower()
+        group = ("fp32 GEMM (the attention's scores and P.V)" if "sgemm" in k or "f32f32" in k
+                 else "bf16 GEMM (cuBLAS)" if "nvjet" in k or "gemm" in k or "bf16" in k
+                 else "copies and casts" if "copy" in k
+                 else "elementwise, reductions, softmax, index")
+        ms0, n0 = groups.get(group, (0.0, 0))
+        groups[group] = (ms0 + ms, n0 + count)
+    say(f"phase lm profile {label}: device busy {busy:.3f} ms of the unprofiled call's "
+        f"{wall_ms:.3f} ms (idle share {max(0.0, 1 - busy / wall_ms):.3f}), {kernels} device "
+        f"kernels: " + "; ".join(f"{g} {ms:.3f} ms x{n}" for g, (ms, n) in
+                                 sorted(groups.items(), key=lambda kv: -kv[1][0]))
+        + "; the longest:")
+    for ms, count, key in sorted(rows, reverse=True)[:6]:
+        say(f"  {ms:9.3f} ms  x{count:<5d} {key[:100]}")
+    return {"busy_ms": busy, "idle_share": max(0.0, 1 - busy / wall_ms), "kernels": kernels,
+            "groups": {g: list(v) for g, v in groups.items()},
+            "top": [[key[:80], ms, count] for ms, count, key in sorted(rows, reverse=True)[:6]]}
+
+
+def lm_macs(cfg, b: int, s: int, kv_len: int, n_full=None, causal: bool = False) -> int:
+    """Multiply-adds of one granite-style forward over b x s new tokens: the
+    layers' projections and FFN (under dynamic width ``n_full`` tokens a
+    layer at full width, the rest at half), the attention (``causal``: query
+    i over its i + 1 keys; else each query over ``kv_len`` keys), the head
+    on the last token."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    t = b * s
+    proj = t * (2 * d * h * hd + 2 * d * g * hd)
+    ffn = t * 3 * d * f if n_full is None else \
+        n_full * 3 * d * f + (t - n_full) * 3 * d * (f // 2)
+    keys = s * (s + 1) // 2 if causal else s * kv_len
+    attn = 2 * b * h * keys * hd
+    return L * (proj + ffn + attn) + b * d * cfg.vocab_padded
+
+
+def lm_needed_bytes(params, cfg, b: int, s: int, kv_read: int, kv_written: int) -> int:
+    """Bytes a forward must move, each input read once: every weight but the
+    embedding table (only its b x s rows), the K/V positions it reads and
+    writes (bf16)."""
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    emb = params["embed"]
+    kv = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.resolved_head_dim * emb.element_size()
+    return (weights - emb.numel() * emb.element_size() + b * s * cfg.d_model * emb.element_size()
+            + kv * (kv_read + kv_written))
+
+
+@contextlib.contextmanager
+def recorded_splits(FF):
+    """Inside the block, every dynamic-width FFN call's split (what
+    ``FF.dynamic_width_split`` returned to it) is appended to the yielded
+    list as ``{"tokens", "full", "half", "score"}``."""
+    log, split = [], FF.dynamic_width_split
+
+    def recorded(xf, capacity_frac):
+        full, half, score = split(xf, capacity_frac)
+        log.append({"tokens": xf.shape[0], "full": full, "half": half, "score": score})
+        return full, half, score
+
+    FF.dynamic_width_split = recorded
+    try:
+        yield log
+    finally:
+        FF.dynamic_width_split = split
+
+
+def check_routing(log, t_expected: int, torch, where: str) -> int:
+    """Every dynamic-width call of ``log`` routed max(1, int(t / 2)) of its
+    t tokens to the full width, the highest scores, every token once."""
+    for rec in log:
+        t = rec["tokens"]
+        n_full = max(1, int(t * 0.5))
+        full, half, score = rec["full"], rec["half"], rec["score"]
+        every = torch.sort(torch.cat([full, half])).values
+        ok = (t == t_expected and full.numel() == n_full and half.numel() == t - n_full
+              and torch.equal(every, torch.arange(t, device=every.device))
+              and (half.numel() == 0 or score[full].min().item() >= score[half].max().item()))
+        if not ok:
+            fail(f"{where}: a dynamic-width call routed {full.numel()} of {t} tokens to the full "
+                 f"width (expected {n_full} of {t_expected}, the highest scores, each token once)")
+    return len(log)
+
+
+def decode_vs_prefill(ld, lr, torch):
+    """tests/test_lm_archs.py:89-92: rtol/atol 8e-2, argmax a near-tie."""
+    err = (ld - lr).abs().max().item()
+    close = bool(torch.all((ld - lr).abs() <= 8e-2 + 8e-2 * lr.abs()))
+    gap = (lr.max(-1).values - lr.gather(-1, ld.argmax(-1, keepdim=True))[:, 0]).max().item()
+    return err, gap, close and gap <= 0.1
+
+
+def lm_phase(torch) -> dict:
+    """30. granite-8b at full width and depth in bf16, static and dynamic
+    width (see the module docstring), then the fp32 check against the CPU."""
+    import gc
+    from repro_torch.configs import granite_8b
+    from repro_torch.configs.base import param_count_estimate
+    from repro_torch.core import pipeline as pl
+    from repro_torch.models.lm import ffn as FF
+    from repro_torch.models.lm import transformer as T
+    pl._fused_frame_fn.cache_clear()
+    pl._fused_stream_fn.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    name = torch.cuda.get_device_name(0)
+    bf16_peak = next((ops for key, ops in FP16_PEAKS if key in name), FP16_PEAKS[-1][1])
+    bw = peaks_for(name)[1]
+    cfg = granite_8b.FULL
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = T.init_lm(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    estimate = param_count_estimate(cfg)
+    weight_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    say(f"phase lm: granite-8b FULL bf16 on the card: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}; "
+        f"{n_params:,} parameters (param_count_estimate {estimate:,}, which leaves out the "
+        f"norms), {weight_gb:.3f} GB, built in {init_s:.1f} s; allocated before it "
+        f"{before / 2**20:.0f} MiB (earlier phases' graphs and caches freed)")
+    if n_params - estimate != (2 * cfg.n_layers + 1) * cfg.d_model:
+        fail("granite-8b's parameters differ from param_count_estimate by more than its norms")
+    prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), device="cuda",
+                           generator=gen)
+    report = {"card": card_line(), "params": n_params, "weights_gb": weight_gb,
+              "init_s": init_s}
+    with torch.inference_mode():
+        for label, vcfg in (("static", cfg), ("dynwidth", granite_8b.FULL_DYNWIDTH)):
+            dyn = vcfg.dynamic_width
+            t = LM_BATCH * LM_PROMPT
+            with recorded_splits(FF) as warm_log:
+                T.lm_prefill(params, vcfg, prompt, LM_MAX_LEN)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(LM_PREFILL_RUNS):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                logits, caches = T.lm_prefill(params, vcfg, prompt, LM_MAX_LEN)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            pre_ms = statistics.median(times)
+            if not torch.isfinite(logits).all():
+                fail(f"lm {label}: prefill logits are not finite")
+            tok = logits.argmax(-1, keepdim=True)
+            toks, steps, dec_logits = [tok], [], []
+
+            def step(tok, caches, pos):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                out, caches = T.lm_decode_step(params, vcfg, tok, caches, pos)
+                b.record()
+                steps.append((a, b))
+                dec_logits.append(out)
+                return out.argmax(-1, keepdim=True), caches
+
+            with recorded_splits(FF) as dec_log:         # the first step's calls
+                tok, caches = step(tok, caches, LM_PROMPT)
+            toks.append(tok)
+            for i in range(1, LM_DECODE):
+                tok, caches = step(tok, caches, LM_PROMPT + i)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            dec_times = [a.elapsed_time(b) for a, b in steps]
+            dec_ms = statistics.median(dec_times)
+            if not all(bool(torch.isfinite(x).all()) for x in dec_logits):
+                fail(f"lm {label}: decode logits are not finite")
+            prof_pre = profile_lm(lambda: T.lm_prefill(params, vcfg, prompt, LM_MAX_LEN),
+                                  pre_ms, f"{label} prefill", torch)
+            spare = {k: v.clone() for k, v in caches.items()}
+            prof_dec = profile_lm(lambda: T.lm_decode_step(params, vcfg, tok, spare,
+                                                           LM_PROMPT + LM_DECODE),
+                                  dec_ms, f"{label} decode step", torch)
+            del spare
+            peak = torch.cuda.max_memory_allocated()
+            n_full = max(1, int(t * 0.5)) if dyn else None
+            pre_macs = lm_macs(vcfg, LM_BATCH, LM_PROMPT, LM_PROMPT, n_full, causal=True)
+            pre_bytes = lm_needed_bytes(params, vcfg, LM_BATCH, LM_PROMPT, 0, LM_PROMPT)
+            # a decode step at position pos reads pos cached K/V and writes
+            # one; the mean over the run's steps
+            positions = range(LM_PROMPT, LM_PROMPT + LM_DECODE)
+            dec_macs = statistics.mean(lm_macs(vcfg, LM_BATCH, 1, pos + 1,
+                                               max(1, int(LM_BATCH * 0.5)) if dyn else None)
+                                       for pos in positions)
+            dec_bytes = statistics.mean(lm_needed_bytes(params, vcfg, LM_BATCH, 1, pos, 1)
+                                        for pos in positions)
+            # what this implementation moves beyond that: the half-width
+            # slice re-reads half of every FFN weight
+            reread = (cfg.n_layers * 3 * cfg.d_model * (cfg.d_ff // 2) * 2) if dyn else 0
+            pre_bound = max(2 * pre_macs / bf16_peak, pre_bytes / bw) * 1e3
+            dec_bound = max(2 * dec_macs / bf16_peak, dec_bytes / bw) * 1e3
+            dec_impl_bound = max(2 * dec_macs / bf16_peak, (dec_bytes + reread) / bw) * 1e3
+            row = {"prefill_ms": pre_ms, "prefill_runs_ms": times,
+                   "prefill_tokens_per_s": t / pre_ms * 1e3,
+                   "prefill_tflop": 2 * pre_macs / 1e12, "prefill_gb": pre_bytes / 1e9,
+                   "prefill_bound_ms": pre_bound,
+                   "decode_ms_median": dec_ms, "decode_ms_min": min(dec_times),
+                   "decode_ms_max": max(dec_times), "decode_tokens_per_s": LM_BATCH / dec_ms * 1e3,
+                   "decode_gflop": 2 * dec_macs / 1e9, "decode_gb": dec_bytes / 1e9,
+                   "decode_bound_ms": dec_bound, "decode_reread_gb": reread / 1e9,
+                   "decode_bound_with_reread_ms": dec_impl_bound,
+                   "peak_mib": peak / 2**20, "profile_prefill": prof_pre,
+                   "profile_decode": prof_dec}
+            say(f"phase lm {label}: prefill {LM_BATCH}x{LM_PROMPT} (max_len {LM_MAX_LEN}) "
+                f"{pre_ms:.3f} ms (median of {LM_PREFILL_RUNS}: "
+                f"{', '.join(f'{x:.3f}' for x in times)}), {row['prefill_tokens_per_s']:,.0f} "
+                f"tokens/s; bound {pre_bound:.3f} ms ({row['prefill_tflop']:.2f} TFLOP at "
+                f"{bf16_peak / 1e12:g} TFLOP/s bf16, {row['prefill_gb']:.2f} GB at "
+                f"{bw / 1e12:g} TB/s); decode {dec_ms:.3f} ms a step (median of {LM_DECODE}, "
+                f"{min(dec_times):.3f}-{max(dec_times):.3f}), {row['decode_tokens_per_s']:,.0f} "
+                f"tokens/s; bound {dec_bound:.3f} ms (a step's mean: {row['decode_gb']:.2f} GB each "
+                f"input once, "
+                f"{row['decode_gflop']:.1f} GFLOP)"
+                + (f", {dec_impl_bound:.3f} ms with the half-width slice's re-read "
+                   f"{reread / 1e9:.2f} GB" if dyn else "")
+                + f"; peak allocated {peak / 2**20:,.0f} MiB")
+            if dyn:
+                n_pre = check_routing(warm_log, t, torch, "lm dynwidth prefill")
+                n_dec = check_routing(dec_log, LM_BATCH, torch, "lm dynwidth decode")
+                if (n_pre, n_dec) != (cfg.n_layers, cfg.n_layers):
+                    fail(f"lm dynwidth: {n_pre} prefill / {n_dec} decode FFN calls recorded, "
+                         f"expected {cfg.n_layers} each")
+                row["routing"] = {"prefill_calls": n_pre, "prefill_full": n_full,
+                                  "prefill_tokens": t, "decode_calls": n_dec,
+                                  "decode_full": max(1, int(LM_BATCH * 0.5)),
+                                  "decode_tokens": LM_BATCH}
+                say(f"phase lm dynwidth routing: each of {n_pre} prefill FFN calls sent {n_full} "
+                    f"of {t} tokens to the full width and each of {n_dec} decode calls "
+                    f"{row['routing']['decode_full']} of {LM_BATCH}, the highest scores, every "
+                    f"token once; decode is not held to prefill here: a token's rank is "
+                    f"against the other tokens of the same call ({LM_BATCH} at decode, {t:,} at "
+                    f"prefill)")
+            else:
+                seq = torch.cat([prompt] + toks, dim=1)
+                checks = []
+                for i in (0, LM_DECODE - 1):
+                    ref, _ = T.lm_prefill(params, vcfg, seq[:, :LM_PROMPT + i + 1], LM_MAX_LEN)
+                    err, gap, ok = decode_vs_prefill(dec_logits[i], ref, torch)
+                    checks.append({"position": LM_PROMPT + i, "max_abs": err, "argmax_gap": gap})
+                    say(f"phase lm static decode vs prefill at position {LM_PROMPT + i}: "
+                        f"max_abs {err:.4e} (rtol/atol 8e-2), the decode's argmax "
+                        f"{gap:.4e} below the prefill's max (<= 0.1) {'ok' if ok else 'MISMATCH'}")
+                    if not ok:
+                        fail("lm static: decode disagrees with a prefill of the same tokens")
+                row["decode_vs_prefill"] = checks
+            report[label] = row
+            del logits, caches, dec_logits, warm_log, dec_log
+            torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["fp32_check"] = lm_cpu_check(torch)
+    return report
+
+
+def lm_cpu_check(torch) -> dict:
+    """30 ("lm fp32"): granite-8b FULL cut to LM_CHECK_LAYERS layers in fp32,
+    the card against the CPU on the same weights, static and dynamic width."""
+    import dataclasses
+    from repro_torch.configs import granite_8b
+    from repro_torch.models.lm import ffn as FF
+    from repro_torch.models.lm import transformer as T
+    from repro_torch.models.lm.params import ParamTree
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(granite_8b.FULL, n_layers=LM_CHECK_LAYERS)
+    cpu = T.init_lm(cfg, generator=gen, device="cpu", dtype=torch.float32)
+    gpu = ParamTree(tree_to(cpu.tree(), "cuda"))
+    prompt = torch.randint(0, cfg.vocab_size, (1, LM_CHECK_PROMPT), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (1, LM_CHECK_STEPS), generator=gen)
+    max_len = LM_CHECK_PROMPT + LM_CHECK_STEPS
+    report = {"layers": LM_CHECK_LAYERS, "prompt": LM_CHECK_PROMPT, "steps": LM_CHECK_STEPS}
+    with torch.inference_mode():
+        for label, vcfg in (("static", cfg), ("dynwidth", dataclasses.replace(
+                granite_8b.FULL_DYNWIDTH, n_layers=LM_CHECK_LAYERS))):
+            runs = {}
+            for dev, params in (("cpu", cpu), ("cuda", gpu)):
+                with recorded_splits(FF) as log:
+                    lg, caches = T.lm_prefill(params, vcfg, prompt.to(dev), max_len)
+                    out = [lg]
+                    for i in range(LM_CHECK_STEPS):
+                        lg, caches = T.lm_decode_step(params, vcfg, nxt[:, i:i + 1].to(dev),
+                                                      caches, LM_CHECK_PROMPT + i)
+                        out.append(lg)
+                runs[dev] = ([x.cpu() for x in out], log, caches)
+            errs = [(g - c).abs().max().item() for c, g in zip(runs["cpu"][0], runs["cuda"][0])]
+            ok = all(torch.allclose(g, c, rtol=1e-3, atol=1e-3)
+                     for c, g in zip(runs["cpu"][0], runs["cuda"][0]))
+            kv = max((runs["cuda"][2][k].cpu() - runs["cpu"][2][k]).abs().max().item()
+                     for k in ("k", "v"))
+            moved, near = 0, 0.0
+            for rc, rg in zip(runs["cpu"][1], runs["cuda"][1]):
+                fc, fg = set(rc["full"].tolist()), set(rg["full"].cpu().tolist())
+                if fc == fg:
+                    continue
+                score = rc["score"]
+                cut = score[rc["full"]].min().item()
+                for tk in fc ^ fg:
+                    moved += 1
+                    near = max(near, abs(score[tk].item() - cut) / abs(cut))
+            route_ok = moved == 0 or near <= 1e-4
+            report[label] = {"max_abs": errs, "kv_max_abs": kv, "moved_ids": moved,
+                             "moved_max_rel_from_cut": near}
+            say(f"phase lm fp32 {label}: granite-8b FULL cut to {LM_CHECK_LAYERS} layers, fp32, "
+                f"prefill 1x{LM_CHECK_PROMPT} and {LM_CHECK_STEPS} decode steps, card vs CPU "
+                f"logits max_abs {', '.join(f'{e:.3e}' for e in errs)} (rtol/atol 1e-3), caches "
+                f"{kv:.3e} {'ok' if ok else 'MISMATCH'}"
+                + (f"; routing ids differing on {moved} tokens (each within "
+                   f"{near:.2e} of the cut, float noise <= 1e-4) {'ok' if route_ok else 'MOVED'}"
+                   if vcfg.dynamic_width else ""))
+            if not (ok and route_ok):
+                fail(f"lm fp32 {label}: the card disagrees with the CPU")
+    report["seconds"] = time.perf_counter() - t0
+    return report
+
+
+def lm_archs_phase(torch) -> dict:
+    """31. Every architecture's SMOKE config on the card against the CPU."""
+    from repro_torch.configs.registry import ARCH_NAMES, get_config
+    from repro_torch.models.lm import encdec as E
+    from repro_torch.models.lm import transformer as T
+    from repro_torch.models.lm.params import ParamTree
+    b, s, ml = LM_ARCH_B, LM_ARCH_S, LM_ARCH_ML
+    report = {}
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch, smoke=True)
+        gen = torch.Generator().manual_seed(SEED)
+        init = E.init_encdec if cfg.is_encoder_decoder else T.init_lm
+        cpu = init(cfg, generator=gen, device="cpu", dtype=torch.float32)
+        gpu = ParamTree(tree_to(cpu.tree(), "cuda"))
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen)
+        src = torch.randn((b, s, cfg.d_model), generator=gen)
+        pe = (torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+              if cfg.frontend == "vision" else None)
+        off = 0 if pe is None else pe.shape[1]
+        runs = {}
+        with torch.inference_mode():
+            for dev, params in (("cpu", cpu), ("cuda", gpu)):
+                t = toks.to(dev)
+                if cfg.is_encoder_decoder:
+                    lp, caches = E.encdec_prefill(params, cfg, src.to(dev), t[:, :s], ml)
+                    pre = tree_to(caches, "cpu")
+                    ld, caches = E.encdec_decode_step(params, cfg, t[:, s:], caches, s)
+                else:
+                    lp, caches = T.lm_prefill(params, cfg, t[:, :s], ml + off,
+                                              None if pe is None else pe.to(dev))
+                    pre = tree_to(caches, "cpu")
+                    ld, caches = T.lm_decode_step(params, cfg, t[:, s:], caches, s + off)
+                runs[dev] = (lp.cpu(), pre, ld.cpu(), tree_to(caches, "cpu"))
+
+        def leaves(tree, path=""):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    yield from leaves(v, f"{path}.{k}" if path else k)
+            else:
+                yield path, tree
+
+        errs, ok = {}, True
+        for what, i in (("prefill", 0), ("prefill caches", 1), ("decode", 2),
+                        ("decode caches", 3)):
+            c, g = dict(leaves(runs["cpu"][i])), dict(leaves(runs["cuda"][i]))
+            errs[what] = max((g[k] - c[k]).abs().max().item() for k in c)
+            ok = ok and set(c) == set(g) and all(
+                torch.allclose(g[k], c[k], rtol=1e-3, atol=1e-3) for k in c)
+        ok = ok and all(bool(torch.isfinite(runs["cuda"][i]).all()) for i in (0, 2))
+        report[arch] = errs
+        say(f"phase lm-archs {arch} ({cfg.family}): card vs CPU, fp32 SMOKE, B {b} S {s} "
+            f"max_len {ml + off}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (rtol/atol 1e-3) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"lm-archs {arch}: the card disagrees with the CPU")
+    return report
+
+
 def params_to_numpy_tree(tree):
     """A param tree of tensors as numpy leaves (the form from_params takes)."""
     if isinstance(tree, dict):
@@ -2760,6 +3209,18 @@ def main() -> None:
         next(r for r in fused_report if r["mode"] == "fp32 layer"), torch)
     supervisor_report = supervisor_phase(torch)
     examples_report = examples_phase()
+    # 30-31. the LM side: no kernel of the port lies on it, so every count
+    # must stay 0 through it. The SR phases' engines, frames and results go
+    # first (lm_phase drops the graph caches), so its peak is its own.
+    del engine, ref_engine, group, frames, served, layer_served, rr, r, quant
+    reset_launch_counts()
+    lm_report = lm_phase(torch)
+    lm_report["archs"] = lm_archs_phase(torch)
+    lm_launches = {k: v for k, v in launch_counts().items() if v}
+    say(f"phase lm launches: the port's kernels launched {lm_launches or 'none'} through "
+        f"phases 30-31 (their matmuls are cuBLAS, their attention and scans PyTorch ops)")
+    if lm_launches:
+        fail(f"the LM path launched the port's kernels: {lm_launches}")
 
     # no phase without a FaultPlan moved the ladder
     moved = [(phase, g.level, g.summary()["by_kind"]) for phase, g, faults in GUARDS
@@ -2809,6 +3270,7 @@ def main() -> None:
     say("baselines: " + json.dumps({"baselines": baseline_report,
                                     "supervisor": supervisor_report,
                                     "examples": examples_report}))
+    say("lm: " + json.dumps(lm_report))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -1,0 +1,169 @@
+"""FFN substrate: dense (gated) MLP, MoE, and the ESSR-style dynamic-width FFN.
+
+The port of ``repro.models.lm.ffn``. MoE uses capacity-based dispatch
+written as gather/scatter math: each (token, slot) pair takes the next free
+position of its expert's buffer, in token-major order (a cumsum); pairs past
+the capacity go to a scratch row and are dropped.
+
+Dynamic-width FFN = the paper's edge-selective subnet idea transplanted:
+per-token "edge score" (RMS of the pre-FFN hidden state) routes the top
+``capacity`` tokens through the full-width FFN and the rest through the
+weight-shared half-width slice (C54 vs C27, ARM-style shared weights).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.models.lm.params import normal
+
+
+def _act(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(name)
+
+
+# ---------------------------------------------------------------------------
+# dense MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(d: int, f: int, act: str, *, generator, device,
+             dtype=torch.bfloat16) -> Dict[str, Any]:
+    std_in, std_out = d ** -0.5, f ** -0.5
+    p = {"w_in": normal(generator, (d, f), std_in, dtype, device),
+         "w_out": normal(generator, (f, d), std_out, dtype, device)}
+    if act != "relu2":                       # gated (SwiGLU-family)
+        p["w_gate"] = normal(generator, (d, f), std_in, dtype, device)
+    return p
+
+
+def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    a = _act(act)
+    h = x @ p["w_in"]
+    if "w_gate" in p:
+        h = h * a(x @ p["w_gate"])
+    else:
+        h = a(h)
+    return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity dispatch, gather/scatter form)
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: LMConfig, *, generator, device, dtype=torch.bfloat16) -> Dict[str, Any]:
+    d = cfg.d_model
+    f = cfg.moe_d_ff or cfg.d_ff
+    e = cfg.n_experts
+    std_in, std_out = d ** -0.5, f ** -0.5
+    p = {
+        "router": normal(generator, (d, e), std_in, torch.float32, device),
+        "w_in": normal(generator, (e, d, f), std_in, dtype, device),
+        "w_gate": normal(generator, (e, d, f), std_in, dtype, device),
+        "w_out": normal(generator, (e, f, d), std_out, dtype, device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(d, f * cfg.n_shared_experts, cfg.act, generator=generator,
+                               device=device, dtype=dtype)
+    return p
+
+
+def moe_capacity(n_tokens: int, cfg: LMConfig) -> int:
+    c = int(n_tokens * cfg.n_experts_per_tok * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)            # padded to 8, as the reference's (it sets the drops)
+
+
+def moe_forward(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,D) -> (out, aux_loss). Top-k, capacity-dropped, softmax-weighted."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_per_tok
+    t = b * s
+    xf = x.reshape(t, d)
+    logits = xf.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)                  # (T,k), descending
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance aux loss (Switch-style)
+    density = F.one_hot(idx[:, 0], e).float().mean(0)
+    aux = e * torch.mean(density * probs.mean(0))
+
+    # capacity assignment: position of each (token, slot) within its expert
+    cap = moe_capacity(t, cfg)
+    flat_e = idx.reshape(-1)                                  # (T*k,)
+    onehot = F.one_hot(flat_e, e)                             # (T*k, E)
+    pos = torch.cumsum(onehot, dim=0).gather(1, flat_e[:, None])[:, 0] - 1
+    valid = pos < cap
+    slot = torch.where(valid, flat_e * cap + pos, torch.full_like(pos, e * cap))  # drops -> scratch
+
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    disp = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    disp.index_add_(0, slot, xf[tok] * valid[:, None])
+    disp = disp[:-1].reshape(e, cap, d)
+
+    a = _act(cfg.act)
+    h = torch.bmm(disp, p["w_in"])
+    h = h * a(torch.bmm(disp, p["w_gate"]))
+    y = torch.bmm(h, p["w_out"]).reshape(e * cap, d)
+    y = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)], dim=0)
+
+    w = (gate.reshape(-1) * valid).to(x.dtype)
+    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    out.index_add_(0, tok, y[slot] * w[:, None])
+    if "shared" in p:
+        out = out + mlp(p["shared"], xf, cfg.act)
+    return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# ESSR-style dynamic-width FFN (the paper's technique, generalized)
+# ---------------------------------------------------------------------------
+
+def token_edge_score(x: torch.Tensor) -> torch.Tensor:
+    """The LM analog of the paper's edge score: token 'difficulty' as the RMS
+    of the pre-FFN hidden state (cheap, input-derived, no learned router)."""
+    return torch.sqrt(torch.mean(torch.square(x.float()), dim=-1))
+
+
+def dynamic_width_split(xf: torch.Tensor, capacity_frac: float):
+    """(full_idx, half_idx, score) of the (T, D) tokens ``xf``: the top
+    max(1, int(T * capacity_frac)) by edge score go to the full width. Ties
+    rank the earlier token first, as ``lax.top_k`` does."""
+    score = token_edge_score(xf)
+    n_full = max(1, int(xf.shape[0] * capacity_frac))
+    order = torch.sort(score, descending=True, stable=True).indices
+    return order[:n_full], order[n_full:], score
+
+
+def dynamic_width_ffn(p, x: torch.Tensor, act: str, capacity_frac: float = 0.5) -> torch.Tensor:
+    """Top-``capacity`` tokens by edge score -> full width; the rest -> the
+    weight-shared half-width slice (the C54/C27 duality)."""
+    b, s, d = x.shape
+    t = b * s
+    f = p["w_in"].shape[-1]
+    fh = f // 2
+    xf = x.reshape(t, d)
+    full_idx, half_idx, _ = dynamic_width_split(xf, capacity_frac)
+
+    def run(idx, sl):
+        xi = xf[idx]
+        h = xi @ p["w_in"][:, :sl]
+        if "w_gate" in p:
+            h = h * _act(act)(xi @ p["w_gate"][:, :sl])
+        else:
+            h = _act(act)(h)
+        return h @ p["w_out"][:sl, :]
+
+    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    out[full_idx] = run(full_idx, f)
+    if half_idx.numel():
+        out[half_idx] = run(half_idx, fh)
+    return out.reshape(b, s, d)

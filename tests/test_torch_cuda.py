@@ -1101,3 +1101,63 @@ def test_supervised_supernet_replay_on_the_card_is_bit_equal(cuda, tmp_path):
     for k in ("params", "opt_state", "ema"):
         for a, b in zip(tree_leaves(clean[k]), tree_leaves(crashed[k])):
             assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device, copy=True)          # decode writes its caches in place
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}.{k}")
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "deepseek-v3-671b", "falcon-mamba-7b",
+                                  "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b"])
+def test_lm_family_on_the_card_matches_the_cpu(cuda, name):
+    """One representative a family (dense, MoE + MLA, Mamba-1, the hybrid
+    shared block, enc-dec, the VLM prefix), SMOKE in fp32 from one init:
+    prefill and one decode step on the card within rtol/atol 1e-3 (the
+    whole-chain tolerance) of the CPU, logits and every cache leaf."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import encdec as E
+    from repro_torch.models.lm import transformer as T
+    from repro_torch.models.lm.params import ParamTree
+    cfg = get_config(name, smoke=True)
+    g = torch.Generator().manual_seed(0)
+    init = E.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    cpu = init(cfg, generator=g, device="cpu", dtype=torch.float32)
+    card = ParamTree(_tree_to(cpu.tree(), cuda))
+    b, s, ml = 2, 16, 24
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+    src = torch.randn((b, s, cfg.d_model), generator=g)
+    pe = (torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=g)
+          if cfg.frontend == "vision" else None)
+    off = 0 if pe is None else pe.shape[1]
+    runs = []
+    with torch.inference_mode():
+        for dev, params in (("cpu", cpu), (cuda, card)):
+            t = toks.to(dev)
+            if cfg.is_encoder_decoder:
+                lp, caches = E.encdec_prefill(params, cfg, src.to(dev), t[:, :s], ml)
+                pre = _tree_to(caches, "cpu")
+                ld, caches = E.encdec_decode_step(params, cfg, t[:, s:], caches, s)
+            else:
+                lp, caches = T.lm_prefill(params, cfg, t[:, :s], ml + off,
+                                          None if pe is None else pe.to(dev))
+                pre = _tree_to(caches, "cpu")
+                ld, caches = T.lm_decode_step(params, cfg, t[:, s:], caches, s + off)
+            runs.append({"prefill": lp.cpu(), "prefill caches": pre, "decode": ld.cpu(),
+                         "decode caches": _tree_to(caches, "cpu")})
+    for key in runs[0]:
+        want, got = dict(_leaves(runs[0][key])), dict(_leaves(runs[1][key]))
+        assert set(want) == set(got)
+        for leaf in want:
+            torch.testing.assert_close(got[leaf], want[leaf], msg=f"{key}{leaf}", **CHAIN_TOL)
