@@ -6,7 +6,7 @@
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
 8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 25, 26, 27,
-28, 29, 30, 31, 10; any failure exits non-zero before the last line:
+28, 29, 30, 31, 32, 10; any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -220,10 +220,10 @@ Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
      uninterrupted run; both wall times;
  29. the examples ("examples"): examples/torch_quickstart.py,
      torch_serve_8k.py --frames 4 --hw 96 under host and fused dispatch
-     (--inflight 2) and torch_train_essr.py --steps 20 as subprocesses on
-     the card, together, then torch_serve_8k.py from the training's
-     checkpoint; each must exit 0. A "baselines:" JSON line before the
-     kernels line holds phases 27-29;
+     (--inflight 2), torch_train_essr.py --steps 20 and
+     torch_dynamic_width_lm.py as subprocesses on the card, together, then
+     torch_serve_8k.py from the training's checkpoint; each must exit 0. A
+     "baselines:" JSON line before the kernels line holds phases 27-29;
  30. the LM side ("lm"), which reaches no hand-written kernel (its matmuls
      are cuBLAS; the launch counts stay 0 through it): granite-8b FULL (36
      layers, d 4096, 32 / 8 heads, d_ff 14336) in bf16 on the card from a
@@ -250,7 +250,30 @@ Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
      init in fp32 on the CPU copied to the card: prefill and one decode
      step (lm_ or encdec_), logits and every cache leaf within rtol/atol
      1e-3 of the CPU's. An "lm:" JSON line before the kernels line holds
-     phases 30-31.
+     phases 30-31;
+ 32. LM training ("lm train"), after phase 30's weights and caches are
+     freed: granite-8b FULL at full width with its depth cut to
+     LM_TRAIN_LAYERS (printed as a reduction with its reason), bf16 weights
+     from a seeded generator on the card, remat, launch/steps.py's
+     make_train_step with chain_clip(adam(LM_TRAIN_LR), 1.0) and fp32
+     moments, one sequence of LM_TRAIN_SEQ tokens (the next tokens its
+     labels) every step, static and FULL_DYNWIDTH from the same weights one
+     after the other: LM_TRAIN_WARMUP steps, then LM_TRAIN_STEPS timed with
+     CUDA events (median, tokens a second), peak allocated memory beside
+     abstract_train_state's size on the meta device and the predicted
+     LM_TRAIN_PEAK_BYTES_PER_PARAM a parameter, the bound from the port's
+     cell_cost and roofline, the model FLOPs' share of the bf16 peak, one
+     step profiled (busy and idle share); every loss finite and the last
+     timed below the first; under dynamic width every FFN call of the
+     warm-up steps (forward and recompute) routing max(1, int(t / 2)) of
+     its t tokens to the full width, the highest scores, every token once.
+     Then ("lm train fp32") phase 30b's CPU model: the loss and every
+     gradient leaf on the card within rtol 1e-3 / atol 1e-3 x the leaf's
+     largest of the CPU's; and ("lm-archs train") every SMOKE config in
+     fp32, one step on the card against the CPU: loss, parameters and
+     moments within rtol/atol 1e-3. An "lm_train:" JSON line before the
+     kernels line holds it. The LM path launches none of the port's
+     kernels through phases 30-32.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -324,6 +347,18 @@ LM_CHECK_LAYERS, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 64, 4
 #: Phase 31: the smoke configs' batch, prompt and cache length
 #: (tests/test_lm_archs.py:15).
 LM_ARCH_B, LM_ARCH_S, LM_ARCH_ML = 2, 16, 24
+#: Phase 32: granite-8b trained at full width, its depth cut to
+#: LM_TRAIN_LAYERS of 36 (the whole model's train state does not fit one
+#: card under the functional Adam: ~8.25 B params x 12 B is 99 GB before
+#: the update's transients); one sequence of train_4k's 4096 tokens; warm-up
+#: and timed steps a variant; Adam's constant lr (make_optimizer's warmup
+#: would step by 3e-6 at step 20, lost under bf16 weights of scale 0.02).
+LM_TRAIN_LAYERS, LM_TRAIN_SEQ = 8, 4096
+LM_TRAIN_WARMUP, LM_TRAIN_STEPS = 3, 10
+LM_TRAIN_LR = 1e-3
+#: Bytes a parameter at the update's peak under the functional Adam: bf16
+#: params, grads, clipped grads and updates, fp32 m and v old and new.
+LM_TRAIN_PEAK_BYTES_PER_PARAM = 24
 #: Every engine the phases construct: (phase, its guard, its FaultPlan). A
 #: phase without a FaultPlan must leave the ladder where it started.
 GUARDS = []
@@ -1836,11 +1871,12 @@ def supervisor_phase(torch) -> dict:
 
 
 def examples_phase() -> dict:
-    """29. The port's three examples as subprocesses on the card: the
+    """29. The port's four examples as subprocesses on the card: the
     quickstart, the serving example at 4 frames of 96x96 under host and
     fused dispatch (two in flight), the training example for 20 steps into
-    a temporary checkpoint directory, then the serving example from it.
-    The first four run together, the last after the training; each must
+    a temporary checkpoint directory, the dynamic-width LM example (30
+    steps each variant), then the serving example from the checkpoint.
+    The first five run together, the last after the training; each must
     exit 0 within EXAMPLE_TIMEOUT_S."""
     import tempfile
     ex = ROOT / "examples"
@@ -1849,7 +1885,8 @@ def examples_phase() -> dict:
                   ("serve host", ["torch_serve_8k.py", "--frames", "4", "--hw", "96"]),
                   ("serve fused", ["torch_serve_8k.py", "--frames", "4", "--hw", "96",
                                    "--dispatch", "fused", "--inflight", "2"]),
-                  ("train", ["torch_train_essr.py", "--steps", "20", "--ckpt-dir", ckdir])],
+                  ("train", ["torch_train_essr.py", "--steps", "20", "--ckpt-dir", ckdir]),
+                  ("dynamic width lm", ["torch_dynamic_width_lm.py"])],
                  [("serve ckpt", ["torch_serve_8k.py", "--ckpt", ckdir])])
         report = {}
         for wave in waves:
@@ -1965,12 +2002,14 @@ def lm_needed_bytes(params, cfg, b: int, s: int, kv_read: int, kv_written: int) 
 def recorded_splits(FF):
     """Inside the block, every dynamic-width FFN call's split (what
     ``FF.dynamic_width_split`` returned to it) is appended to the yielded
-    list as ``{"tokens", "full", "half", "score"}``."""
+    list as ``{"tokens", "full", "half", "score"}``, the score detached (under
+    autograd it would hold its layer's graph and saved activations)."""
     log, split = [], FF.dynamic_width_split
 
     def recorded(xf, capacity_frac):
         full, half, score = split(xf, capacity_frac)
-        log.append({"tokens": xf.shape[0], "full": full, "half": half, "score": score})
+        log.append({"tokens": xf.shape[0], "full": full, "half": half,
+                    "score": score.detach()})
         return full, half, score
 
     FF.dynamic_width_split = recorded
@@ -2007,7 +2046,8 @@ def decode_vs_prefill(ld, lr, torch):
 
 def lm_phase(torch) -> dict:
     """30. granite-8b at full width and depth in bf16, static and dynamic
-    width (see the module docstring), then the fp32 check against the CPU."""
+    width (see the module docstring), then the fp32 check against the CPU.
+    Returns the report and the fp32 check's CPU model."""
     import gc
     from repro_torch.configs import granite_8b
     from repro_torch.configs.base import param_count_estimate
@@ -2169,13 +2209,15 @@ def lm_phase(torch) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    report["fp32_check"] = lm_cpu_check(torch)
-    return report
+    report["fp32_check"], check_model = lm_cpu_check(torch)
+    return report, check_model
 
 
-def lm_cpu_check(torch) -> dict:
+def lm_cpu_check(torch):
     """30 ("lm fp32"): granite-8b FULL cut to LM_CHECK_LAYERS layers in fp32,
-    the card against the CPU on the same weights, static and dynamic width."""
+    the card against the CPU on the same weights, static and dynamic width.
+    Returns its report and its CPU model (config, params), which phase 32's
+    gradient check takes again."""
     import dataclasses
     from repro_torch.configs import granite_8b
     from repro_torch.models.lm import ffn as FF
@@ -2231,7 +2273,7 @@ def lm_cpu_check(torch) -> dict:
             if not (ok and route_ok):
                 fail(f"lm fp32 {label}: the card disagrees with the CPU")
     report["seconds"] = time.perf_counter() - t0
-    return report
+    return report, (cfg, cpu)
 
 
 def lm_archs_phase(torch) -> dict:
@@ -2289,6 +2331,241 @@ def lm_archs_phase(torch) -> dict:
             + f" (rtol/atol 1e-3) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"lm-archs {arch}: the card disagrees with the CPU")
+    return report
+
+
+def lm_train_phase(check_model, torch) -> dict:
+    """32. granite-8b trained at full width (see the module docstring):
+    LM_TRAIN_LAYERS layers, bf16, static and FULL_DYNWIDTH from the same
+    seeded weights; then the fp32 gradient check on phase 30b's CPU model
+    ("lm train fp32") and one step of every SMOKE config ("lm-archs
+    train")."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import granite_8b
+    from repro_torch.configs.base import ShapeSpec, active_param_count_estimate
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import costmodel as C
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.lm import ffn as FF
+    from repro_torch.models.lm import transformer as T
+    from repro_torch.train import optimizer as O
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(granite_8b.FULL, n_layers=LM_TRAIN_LAYERS)
+    shape = ShapeSpec("train", LM_TRAIN_SEQ, 1, "train")
+    opt = O.chain_clip(O.adam(LM_TRAIN_LR), 1.0)
+    abstract = ST.abstract_train_state(cfg, opt)
+    n_params = sum(t.numel() for t in tree_leaves(abstract["params"]))
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(abstract))
+    predicted = n_params * LM_TRAIN_PEAK_BYTES_PER_PARAM
+    cost = C.cell_cost(cfg, shape, 1)
+    mflops = R.model_flops(cfg, shape, active_param_count_estimate(cfg))
+    terms = R.roofline(cost.flops_global, cost.hbm_bytes_global, 0.0, 1, mflops)
+    bound_ms = max(terms.compute_s, terms.memory_s) * 1e3
+    say(f"phase lm train: granite-8b FULL at full width (d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_padded}), reduced: depth {LM_TRAIN_LAYERS} of {granite_8b.FULL.n_layers} "
+        f"layers, because the whole model's train state does not fit one card under the "
+        f"functional Adam ({granite_8b.FULL.n_layers} layers: ~8.25 B params x 12 B of bf16 "
+        f"weights and fp32 moments = 99 GB before the update's transients; sharding it is ROADMAP "
+        f"item 16c); {n_params:,} parameters; abstract_train_state on the meta device "
+        f"{state_bytes / 1e9:.3f} GB, predicted peak at the update {predicted / 1e9:.3f} GB "
+        f"({LM_TRAIN_PEAK_BYTES_PER_PARAM} B a parameter); batch 1 x {LM_TRAIN_SEQ} "
+        f"(train_4k's sequence), bf16, remat, chain_clip(adam({LM_TRAIN_LR:g}), 1.0) with fp32 "
+        f"moments; cell_cost {cost.flops_global / 1e12:.3f} TFLOP and "
+        f"{cost.hbm_bytes_global / 1e9:.3f} GB, bound {bound_ms:.3f} ms by {terms.dominant} at "
+        f"{R.PEAK_FLOPS / 1e12:g} TFLOP/s and {R.HBM_BW / 1e12:g} TB/s (the cost model counts "
+        f"the full-width FFN under dynamic width too); model FLOPs {mflops / 1e12:.3f} TFLOP; "
+        f"{held / 2 ** 20:,.0f} MiB held before it")
+    report = {"card": card_line(), "layers": LM_TRAIN_LAYERS, "seq": LM_TRAIN_SEQ,
+              "params": n_params, "abstract_state_gb": state_bytes / 1e9,
+              "predicted_peak_gb": predicted / 1e9, "cell_cost": cost.as_dict(),
+              "roofline": terms.as_dict(), "bound_ms": bound_ms, "model_flops": mflops,
+              "held_mib": held / 2 ** 20}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    seq = torch.randint(0, cfg.vocab_size, (1, LM_TRAIN_SEQ + 1), device="cuda", generator=gen)
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    first_weights = None
+    for label, vcfg in (("static", cfg), ("dynwidth", dataclasses.replace(
+            granite_8b.FULL_DYNWIDTH, n_layers=LM_TRAIN_LAYERS))):
+        params = T.init_lm(vcfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                           device="cuda")
+        fingerprint = float(params["embed"].float().sum()) + float(
+            params["layers"][-1]["mlp"]["w_out"].float().sum())
+        first_weights = fingerprint if first_weights is None else first_weights
+        if fingerprint != first_weights:
+            fail("lm train: the two variants do not start from the same weights")
+        state = {"params": params, "opt": opt.init(params.tree())}
+        step = ST.make_train_step(vcfg, opt, remat=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        with recorded_splits(FF) as log:
+            for _ in range(LM_TRAIN_WARMUP):
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+        n_calls = check_routing(log, LM_TRAIN_SEQ, torch, f"lm train {label}") if \
+            vcfg.dynamic_width else 0
+        del log
+        events = []
+        for _ in range(LM_TRAIN_STEPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = step(state, batch)
+            b.record()
+            events.append((a, b))
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in events]
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+        timed = losses[LM_TRAIN_WARMUP:]
+
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch)
+
+        prof = profile_lm(one_step, ms, f"train {label} step", torch)
+        row = {"step_ms": ms, "step_runs_ms": times, "tokens_per_s": LM_TRAIN_SEQ / ms * 1e3,
+               "bound_ms": bound_ms, "x_bound": ms / bound_ms,
+               "model_flops_share": mflops / (ms / 1e3) / R.PEAK_FLOPS,
+               "peak_mib": peak / 2 ** 20, "peak_above_held_mib": (peak - held) / 2 ** 20,
+               "losses": losses, "profile": prof}
+        say(f"phase lm train {label}: step {ms:.3f} ms (median of {LM_TRAIN_STEPS} after "
+            f"{LM_TRAIN_WARMUP} warm-up, {min(times):.3f}-{max(times):.3f}), "
+            f"{row['tokens_per_s']:,.0f} tokens/s; {row['x_bound']:.2f}x the {bound_ms:.3f} ms "
+            f"bound; model FLOPs at {row['model_flops_share']:.4f} of the bf16 peak; peak "
+            f"allocated {peak / 2 ** 20:,.0f} MiB ({(peak - held) / 2 ** 20:,.0f} above the held, "
+            f"predicted {predicted / 2 ** 20:,.0f} + activations); loss "
+            + " ".join(f"{x:.4f}" for x in losses))
+        if not all(math.isfinite(x) for x in losses) or not timed[-1] < timed[0]:
+            fail(f"lm train {label}: the loss is not finite or did not fall over the timed steps")
+        if vcfg.dynamic_width:
+            if n_calls != 2 * LM_TRAIN_LAYERS * LM_TRAIN_WARMUP:
+                fail(f"lm train dynwidth: {n_calls} FFN calls recorded over {LM_TRAIN_WARMUP} "
+                     f"steps, expected {2 * LM_TRAIN_LAYERS} a step (forward and recompute)")
+            row["routing"] = {"calls": n_calls, "tokens": LM_TRAIN_SEQ,
+                              "full": max(1, int(LM_TRAIN_SEQ * 0.5))}
+            say(f"phase lm train dynwidth routing: each of {n_calls} FFN calls of the "
+                f"{LM_TRAIN_WARMUP} warm-up steps (forward and remat recompute) sent "
+                f"{row['routing']['full']} of {LM_TRAIN_SEQ} tokens to the full width, the "
+                f"highest scores, every token once")
+        report[label] = row
+        del state, params, step, m, one_step
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["dynwidth_over_static"] = report["dynwidth"]["step_ms"] / report["static"]["step_ms"]
+    report["fp32_check"] = lm_train_cpu_check(check_model, torch)
+    report["archs"] = lm_archs_train(torch)
+    return report
+
+
+def _max_rel(got, want) -> float:
+    return (got - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def lm_train_cpu_check(check_model, torch) -> dict:
+    """32 ("lm train fp32"): phase 30b's CPU model (granite-8b FULL cut to
+    LM_CHECK_LAYERS layers, fp32) and a copy on the card, the loss and every
+    gradient leaf on 1 x LM_CHECK_PROMPT tokens (labels the next tokens),
+    the card within rtol 1e-3 / atol 1e-3 x the leaf's largest of the
+    CPU's."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps as ST
+    from repro_torch.train.trainer import value_and_grad
+    cfg, cpu = check_model
+    t0 = time.perf_counter()
+    seq = torch.randint(0, cfg.vocab_size, (1, LM_CHECK_PROMPT + 1),
+                        generator=torch.Generator().manual_seed(SEED + 33))
+    loss_fn = ST.make_loss_fn(cfg, remat=True)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tree = tree_to(cpu.tree(), dev) if dev == "cuda" else cpu.tree()
+        s = seq.to(dev)
+        loss, grads = value_and_grad(loss_fn, tree, {"tokens": s[:, :-1], "labels": s[:, 1:]})
+        runs[dev] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)])
+        del tree, grads
+    (lc, gc_), (lg, gg) = runs["cpu"], runs["cuda"]
+    ok = bool(torch.allclose(lg, lc, rtol=1e-3, atol=1e-3)) and all(
+        torch.allclose(g, c, rtol=1e-3, atol=1e-3 * max(c.abs().max().item(), 1e-30))
+        for g, c in zip(gg, gc_))
+    worst = max(_max_rel(g, c) for g, c in zip(gg, gc_))
+    say(f"phase lm train fp32: granite-8b FULL cut to {LM_CHECK_LAYERS} layers, fp32, TF32 off, "
+        f"1 x {LM_CHECK_PROMPT} tokens: loss card {lg.item():.6f} CPU {lc.item():.6f}; "
+        f"{len(gc_)} gradient leaves, worst max_abs / the leaf's largest {worst:.3e} (rtol 1e-3, "
+        f"atol 1e-3 x the leaf's largest) {'ok' if ok else 'MISMATCH'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("lm train fp32: the card's gradients disagree with the CPU's")
+    return {"loss_card": lg.item(), "loss_cpu": lc.item(), "leaves": len(gc_),
+            "worst_rel": worst, "seconds": time.perf_counter() - t0}
+
+
+def lm_archs_train(torch) -> dict:
+    """32 ("lm-archs train"): every architecture's SMOKE config in fp32 from
+    one CPU init, one make_train_step step of chain_clip(adam(1e-2), 1.0)
+    on the card and on the CPU (LM_ARCH_B x LM_ARCH_S tokens, labels the
+    next tokens): the loss, every parameter leaf after the step and the
+    moments within rtol/atol 1e-3 (the moments' atol x the leaf's largest).
+    Adam's first step is g / (|g| + eps) an entry, so where the CPU's
+    gradient is within float noise of zero (its first moment below 1e-5 of
+    the leaf's largest) the sign is not determined: there the step is held
+    to its size, |delta| <= lr."""
+    from repro_torch.configs.registry import ARCH_NAMES, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.lm import encdec as E
+    from repro_torch.models.lm import transformer as T
+    from repro_torch.train import optimizer as O
+    b, s, lr = LM_ARCH_B, LM_ARCH_S, 1e-2
+    report = {}
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch, smoke=True)
+        gen = torch.Generator().manual_seed(SEED)
+        init = E.init_encdec if cfg.is_encoder_decoder else T.init_lm
+        start = init(cfg, generator=gen, device="cpu", dtype=torch.float32).tree()
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.is_encoder_decoder:
+            batch["src_embeds"] = torch.randn((b, s, cfg.d_model), generator=gen)
+        if cfg.frontend == "vision":
+            batch["embeds"] = torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            opt = O.chain_clip(O.adam(lr), 1.0)
+            tree = tree_to(start, dev)
+            state, m = ST.make_train_step(cfg, opt, remat=True)(
+                {"params": tree, "opt": opt.init(tree)}, {k: v.to(dev) for k, v in batch.items()})
+            runs[dev] = (m["loss"].cpu(), [t.detach().cpu() for t in tree_leaves(state["params"])],
+                         [t.cpu() for t in tree_leaves(state["opt"]["m"])],
+                         [t.cpu() for t in tree_leaves(state["opt"]["v"])])
+        (lc, pc, mc, vc), (lg, pg, mg, vg) = runs["cpu"], runs["cuda"]
+        p0 = tree_leaves(start)
+        ok = bool(torch.isfinite(lg)) and bool(torch.allclose(lg, lc, rtol=1e-3, atol=1e-3))
+        worst_p = 0.0
+        for before, g, c, mom in zip(p0, pg, pc, mc):
+            noise = mom.abs() < 1e-5 * max(mom.abs().max().item(), 1e-30)
+            ok = ok and bool(torch.allclose(g[~noise], c[~noise], rtol=1e-3, atol=1e-3)) and \
+                bool(((g - before).abs()[noise] <= lr * (1 + 1e-3)).all())
+            worst_p = max(worst_p, (g - c)[~noise].abs().max().item() if (~noise).any() else 0.0)
+        worst_m = max(_max_rel(g, c) for g, c in zip(mg + vg, mc + vc))
+        ok = ok and all(torch.allclose(g, c, rtol=1e-3, atol=1e-3 * max(c.abs().max().item(),
+                                                                            1e-30))
+                        for g, c in zip(mg + vg, mc + vc))
+        report[arch] = {"loss_card": lg.item(), "loss_cpu": lc.item(),
+                        "params_max_abs": worst_p, "moments_worst_rel": worst_m}
+        say(f"phase lm-archs train {arch} ({cfg.family}): one step card vs CPU, fp32 SMOKE, "
+            f"B {b} S {s}: loss {lg.item():.6f} / {lc.item():.6f}, params after the step max_abs "
+            f"{worst_p:.3e}, moments worst max_abs / the leaf's largest {worst_m:.3e} "
+            f"(rtol/atol 1e-3) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"lm-archs train {arch}: the card's step disagrees with the CPU's")
     return report
 
 
@@ -3209,16 +3486,20 @@ def main() -> None:
         next(r for r in fused_report if r["mode"] == "fp32 layer"), torch)
     supervisor_report = supervisor_phase(torch)
     examples_report = examples_phase()
-    # 30-31. the LM side: no kernel of the port lies on it, so every count
+    # 30-32. the LM side: no kernel of the port lies on it, so every count
     # must stay 0 through it. The SR phases' engines, frames and results go
     # first (lm_phase drops the graph caches), so its peak is its own.
     del engine, ref_engine, group, frames, served, layer_served, rr, r, quant
     reset_launch_counts()
-    lm_report = lm_phase(torch)
+    lm_report, check_model = lm_phase(torch)
     lm_report["archs"] = lm_archs_phase(torch)
+    # 32. LM training, once phase 30's weights and caches are freed
+    lm_train_report = lm_train_phase(check_model, torch)
+    del check_model
     lm_launches = {k: v for k, v in launch_counts().items() if v}
     say(f"phase lm launches: the port's kernels launched {lm_launches or 'none'} through "
-        f"phases 30-31 (their matmuls are cuBLAS, their attention and scans PyTorch ops)")
+        f"phases 30-32 (their matmuls are cuBLAS, their attention and scans PyTorch ops, "
+        f"their backward autograd's)")
     if lm_launches:
         fail(f"the LM path launched the port's kernels: {lm_launches}")
 
@@ -3271,6 +3552,7 @@ def main() -> None:
                                     "supervisor": supervisor_report,
                                     "examples": examples_report}))
     say("lm: " + json.dumps(lm_report))
+    say("lm_train: " + json.dumps(lm_train_report))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -167,11 +167,30 @@ def encdec_params_from_numpy(tree: Dict[str, Any], cfg: LMConfig) -> ParamTree:
     return ParamTree(_unstack(tree, expected, "encdec"))
 
 
-def lm_params_to_numpy(params: ParamTree) -> Dict[str, Any]:
-    """A `ParamTree` -> the reference's tree (layers stacked on a leading L
-    axis), numpy leaves of the same dtypes. The inverse of
-    `lm_params_from_numpy` and `encdec_params_from_numpy`."""
-    return _restack(params.tree())
+def lm_params_to_numpy(params) -> Dict[str, Any]:
+    """A `ParamTree` (or a tree like its ``tree()``: gradients, moments) ->
+    the reference's tree (layers stacked on a leading L axis), numpy leaves
+    of the same dtypes. The inverse of `lm_params_from_numpy` and
+    `encdec_params_from_numpy`."""
+    return _restack(params.tree() if isinstance(params, ParamTree) else params)
 
 
 encdec_params_to_numpy = lm_params_to_numpy
+
+
+def lm_opt_state_from_numpy(state: Dict[str, Any], cfg: LMConfig) -> Dict[str, Any]:
+    """The reference's Adam state of an LM or enc-dec (``{"step", "m",
+    "v"}``, the moments layer-stacked like its params) -> the port's: the
+    moments unstacked like the params' ``tree()``, each leaf's dtype kept."""
+    from repro_torch.models.lm.encdec import init_encdec
+    from repro_torch.models.lm.transformer import init_lm
+    init = init_encdec if cfg.is_encoder_decoder else init_lm
+    expected = init(cfg, generator=None, device="meta").tree()
+    return {"step": _leaf_to_torch(state["step"]),
+            **{k: _unstack(state[k], expected, f"opt.{k}") for k in ("m", "v")}}
+
+
+def lm_opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `lm_opt_state_from_numpy`."""
+    return {"step": _leaf_to_numpy(state["step"]),
+            **{k: _restack(state[k]) for k in ("m", "v")}}

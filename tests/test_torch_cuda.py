@@ -1161,3 +1161,95 @@ def test_lm_family_on_the_card_matches_the_cpu(cuda, name):
         assert set(want) == set(got)
         for leaf in want:
             torch.testing.assert_close(got[leaf], want[leaf], msg=f"{key}{leaf}", **CHAIN_TOL)
+
+
+def _train_step_on(dev, cfg, start, batch, remat=True, lr=1e-2):
+    """One make_train_step step of chain_clip(adam(lr), 1.0) on ``dev`` from
+    a copy of ``start``: (loss, gradients, params after, first moments)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps as ST
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import value_and_grad
+    tree = _tree_to(start, dev)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    _, grads = value_and_grad(ST.make_loss_fn(cfg, remat=remat), tree, batch)
+    opt = O.chain_clip(O.adam(lr), 1.0)
+    state, m = ST.make_train_step(cfg, opt, remat=remat)({"params": tree, "opt": opt.init(tree)},
+                                                          batch)
+    return (m["loss"].cpu(), [g.cpu() for g in tree_leaves(grads)],
+            [p.detach().cpu() for p in tree_leaves(state["params"])],
+            [t.cpu() for t in tree_leaves(state["opt"]["m"])])
+
+
+def _lm_smoke_start(name):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.lm import encdec as E
+    from repro_torch.models.lm import transformer as T
+    cfg = get_config(name, smoke=True)
+    g = torch.Generator().manual_seed(0)
+    init = E.init_encdec if cfg.is_encoder_decoder else T.init_lm
+    start = init(cfg, generator=g, device="cpu", dtype=torch.float32).tree()
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        batch["src_embeds"] = torch.randn((2, 16, cfg.d_model), generator=g)
+    if cfg.frontend == "vision":
+        batch["embeds"] = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), generator=g)
+    return cfg, start, batch
+
+
+@pytest.mark.parametrize("name", ["granite-8b", "deepseek-v3-671b", "falcon-mamba-7b",
+                                  "zamba2-1.2b", "seamless-m4t-medium", "internvl2-26b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """One training step a family (launch/steps.py make_train_step, remat
+    on, SMOKE in fp32 from one init; embedding and MoE backward sum with
+    atomics on the card): the loss and every gradient leaf within rtol
+    1e-3 / atol 1e-3 x the leaf's largest of the CPU's; the parameters
+    after the step within rtol/atol 1e-3, except where the CPU's gradient
+    is within float noise of zero (below 1e-5 of the leaf's largest: Adam's
+    first step is g / (|g| + eps), its sign not determined there), held to
+    the step's size; the first moments as the gradients."""
+    from repro_torch.core.tree import tree_leaves
+    cfg, start, batch = _lm_smoke_start(name)
+    (lc, gc, pc, mc), (lg, gg, pg, mg) = (_train_step_on(d, cfg, start, batch)
+                                          for d in ("cpu", cuda))
+    torch.testing.assert_close(lg, lc, **CHAIN_TOL)
+    for what, got, want in (("grad", gg, gc), ("m", mg, mc)):
+        for i, (a, b) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3 * b.abs().max().item() + 1e-30,
+                                       msg=f"{what} leaf {i}")
+    for i, (a, b, p0, g) in enumerate(zip(pg, pc, tree_leaves(start), gc)):
+        noise = g.abs() < 1e-5 * g.abs().max().item()
+        torch.testing.assert_close(a[~noise], b[~noise], msg=f"param leaf {i}", **CHAIN_TOL)
+        assert ((a - p0).abs()[noise] <= 1e-2 * (1 + 1e-3)).all(), f"param leaf {i}"
+
+
+def test_lm_train_dynamic_width_on_the_card(cuda, monkeypatch):
+    """granite-8b SMOKE_DYNWIDTH trained on the card with remat: every FFN
+    call (forward and recompute) routes max(1, int(t / 2)) of its t tokens
+    to the full width, the highest scores, each token once; the loss and
+    the gradients within the whole-chain tolerance of the CPU's."""
+    import dataclasses
+    from repro_torch.models.lm import ffn as FF
+    cfg, start, batch = _lm_smoke_start("granite-8b")
+    cfg = dataclasses.replace(cfg, dynamic_width=True)
+    log, split = [], FF.dynamic_width_split
+
+    def recorded(xf, frac):
+        full, half, score = split(xf, frac)
+        log.append((xf.shape[0], xf.device.type, full, half, score.detach()))
+        return full, half, score
+
+    monkeypatch.setattr(FF, "dynamic_width_split", recorded)
+    (lc, gc, _, _), (lg, gg, _, _) = (_train_step_on(d, cfg, start, batch) for d in ("cpu", cuda))
+    card = [r for r in log if r[1] == "cuda"]
+    assert len(card) == 2 * 2 * cfg.n_layers          # value_and_grad and the step, each x2
+    for t, _, full, half, score in card:
+        assert full.numel() == max(1, int(t * 0.5)) and full.numel() + half.numel() == t
+        assert torch.equal(torch.sort(torch.cat([full, half])).values,
+                           torch.arange(t, device=full.device))
+        assert score[full].min() >= score[half].max()
+    torch.testing.assert_close(lg, lc, **CHAIN_TOL)
+    for i, (a, b) in enumerate(zip(gg, gc)):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3 * b.abs().max().item() + 1e-30,
+                                   msg=f"grad leaf {i}")

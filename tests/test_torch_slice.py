@@ -370,7 +370,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
                      r"from\s+repro(\.|\s))", re.M)
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(examples) == 3
+    assert len(examples) == 4
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + examples
              + [ROOT / "chip_smoke.py"])
     assert len(files) > 10
