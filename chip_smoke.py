@@ -6,7 +6,8 @@
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
 8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 25, 26, 27,
-28, 29, 30, 31, 32, 10; any failure exits non-zero before the last line:
+28, 29, 30, 31, 32, 33, 10 (33's CPU processes start after phase 2 and run beside
+the card's phases); any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the path from the sources in this checkout
      (one nvcc per source, all started together) and time it;
@@ -274,6 +275,32 @@ Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
      moments within rtol/atol 1e-3. An "lm_train:" JSON line before the
      kernels line holds it. The LM path launches none of the port's
      kernels through phases 30-32.
+ 33. the dry run ("dryrun"; launch/dryrun.py, no card): first (b)'s real
+     step and (d) on the card, then CPU processes (CUDA_VISIBLE_DEVICES
+     empty), started once the card's phases are done, run one rank's step
+     of (a) granite-8b FULL's train_4k, prefill_32k and decode_32k on the
+     single (16 x 16) and multi-pod (2 x 16 x 16)
+     meshes and essr-x4's serve_8k, (b) phase 32's own configuration on a
+     1 x 1 mesh and (c) item 16d's cell, granite-8b FULL at 1 x
+     LM_TRAIN_SEQ on DRYRUN_16D_MESH; each cell's own seconds, one rank's
+     argument and temporary bytes, FLOPs, collective bytes by kind and mesh
+     axis and roofline terms are printed as predictions on the H100
+     constants of launch/roofline.py (a cell not "ok" fails the run). (b)
+     is held against one real step of that configuration on the card:
+     FLOPs within 1% of FlopCounterMode around it and argument bytes equal
+     to the real state's and batch's, or the run fails; the predicted peak
+     against phase 32's max_memory_allocated and the bound against its
+     median step are printed as ratios. (d) The dry run's knobs at full
+     width on the card: zamba2-1.2b FULL's Mamba-2 in the SSD form against
+     the scan form (a bf16 prefill of 1 x KNOB_SEQ and one train step each,
+     CUDA events, peak memory; the same prefill in fp32 within rtol/atol
+     1e-3; in bf16 the forms' difference is reported beside each form's
+     departure from its own fp32 logits, the rounding of 38 bf16 layers,
+     which tests/test_torch_lm_ssd_depth.py holds to the reference's), one
+     layer of deepseek-v3 FULL's MLA lazy against eager at 1 x KNOB_SEQ
+     (8e-2), and
+     the token-sharded MoE on deepseek-v3 SMOKE torch.equal to the knob off.
+     A "dryrun:" JSON line before the kernels line holds it;
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -2578,7 +2605,353 @@ def params_to_numpy_tree(tree):
     return tree.detach().cpu().numpy()
 
 
+# ---------------------------------------------------------------------------
+# 33. the dry run
+# ---------------------------------------------------------------------------
+
+#: (arch, shapes, mesh) of phase 33a, each one `launch/dryrun.py` process
+DRYRUN_CELLS = (("granite-8b", "train_4k,prefill_32k,decode_32k", "single"),
+                ("granite-8b", "train_4k,prefill_32k,decode_32k", "multi"),
+                ("essr-x4", "serve_8k", "single"))
+#: item 16d's four cards: one sequence, so no data axis to split; the model
+#: axis carries tensor and sequence parallelism (phase 33c)
+DRYRUN_16D_MESH = ((1, 4), ("data", "model"))
+DRYRUN_TIMEOUT_S = 400
+KNOB_SEQ = 4096
+DRYPROCS = []
+
+
+def start_dryrun(out_dir: Path) -> None:
+    """Phase 33's cells as CPU processes (no card: CUDA_VISIBLE_DEVICES is
+    empty), started once the card's phases are done, so that they share the
+    host with none of them; `stop_dryrun` ends any still running."""
+    import atexit
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    cmds = [(f"{a} {m}", [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                          "--shape", s, "--mesh", m, "--force", "--out-dir", str(out_dir)])
+            for a, s, m in DRYRUN_CELLS]
+    cmds += [(name, [sys.executable, str(Path(__file__).resolve()), "--dryrun-cell", name,
+                     str(out_dir)]) for name in ("rank", "16d")]
+    for name, cmd in cmds:
+        log = open(out_dir / f"{name.replace(' ', '_')}.log", "w")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        DRYPROCS.append((name, proc, time.perf_counter(), log))
+    atexit.register(stop_dryrun)
+
+
+def stop_dryrun() -> None:
+    for _, proc, _, log in DRYPROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def dryrun_cell(name: str, out_dir: str) -> int:
+    """A process of phase 33: granite-8b's one-rank cell of phase 32's own
+    configuration ("rank": LM_TRAIN_LAYERS layers, 1 x LM_TRAIN_SEQ, on a
+    1 x 1 mesh) or item 16d's ("16d": all layers on DRYRUN_16D_MESH)."""
+    import dataclasses
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import granite_8b
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+    shape = ShapeSpec(f"train_1x{LM_TRAIN_SEQ}", LM_TRAIN_SEQ, 1, "train")
+    if name == "rank":
+        cfg = dataclasses.replace(granite_8b.FULL, n_layers=LM_TRAIN_LAYERS)
+        mesh = ((1, 1), ("data", "model"))
+    else:
+        cfg, mesh = granite_8b.FULL, DRYRUN_16D_MESH
+    rec = run_cell("granite-8b", shape.name, name, cfg=cfg, shape=shape, mesh_shape=mesh,
+                   out_dir=out_dir, force=True)
+    print(json.dumps({k: rec.get(k) for k in ("status", "error", "total_s")}), flush=True)
+    return 0 if rec["status"] == "ok" else 1
+
+
+def wait_dryrun(out_dir: Path) -> float:
+    """Wait for phase 33's processes (DRYRUN_TIMEOUT_S from their start);
+    -> seconds until the last ended. A process that failed or timed out
+    fails the run."""
+    for name, proc, t0, log in DRYPROCS:
+        left = max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+        try:
+            rc = proc.wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"dryrun {name}: not done in {DRYRUN_TIMEOUT_S} s")
+        log.flush()
+        tail = (out_dir / f"{name.replace(' ', '_')}.log").read_text().splitlines()[-6:]
+        for line in tail:
+            if line.startswith("["):
+                say(f"  {line}")
+        if rc != 0:
+            fail(f"dryrun {name}: exit {rc}: " + " | ".join(tail)[-1500:])
+    return time.perf_counter() - min(t0 for _, _, t0, _ in DRYPROCS)
+
+
+def _gb(x: float) -> str:
+    return f"{x / 2 ** 30:.3f} GiB"
+
+
+def say_cell(label: str, rec: dict) -> dict:
+    """Print one dry-run record: one rank's memory, FLOPs, collectives by
+    kind and axis, the roofline terms and the dominant one."""
+    if rec.get("status") != "ok":
+        fail(f"dryrun {label}: status {rec.get('status')}: {rec.get('error', rec.get('reason'))}")
+    mem, r = rec["memory_per_device"], rec["roofline"]
+    coll = {k: v for k, v in rec["collectives_per_device_bytes"].items() if v}
+    say(f"phase dryrun {label}: {rec['n_chips']} ranks {rec['mesh_shape']}, lowered in "
+        f"{rec['lower_s']:.1f} s ({rec['total_s']:.1f} s the cell); one rank: arguments {_gb(mem['argument_bytes'])}, temporaries "
+        f"{_gb(mem['temp_bytes'])} (peak), total {mem['total_gb']:.3f} GiB; matmul FLOPs "
+        f"{rec['measured_dot_flops_per_device']:.4g}; collectives {json.dumps(coll)} by axis "
+        f"{json.dumps(rec['collectives_by_axis'])} (links {json.dumps(rec['axis_link_bw'])} B/s); "
+        f"roofline compute {r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
+        f"collective {r['collective_s'] * 1e3:.3f} ms: {r['dominant']} (predictions on the "
+        f"H100 constants of launch/roofline.py, not measurements)")
+    return {"ranks": rec["n_chips"], "mesh": rec["mesh_shape"], "lower_s": rec["lower_s"],
+            "total_s": rec["total_s"], "memory": mem, "flops": rec["measured_dot_flops_per_device"],
+            "collectives": rec["collectives_per_device_bytes"],
+            "collectives_by_axis": rec["collectives_by_axis"], "roofline": r,
+            "top_collectives": rec["top_collectives"][:4]}
+
+
+def dryrun_phase(out_dir: Path, lm_train_report: dict, torch) -> dict:
+    """33. the dry run (see the module docstring)."""
+    import dataclasses
+    import gc
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import granite_8b
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.lm import transformer as T
+    # (b)'s real step and (d) on the card first; then the CPU processes,
+    # with the card idle and the host to themselves
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(granite_8b.FULL, n_layers=LM_TRAIN_LAYERS)
+    opt = ST.make_optimizer()
+    params = T.init_lm(cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                       device="cuda")
+    state = {"params": params, "opt": opt.init(params.tree())}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    seq = torch.randint(0, cfg.vocab_size, (1, LM_TRAIN_SEQ + 1), device="cuda", generator=gen)
+    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    real_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves((params.tree(), state["opt"], batch)))
+    step = ST.make_train_step(cfg, opt, remat=True)
+    with FlopCounterMode(display=False) as fc:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    loss = float(m["loss"])
+    del state, params, step, m, batch, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    knobs = knob_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_dryrun(out_dir)
+    wall = wait_dryrun(out_dir)
+    load = lambda mesh, arch, shape: json.loads(  # noqa: E731
+        (out_dir / mesh / f"{arch}__{shape}.json").read_text())
+    shape_name = f"train_1x{LM_TRAIN_SEQ}"
+    recs = {f"{mesh} {arch} {shape}": load(mesh, arch, shape)
+            for arch, shapes, mesh in DRYRUN_CELLS for shape in shapes.split(",")}
+    recs.update({name: load(name, "granite-8b", shape_name) for name in ("rank", "16d")})
+    secs = {k: r.get("total_s") for k, r in recs.items()}
+    say(f"phase dryrun: {len(DRYPROCS)} CPU processes, no card, started after the card's "
+        f"phases, all done in {wall:.1f} s; each cell's own seconds: "
+        + ", ".join(f"{k} {v} s" for k, v in secs.items()))
+    try:
+        from torch.distributed._tools.mem_tracker import MemTracker  # noqa: F401
+        mem_tracker = True
+    except ImportError:
+        mem_tracker = False
+    say(f"phase dryrun: torch {torch.__version__} here; torch.distributed._tools.mem_tracker."
+        f"MemTracker importable: {mem_tracker} (the dry run tracks its own storages, "
+        f"launch/counters.py)")
+    report = {"card": card_line(), "seconds": secs, "wall_s": wall, "mem_tracker": mem_tracker,
+              "cells": {}}
+    # (a) the production meshes
+    for arch, shapes, mesh in DRYRUN_CELLS:
+        for shape in shapes.split(","):
+            report["cells"][f"{mesh} {arch} {shape}"] = say_cell(
+                f"{mesh} {arch} {shape}", recs[f"{mesh} {arch} {shape}"])
+    # (b) the one-rank cell against the real step of phase 32's configuration
+    rec = recs["rank"]
+    rank = say_cell(f"rank granite-8b {LM_TRAIN_LAYERS} layers 1x{LM_TRAIN_SEQ}", rec)
+    static = lm_train_report["static"]
+    pred_bytes = rec["memory_per_device"]["argument_bytes"] + rec["memory_per_device"]["temp_bytes"]
+    found_bytes = static["peak_above_held_mib"] * 2 ** 20
+    bound_ms = max(rec["roofline"][k] for k in ("compute_s", "memory_s", "collective_s")) * 1e3
+    flop_ratio = rec["measured_dot_flops_per_device"] / real_flops
+    rank.update(real_flops=real_flops, flop_ratio=flop_ratio, real_argument_bytes=real_bytes,
+                loss=loss, predicted_peak_bytes=pred_bytes, found_peak_bytes=found_bytes,
+                peak_ratio=pred_bytes / found_bytes, bound_ms=bound_ms,
+                found_step_ms=static["step_ms"], step_over_bound=static["step_ms"] / bound_ms)
+    say(f"phase dryrun rank vs card: FLOPs dry run {rec['measured_dot_flops_per_device']:.6g}, "
+        f"FlopCounterMode around a real step on the card {real_flops:.6g} (ratio "
+        f"{flop_ratio:.6f}, within 1%: {abs(flop_ratio - 1) <= 0.01}); argument bytes dry run "
+        f"{rec['memory_per_device']['argument_bytes']:,}, the real state and batch "
+        f"{real_bytes:,} (equal: {rec['memory_per_device']['argument_bytes'] == real_bytes}); "
+        f"predicted peak {_gb(pred_bytes)} against phase 32's {_gb(found_bytes)} above the held "
+        f"(max_memory_allocated; ratio {pred_bytes / found_bytes:.3f}); roofline bound "
+        f"{bound_ms:.3f} ms against phase 32's median step {static['step_ms']:.3f} ms (the step "
+        f"is {static['step_ms'] / bound_ms:.2f}x the bound); loss {loss:.4f}")
+    if abs(flop_ratio - 1) > 0.01:
+        fail(f"dryrun rank: FLOPs {rec['measured_dot_flops_per_device']} against the card's "
+             f"{real_flops} (ratio {flop_ratio})")
+    if rec["memory_per_device"]["argument_bytes"] != real_bytes:
+        fail(f"dryrun rank: argument bytes {rec['memory_per_device']['argument_bytes']} against "
+             f"the real state's {real_bytes}")
+    report["rank"] = rank
+    # (c) item 16d's cell: each of the four ranks holds the same shard sizes
+    d16 = say_cell(f"16d granite-8b all {granite_8b.FULL.n_layers} layers 1x{LM_TRAIN_SEQ}",
+                   recs["16d"])
+    for row in d16["top_collectives"]:
+        say(f"  16d top collective: {row['op']} over {row['axis']}, {row['bytes'] / 2 ** 20:.1f} "
+            f"MiB in {row['trips']} calls of {row['shape']} at {row['op_name']}")
+    report["16d"] = d16
+    # (d) the knobs at full width on the card (run above)
+    report["knobs"] = knobs
+    return report
+
+
+def _timed(fn, torch):
+    """(result, ms by CUDA events, peak allocated bytes above the start)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), torch.cuda.max_memory_allocated() - base
+
+
+def knob_phase(torch) -> dict:
+    """33d: the dry run's three model knobs at full width on the card."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import deepseek_v3_671b, zamba2_1_2b
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.lm import attention as A
+    from repro_torch.models.lm import ffn as FF
+    from repro_torch.models.lm import transformer as T
+    from repro_torch.train import optimizer as O
+    out = {}
+    # Mamba-2: the SSD form against the scan form, zamba2-1.2b FULL, bf16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    tokens = torch.randint(0, zamba2_1_2b.FULL.vocab_size, (1, KNOB_SEQ + 1), device="cuda",
+                           generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    logits = {}
+    for impl in ("scan", "ssd"):
+        cfg = dataclasses.replace(zamba2_1_2b.FULL, mamba2_impl=impl)
+        params = T.init_lm(cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                           device="cuda")
+        prefill = ST.make_prefill_step(cfg, ShapeSpec("p", KNOB_SEQ, 1, "prefill"))
+        ST.make_prefill_step(cfg, ShapeSpec("w", 256, 1, "prefill"))(
+            params, {"tokens": batch["tokens"][:, :256]})             # warm-up
+        (lg, _), pre_ms, pre_peak = _timed(lambda: prefill(params, {"tokens": batch["tokens"]}),
+                                           torch)
+        logits[impl] = lg.float()
+        opt = O.chain_clip(O.adam(1e-3), 1.0)
+        state = {"params": params, "opt": opt.init(params.tree())}
+        step = ST.make_train_step(cfg, opt, remat=True)
+        (state, m), tr_ms, tr_peak = _timed(lambda: step(state, batch), torch)
+        out[f"zamba2 {impl}"] = {"prefill_ms": pre_ms, "prefill_peak_mib": pre_peak / 2 ** 20,
+                                 "train_step_ms": tr_ms, "train_peak_mib": tr_peak / 2 ** 20,
+                                 "loss": float(m["loss"])}
+        say(f"phase knobs zamba2-1.2b FULL mamba2_impl={impl}: bf16 prefill 1x{KNOB_SEQ} "
+            f"{pre_ms:.1f} ms (peak {pre_peak / 2 ** 20:,.0f} MiB above the start), one train "
+            f"step {tr_ms:.1f} ms (peak {tr_peak / 2 ** 20:,.0f} MiB), loss {float(m['loss']):.4f}")
+        del params, state, step, m, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = (logits["ssd"] - logits["scan"]).abs().max().item()
+    within = torch.allclose(logits["ssd"], logits["scan"], rtol=8e-2, atol=8e-2)
+    # the same prefill in fp32: the two forms are one function, summed in
+    # another order; in bf16 each of the 38 layers rounds its output, and
+    # the forms' last-bit differences grow through the stack
+    for impl in ("scan", "ssd"):
+        cfg = dataclasses.replace(zamba2_1_2b.FULL, mamba2_impl=impl)
+        params = T.init_lm(cfg, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                           device="cuda", dtype=torch.float32)
+        prefill = ST.make_prefill_step(cfg, ShapeSpec("p", KNOB_SEQ, 1, "prefill"))
+        logits[f"{impl} fp32"] = prefill(params, {"tokens": batch["tokens"]})[0].float()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff32 = (logits["ssd fp32"] - logits["scan fp32"]).abs().max().item()
+    ok = torch.allclose(logits["ssd fp32"], logits["scan fp32"], rtol=1e-3, atol=1e-3)
+    # each form's bf16 logits against its own fp32 logits: the rounding that
+    # 38 bf16 layers add, beside which the bf16 gap between the forms stands
+    rounding = {impl: (logits[impl] - logits[f"{impl} fp32"]).abs().max().item()
+                for impl in ("scan", "ssd")}
+    out["zamba2 ssd vs scan logits max abs diff"] = {
+        "bf16": diff, "fp32": diff32, "bf16_within_8e-2": within,
+        "bf16_vs_fp32": rounding}
+    say(f"phase knobs zamba2 ssd vs scan: prefill logits, max abs diff {diff:.4g} in bf16 "
+        f"(within rtol/atol 8e-2: {within}; reported, not gated) and {diff32:.4g} in fp32 "
+        f"(within rtol/atol 1e-3: {ok}); each form's bf16 logits against its own fp32 logits: "
+        f"scan {rounding['scan']:.4g}, ssd {rounding['ssd']:.4g} (the bf16 gap between the "
+        f"forms is {diff / max(rounding.values()):.3f}x the larger); ssd "
+        f"{out['zamba2 ssd']['prefill_ms'] / out['zamba2 scan']['prefill_ms']:.3f}x the scan's "
+        f"bf16 prefill, {out['zamba2 ssd']['train_step_ms'] / out['zamba2 scan']['train_step_ms']:.3f}"
+        f"x its train step")
+    if not ok:
+        fail(f"knobs: zamba2 ssd logits differ from scan by {diff32} in fp32")
+    # MLA: the lazy expansion against the eager one, deepseek-v3 FULL, one layer
+    cfg = deepseek_v3_671b.FULL
+    p = A.init_mla(cfg, generator=torch.Generator(device="cuda").manual_seed(SEED + 35),
+                   device=torch.device("cuda"), dtype=torch.bfloat16)
+    x = torch.randn((1, KNOB_SEQ, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    res = {}
+    with torch.no_grad():
+        for lazy in (False, True):
+            c = dataclasses.replace(cfg, mla_lazy_kv=lazy)
+            A.mla_self_attention(p, x, c)                      # warm-up
+            y, ms, peak = _timed(lambda: A.mla_self_attention(p, x, c), torch)
+            res[lazy] = y.float()
+            out[f"mla {'lazy' if lazy else 'eager'}"] = {"ms": ms, "peak_mib": peak / 2 ** 20}
+            say(f"phase knobs deepseek-v3 FULL MLA {'lazy' if lazy else 'eager'}: one layer of "
+                f"mla_self_attention at 1x{KNOB_SEQ}, bf16, {ms:.3f} ms, peak {peak / 2 ** 20:,.0f} "
+                f"MiB above the start")
+    diff = (res[True] - res[False]).abs().max().item()
+    ok = torch.allclose(res[True], res[False], rtol=8e-2, atol=8e-2)
+    out["mla lazy vs eager max abs diff"] = diff
+    say(f"phase knobs MLA lazy vs eager: within rtol/atol 8e-2: {ok} (max abs diff {diff:.4g})")
+    if not ok:
+        fail(f"knobs: lazy MLA differs from eager by {diff}")
+    del p, x, res
+    # the token-sharded MoE dispatch without a mesh, deepseek-v3 SMOKE
+    cfg = deepseek_v3_671b.SMOKE
+    p = FF.init_moe(cfg, generator=torch.Generator(device="cuda").manual_seed(SEED + 36),
+                    device=torch.device("cuda"), dtype=torch.float32)
+    x = torch.randn((2, 16, cfg.d_model), generator=gen, device="cuda")
+    off, aoff = FF.moe_forward(p, x, cfg)
+    on, aon = FF.moe_forward(p, x, dataclasses.replace(cfg, moe_dispatch_token_shard=True))
+    same = torch.equal(on, off) and torch.equal(aon, aoff)
+    out["token_shard equal"] = same
+    say(f"phase knobs moe_dispatch_token_shard on deepseek-v3 SMOKE's MoE on the card: "
+        f"torch.equal to the knob off: {same}")
+    if not same:
+        fail("knobs: the token-sharded MoE differs from the knob off on one card")
+    return out
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--dryrun-cell"] and len(sys.argv) == 4:
+        sys.exit(dryrun_cell(sys.argv[2], sys.argv[3]))     # a phase-33 process, no card
     multicard = sys.argv[1:] == ["--multicard"]
     if sys.argv[1:] and not multicard:
         fail(f"usage: python3 {Path(__file__).name} [--multicard]")
@@ -3502,6 +3875,11 @@ def main() -> None:
         f"their backward autograd's)")
     if lm_launches:
         fail(f"the LM path launched the port's kernels: {lm_launches}")
+    # 33. the dry run, against phase 32's step, and the knobs on the card
+    dryrun_report = dryrun_phase(ROOT / "build" / "dryrun", lm_train_report, torch)
+    dry_launches = {k: v for k, v in launch_counts().items() if v}
+    if dry_launches:
+        fail(f"the dry run's phase launched the port's kernels: {dry_launches}")
 
     # no phase without a FaultPlan moved the ladder
     moved = [(phase, g.level, g.summary()["by_kind"]) for phase, g, faults in GUARDS
@@ -3553,6 +3931,7 @@ def main() -> None:
                                     "examples": examples_report}))
     say("lm: " + json.dumps(lm_report))
     say("lm_train: " + json.dumps(lm_train_report))
+    say("dryrun: " + json.dumps(dryrun_report))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -1,13 +1,65 @@
-"""The devices of the sharded patch stream (twin of ``repro.launch.mesh``'s
-``make_patch_mesh``; the LM meshes belong to the LM side).
+"""Meshes (twin of ``repro.launch.mesh``): the LM side's production and test
+meshes, and the devices of the sharded patch stream.
 
-A function, so importing this module touches no CUDA state.
+The reference fakes 512 host devices for its dry run; the port fakes the
+process group instead. `fake_world` initializes a ``fake`` group of ``n``
+ranks with this process as rank 0 (collectives return at once, and move no
+data), and `make_production_mesh` / `make_test_mesh` lay a ``DeviceMesh``
+over it. A process holds one default group, so the group lives only inside
+the ``with``: on its exit the group is destroyed and ``torch.distributed``
+is as it was. Nothing here touches CUDA.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import math
+from typing import Iterator, Tuple
 
 import torch
+
+
+@contextlib.contextmanager
+def fake_world(n: int) -> Iterator[None]:
+    """A ``fake`` process group of ``n`` ranks, this process rank 0, for the
+    ``with`` block only. Refuses to stack on a group already initialized."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    n = math.prod(shape)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"a mesh of {shape} needs a process group of {n} ranks: "
+                           f"build it inside `with fake_world({n}):`")
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def production_mesh_shape(*, multi_pod: bool = False):
+    """(shape, axis names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: (data=16, model=16) = 256 ranks.
+    Multi-pod:  (pod=2, data=16, model=16) = 512 ranks (pod = DP).
+    Call it inside ``fake_world(256)`` (``fake_world(512)``)."""
+    return _device_mesh(*production_mesh_shape(multi_pod=multi_pod))
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model")):
+    """Small mesh for CPU distributed tests, inside ``fake_world(prod(shape))``."""
+    return _device_mesh(tuple(shape), tuple(axes))
 
 
 def make_patch_devices(shards: int) -> Tuple[torch.device, ...]:

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import ctx as shard
+from repro_torch.distributed.ctx import is_dtensor, is_sharded, merge_dims, split_dim
 from repro_torch.models.lm.params import normal
 
 NEG_INF = -1e30
@@ -70,10 +72,44 @@ def _online_softmax_step(m, l, o, s, vb):
     return m_new, l_new, o_new
 
 
+def _softmax_state(rows: torch.Tensor, dv: int):
+    """The lazy softmax's start: m at NEG_INF, l zero (..., q) and o zero
+    (..., q, dv), for query rows (..., q, D), laid out like them (a
+    DTensor's shards: a plain ``torch.zeros`` would be a whole replicated
+    copy on every rank)."""
+    m = torch.full_like(rows[..., 0], NEG_INF, dtype=torch.float32)
+    o = torch.zeros_like(rows[..., :1], dtype=torch.float32)
+    return m, torch.zeros_like(m), o.expand(*m.shape, dv)
+
+
 def _chunk_mask(q_pos, ci: int, chunk: int, sk: int, causal: bool) -> torch.Tensor:
     kv_pos = ci * chunk + torch.arange(chunk, device=q_pos.device)
     valid = kv_pos[None, :] < sk                           # padding mask
     return (kv_pos[None, :] <= q_pos[:, None]) & valid if causal else valid
+
+
+class _RepeatKV(torch.autograd.Function):
+    """(B,S,G,D) -> (B,S,H,D), each group's K (or V) repeated to its heads.
+    The gradient sums each group's heads as a product with the (H, G) 0/1
+    map, which DTensor computes on each rank's heads and reduces over their
+    axis (the gradient of an expand would split a sharded dim it cannot)."""
+
+    @staticmethod
+    def forward(ctx, k, h: int):
+        b, s, g, d = k.shape
+        ctx.g = g
+        return k[:, :, :, None, :].expand(b, s, g, h // g, d).reshape(b, s, h, d)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, g = grad.shape[2], ctx.g
+        hit = (torch.arange(h, device=grad.device)[:, None] // (h // g)
+               == torch.arange(g, device=grad.device)[None, :]).to(grad.dtype)
+        return (grad.transpose(2, 3).contiguous() @ hit).transpose(2, 3).contiguous(), None
+
+
+def _repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    return _RepeatKV.apply(k, h)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -81,6 +117,18 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_offset: int = 0) -> torch.Tensor:
     """q: (B,Sq,H,D); k,v: (B,Sk,G,D) with H = n*G (GQA). Lazy softmax:
     O(Sq*chunk) live memory instead of O(Sq*Sk)."""
+    # under a mesh (the dry run): batch over dp, heads over mp, the sequence
+    # whole; K/V repeated to the query heads where only those shard; then
+    # each rank's own blocks
+    h = q.shape[2]
+    q, k, v = _heads_over_mp(q, k, v)
+    if is_sharded(q, 2) and not is_sharded(k, 2) and k.shape[2] < h:
+        k, v = _heads_over_mp(_repeat_kv(k, h), _repeat_kv(v, h))
+    return shard.on_shards(lambda q, k, v: _blockwise_attention(
+        q, k, v, causal=causal, chunk=chunk, q_offset=q_offset), q, k, v)
+
+
+def _blockwise_attention(q, k, v, *, causal, chunk, q_offset):
     b, sq, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     dv = v.shape[-1]                                   # MLA: d_v != d_qk
@@ -96,9 +144,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kg = k.permute(0, 2, 3, 1)                         # (B, G, D, Sk)
     vg = v.permute(0, 2, 1, 3)                         # (B, G, Sk, dv)
     q_pos = _positions(q_offset, sq, q.device).repeat_interleave(rep)
-    m = torch.full((b, g, sq * rep), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, g, sq * rep), dtype=torch.float32, device=q.device)
-    o = torch.zeros((b, g, sq * rep, dv), dtype=torch.float32, device=q.device)
+    m, l, o = _softmax_state(qg, dv)
     for ci in range(nc):
         sl = slice(ci * chunk, (ci + 1) * chunk)
         s = (qg @ kg[..., sl].float()) * scale
@@ -106,7 +152,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m, l, o = _online_softmax_step(m, l, o, s, vg[:, :, sl])
     out = o / torch.clamp_min(l[..., None], 1e-30)
     out = out.reshape(b, g, sq, rep, dv).permute(0, 2, 1, 3, 4)
-    return out.reshape(b, sq, h, dv).to(q.dtype)
+    return merge_dims(out, 2).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -117,13 +163,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     b, _, h, d = q.shape
     s, g = k_cache.shape[1], k_cache.shape[2]
     rep = h // g
-    qh = q.reshape(b, g, rep, d).float()
+    qh = split_dim(q[:, 0], 1, (g, rep)).float()
     scores = (qh @ k_cache.float().permute(0, 2, 3, 1)) * d ** -0.5     # (B,G,rep,S)
     mask = torch.arange(s, device=q.device) < length
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = p @ v_cache.float().permute(0, 2, 1, 3)
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    return merge_dims(out, 1)[:, None].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -150,11 +196,19 @@ def init_gqa(cfg: LMConfig, *, generator, device, dtype=torch.bfloat16) -> Dict[
 def gqa_qkv(p, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
     b, s, _ = x.shape
     hd, h, g = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p["wq"] + p.get("bq", 0)).reshape(b, s, h, hd)
-    k = (x @ p["wk"] + p.get("bk", 0)).reshape(b, s, g, hd)
-    v = (x @ p["wv"] + p.get("bv", 0)).reshape(b, s, g, hd)
+    q = split_dim(x @ p["wq"] + p.get("bq", 0), -1, (h, hd))
+    k = split_dim(x @ p["wk"] + p.get("bk", 0), -1, (g, hd))
+    v = split_dim(x @ p["wv"] + p.get("bv", 0), -1, (g, hd))
     cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _heads_over_mp(*ts):
+    """(B,S,H,D) activations with the batch over dp and the heads over mp
+    (where they divide), the sequence whole: a no-op without a mesh. DTensor
+    places each op on its own, where XLA propagates over the program, so
+    the dry run states the Megatron layout of the attention here."""
+    return tuple(shard.constrain(t, "dp", None, "mp", None) for t in ts)
 
 
 def gqa_self_attention(p, x: torch.Tensor, cfg: LMConfig, *, causal: bool = True,
@@ -165,8 +219,22 @@ def gqa_self_attention(p, x: torch.Tensor, cfg: LMConfig, *, causal: bool = True
     q, k, v = gqa_qkv(p, x, cfg, _positions(q_offset, s, x.device))
     o = blockwise_attention(q, k, v, causal=causal, chunk=min(cfg.attn_chunk, s),
                             q_offset=q_offset)
-    out = o.reshape(x.shape[0], s, -1) @ p["wo"]
+    out = merge_dims(shard.grad_like(o), 2) @ p["wo"]
     return (out, (k, v)) if return_kv else out
+
+
+def write_at(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new`` in place (cache (B, S, ...), new (B, ...)).
+    On a DTensor (the dry run) it is a select over the sequence, which each
+    rank does on its own shard with no collective: a slice write would
+    gather a sequence-sharded cache."""
+    new = new.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache[:, pos] = new
+        return
+    at = (torch.arange(cache.shape[1], device=cache.device) == pos)
+    at = at.reshape((1, -1) + (1,) * (cache.ndim - 2))
+    cache.copy_(torch.where(at, new[:, None], cache))
 
 
 def gqa_decode(p, x: torch.Tensor, cfg: LMConfig, cache: Dict[str, torch.Tensor],
@@ -176,8 +244,8 @@ def gqa_decode(p, x: torch.Tensor, cfg: LMConfig, cache: Dict[str, torch.Tensor]
     b = x.shape[0]
     pos = int(pos)
     q, k, v = gqa_qkv(p, x, cfg, _positions(pos, 1, x.device))
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    write_at(cache["k"], pos, k[:, 0])
+    write_at(cache["v"], pos, v[:, 0])
     o = decode_attention(q, cache["k"], cache["v"], pos + 1)
     return o.reshape(b, 1, -1) @ p["wo"], cache
 
@@ -212,7 +280,7 @@ def _mla_qkr(p, x, cfg: LMConfig, positions):
     h = cfg.n_heads
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps) @ p["wuq"]
-    q = q.reshape(b, s, h, dn + dr)
+    q = split_dim(q, -1, (h, dn + dr))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     cos, sin = rope_freqs(dr, cfg.rope_theta, positions)
     q_rope = apply_rope(q_rope, cos, sin)
@@ -225,6 +293,14 @@ def mla_blockwise_attention(q_nope, q_rope, k_nope, k_rope, v, *,
     """Blockwise attention with MLA's decoupled score:
         s = q_nope.k_nope (per head) + q_rope.k_rope (shared by the heads).
     The rope term contracts the shared (B,S,dr) key directly."""
+    # under a mesh: each rank's batch and heads (see blockwise_attention)
+    q_nope, q_rope, k_nope, v = _heads_over_mp(q_nope, q_rope, k_nope, v)
+    k_rope = shard.constrain(k_rope, "dp", None, None)
+    return shard.on_shards(lambda *a: _mla_blockwise_attention(
+        *a, chunk=chunk, q_offset=q_offset), q_nope, q_rope, k_nope, k_rope, v)
+
+
+def _mla_blockwise_attention(q_nope, q_rope, k_nope, k_rope, v, *, chunk, q_offset):
     b, sq, h, dn = q_nope.shape
     sk = k_nope.shape[1]
     dr = q_rope.shape[-1]
@@ -242,9 +318,7 @@ def mla_blockwise_attention(q_nope, q_rope, k_nope, k_rope, v, *,
     krg = k_rope.to(kvdt).permute(0, 2, 1)[:, None]            # (B,1,dr,Sk)
     vg = v.permute(0, 2, 1, 3)                                 # (B,H,Sk,dv)
     q_pos = _positions(q_offset, sq, q_nope.device)
-    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=qn.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=qn.device)
-    o = torch.zeros((b, h, sq, v.shape[-1]), dtype=torch.float32, device=qn.device)
+    m, l, o = _softmax_state(qn, v.shape[-1])
     for ci in range(nc):
         blk = slice(ci * chunk, (ci + 1) * chunk)
         s = (qn @ kg[..., blk].float()) + (qr @ krg[..., blk].float())
@@ -255,20 +329,71 @@ def mla_blockwise_attention(q_nope, q_rope, k_nope, k_rope, v, *,
     return out.permute(0, 2, 1, 3).to(q_nope.dtype)
 
 
+def mla_blockwise_attention_lazy(q_nope, q_rope, c_kv, k_rope, wukv, cfg: LMConfig, *,
+                                 chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
+    """The reference's §Perf D4 (refuted there, kept for the record): K and V
+    expanded from the latent chunk by chunk inside the loop, never whole.
+    c_kv: (B,Sk,kv_lora_rank); k_rope: (B,Sk,dr); wukv: (kr, H*(dn+dv)).
+    Selected by ``cfg.mla_lazy_kv`` (the dry run's ``mla_lazy``)."""
+    # under a mesh: each rank's batch and heads
+    q_nope, q_rope = _heads_over_mp(q_nope, q_rope)
+    c_kv, k_rope = (shard.constrain(t, "dp", None, None) for t in (c_kv, k_rope))
+    wukv = shard.constrain(wukv, None, "mp" if is_sharded(q_nope, 2) else None)
+    return shard.on_shards(lambda *a: _mla_blockwise_attention_lazy(
+        *a, cfg, chunk=chunk, q_offset=q_offset), q_nope, q_rope, c_kv, k_rope, wukv)
+
+
+def _mla_blockwise_attention_lazy(q_nope, q_rope, c_kv, k_rope, wukv, cfg, *, chunk, q_offset):
+    b, sq, h, dn = q_nope.shape
+    sk = c_kv.shape[1]
+    dr = q_rope.shape[-1]
+    kr, dv = cfg.kv_lora_rank, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+    nc = -(-sk // chunk)
+    pad = nc * chunk - sk
+    if pad:
+        c_kv = F.pad(c_kv, (0, 0, 0, pad))
+        k_rope = F.pad(k_rope, (0, 0, 0, pad))
+    kvdt = c_kv.dtype
+    qn = q_nope.to(kvdt).permute(0, 2, 1, 3).float()           # (B,H,Sq,dn)
+    qr = q_rope.to(kvdt).permute(0, 2, 1, 3).float()
+    krg = k_rope.to(kvdt).permute(0, 2, 1)[:, None]            # (B,1,dr,Sk)
+    w = wukv.reshape(kr, h, dn + dv)
+    w_uk, w_uv = w[..., :dn], w[..., dn:]
+    q_pos = _positions(q_offset, sq, q_nope.device)
+    m, l, o = _softmax_state(qn, dv)
+    for ci in range(nc):
+        blk = slice(ci * chunk, (ci + 1) * chunk)
+        ckvb = c_kv[:, blk]
+        kb = torch.einsum("bcr,rhd->bhdc", ckvb, w_uk)         # lazy K expansion
+        vb = torch.einsum("bcr,rhd->bhcd", ckvb, w_uv)         # lazy V expansion
+        s = (qn @ kb.float()) + (qr @ krg[..., blk].float())
+        s = s * scale
+        s = torch.where(_chunk_mask(q_pos, ci, chunk, sk, True), s, NEG_INF)
+        m, l, o = _online_softmax_step(m, l, o, s, vb)
+    out = o / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 2, 1, 3).to(q_nope.dtype)
+
+
 def mla_self_attention(p, x: torch.Tensor, cfg: LMConfig, *, q_offset: int = 0,
                        return_kv: bool = False):
     """Prefill/train path: per-head K/V reconstructed from the latent once,
-    the rope key shared by the heads. ``return_kv`` also returns (c_kv,
-    k_rope) for the cache."""
+    the rope key shared by the heads (``cfg.mla_lazy_kv``: expanded chunk
+    by chunk instead). ``return_kv`` also returns (c_kv, k_rope) for the
+    cache."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     q_nope, q_rope, k_rope = _mla_qkr(p, x, cfg, _positions(q_offset, s, x.device))
     c_kv = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
-    kv = (c_kv @ p["wukv"]).reshape(b, s, h, dn + dv)
-    o = mla_blockwise_attention(q_nope, q_rope, kv[..., :dn], k_rope[:, :, 0], kv[..., dn:],
-                                chunk=min(cfg.attn_chunk, s), q_offset=q_offset)
-    out = o.reshape(b, s, h * dv) @ p["wo"]
+    if cfg.mla_lazy_kv:
+        o = mla_blockwise_attention_lazy(q_nope, q_rope, c_kv, k_rope[:, :, 0], p["wukv"], cfg,
+                                         chunk=min(cfg.attn_chunk, s), q_offset=q_offset)
+    else:
+        kv = split_dim(c_kv @ p["wukv"], -1, (h, dn + dv))
+        o = mla_blockwise_attention(q_nope, q_rope, kv[..., :dn], k_rope[:, :, 0], kv[..., dn:],
+                                    chunk=min(cfg.attn_chunk, s), q_offset=q_offset)
+    out = merge_dims(shard.grad_like(o), 2) @ p["wo"]
     return (out, (c_kv, k_rope[:, :, 0])) if return_kv else out
 
 
@@ -283,8 +408,8 @@ def mla_decode(p, x: torch.Tensor, cfg: LMConfig, cache: Dict[str, torch.Tensor]
     q_nope, q_rope, k_rope = _mla_qkr(p, x, cfg, _positions(pos, 1, x.device))
     c_kv = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)           # (B,1,kr)
     ckv_cache, kr_cache = cache["ckv"], cache["kr"]
-    ckv_cache[:, pos] = c_kv[:, 0].to(ckv_cache.dtype)
-    kr_cache[:, pos] = k_rope[:, 0, 0].to(kr_cache.dtype)
+    write_at(ckv_cache, pos, c_kv[:, 0])
+    write_at(kr_cache, pos, k_rope[:, 0, 0])
 
     wukv = p["wukv"].reshape(kr, h, dn + dv)
     w_uk, w_uv = wukv[..., :dn], wukv[..., dn:]                         # (kr,h,dn),(kr,h,dv)

@@ -17,7 +17,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.models.lm import attention as A
 from repro_torch.models.lm import ffn as FF
 from repro_torch.models.lm.params import ParamTree, _resolve_device, normal
-from repro_torch.models.lm.transformer import chunked_ce
+from repro_torch.models.lm.transformer import chunked_ce, embed_lookup, write_prefix
 
 
 def _init_cross(cfg: LMConfig, *, generator, device, dtype=torch.bfloat16) -> Dict[str, Any]:
@@ -104,7 +104,7 @@ def _dec_layer(lp, x, enc, cfg: LMConfig, return_kv: bool = False):
 
 def decode_train(params, cfg: LMConfig, enc: torch.Tensor, tokens: torch.Tensor,
                  *, remat: bool = True) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     for lp in params["dec_layers"]:
         x = _remat(lambda v, lp=lp: _dec_layer(lp, v, enc, cfg), x, remat)
     return A.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -128,14 +128,15 @@ def encdec_prefill(params, cfg: LMConfig, src_embeds, tokens, max_len: int
     layer's taken from its own forward."""
     enc = encode(params, cfg, src_embeds, remat=False)
     b, s = tokens.shape
-    x = params["embed"][tokens]
-    caches = init_encdec_caches(cfg, b, max_len, enc.shape[1], dtype=x.dtype, device=x.device)
+    x = embed_lookup(params["embed"], tokens)
+    caches: Dict[str, Any] = {}
+    n = cfg.n_layers
     for i, lp in enumerate(params["dec_layers"]):
         x, (k, v), (ck, cv) = _dec_layer(lp, x, enc, cfg, return_kv=True)
-        caches["k"][i, :, :s] = k
-        caches["v"][i, :, :s] = v
-        caches["ck"][i] = ck
-        caches["cv"][i] = cv
+        write_prefix(caches, "k", i, n, k.to(x.dtype), max_len)
+        write_prefix(caches, "v", i, n, v.to(x.dtype), max_len)
+        write_prefix(caches, "ck", i, n, ck.to(x.dtype), enc.shape[1])
+        write_prefix(caches, "cv", i, n, cv.to(x.dtype), enc.shape[1])
     h = A.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (h[:, -1] @ params["lm_head"]).float()
     return logits, caches
@@ -157,7 +158,7 @@ def encdec_decode_step(params, cfg: LMConfig, token, caches, pos
     """token: (B,1); pos: the fill count (an int). -> (logits (B,V) float32,
     caches, the self-attn K/V written in place)."""
     pos = int(pos)
-    x = params["embed"][token]
+    x = embed_lookup(params["embed"], token)
     b = x.shape[0]
     hd, hh = cfg.resolved_head_dim, cfg.n_heads
     for i, lp in enumerate(params["dec_layers"]):

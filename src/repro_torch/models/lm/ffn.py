@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import ctx as shard
 from repro_torch.models.lm.params import normal
 
 
@@ -81,12 +82,24 @@ def moe_capacity(n_tokens: int, cfg: LMConfig) -> int:
     return max(8, -(-c // 8) * 8)            # padded to 8, as the reference's (it sets the drops)
 
 
+def _add_rows(n: int, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """(n, D) zeros with row i of ``src`` added at row ``idx[i]``. On a
+    DTensor (the dry run) an out-of-place ``index_put`` that accumulates,
+    which DTensor shards; it has no ``index_add``."""
+    if shard.is_dtensor(src):
+        return src.new_zeros((n, src.shape[1])).index_put((idx,), src, accumulate=True)
+    out = torch.zeros((n, src.shape[1]), dtype=src.dtype, device=src.device)
+    return out.index_add_(0, idx, src)
+
+
 def moe_forward(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> (out, aux_loss). Top-k, capacity-dropped, softmax-weighted."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_per_tok
     t = b * s
-    xf = x.reshape(t, d)
+    # under a mesh the tokens' gradient comes back over dp alone (DTensor may
+    # split it over every axis, unevenly when b * s does not divide)
+    xf = shard.grad_to(x.reshape(t, d), "dp", None)
     logits = xf.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, k, dim=-1)                  # (T,k), descending
@@ -105,19 +118,27 @@ def moe_forward(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.
     slot = torch.where(valid, flat_e * cap + pos, torch.full_like(pos, e * cap))  # drops -> scratch
 
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    disp = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    disp.index_add_(0, slot, xf[tok] * valid[:, None])
+    disp = _add_rows(e * cap + 1, slot, xf[tok] * valid[:, None])
     disp = disp[:-1].reshape(e, cap, d)
+    # EP: experts over 'model'; expert-TP: dispatch replicated over 'model',
+    # hidden dim TP'd via the w specs. token_shard (the reference's §Perf
+    # G1/D2) shards the capacity dim over dp. No-ops without a mesh.
+    ep = "mp" if cfg.moe_mode == "ep_alltoall" else None
+    if cfg.moe_dispatch_token_shard:
+        disp = shard.constrain(disp, ep, "dp", None)
+    else:
+        disp = shard.constrain(disp, ep, None, None)
 
     a = _act(cfg.act)
     h = torch.bmm(disp, p["w_in"])
     h = h * a(torch.bmm(disp, p["w_gate"]))
+    if cfg.moe_dispatch_token_shard:
+        h = shard.constrain(h, ep, "dp", "mp" if ep is None else None)
     y = torch.bmm(h, p["w_out"]).reshape(e * cap, d)
     y = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)], dim=0)
 
     w = (gate.reshape(-1) * valid).to(x.dtype)
-    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    out.index_add_(0, tok, y[slot] * w[:, None])
+    out = _add_rows(t, tok, y[slot] * w[:, None])
     if "shared" in p:
         out = out + mlp(p["shared"], xf, cfg.act)
     return out.reshape(b, s, d), aux

@@ -1,5 +1,6 @@
 """SSM substrate: Mamba-1 selective scan (falcon-mamba) and Mamba-2/SSD
-(zamba2), both in *chunked* form.
+(zamba2), both in *chunked* form (Mamba-2 also in the SSD block-matmul form,
+``mamba2_impl="ssd"``).
 
 The port of ``repro.models.lm.ssm``. Across chunks a loop carries the
 (B, d, N) state; within a chunk the first-order recurrence runs step by step
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.models.lm.attention import rmsnorm
 from repro_torch.models.lm.params import normal, uniform
 
@@ -67,12 +69,38 @@ def _scan_chunked(a_fn, b_fn, y_fn, h0, n_chunks):
     h, ys = h0, []
     for i in range(n_chunks):
         a, b = a_fn(i), b_fn(i)
-        states = []
-        for j in range(b.shape[1]):
-            h = a[:, j] * h + b[:, j]
-            states.append(h)
-        ys.append(y_fn(i, torch.stack(states, dim=1)))
+        if is_dtensor(b):
+            h, states = _steps_on_shards(a, b, h)
+        else:
+            states = []
+            for j in range(b.shape[1]):
+                h = a[:, j] * h + b[:, j]
+                states.append(h)
+            states = torch.stack(states, dim=1)
+        ys.append(y_fn(i, states))
     return h, torch.stack(ys)
+
+
+def _steps_on_shards(a, b, h):
+    """One chunk's steps on DTensors (the dry run): the recurrence is
+    elementwise, so each rank runs it on its own shards of a, b and h (the
+    chunk's step dim whole), and the states go back into a DTensor. Stepping
+    the DTensors themselves would pay DTensor's dispatch every step."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = b.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim != 1 else Replicate() for p in b.placements)
+    hpl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p for p in pl)
+    a = a.expand(b.shape) if a.shape != b.shape else a
+    a_l = a.redistribute(mesh, pl).to_local()
+    b_l = b.redistribute(mesh, pl).to_local()
+    h_l = h.redistribute(mesh, hpl).to_local() if is_dtensor(h) else h
+    states = []
+    for j in range(b_l.shape[1]):
+        h_l = a_l[:, j] * h_l + b_l[:, j]
+        states.append(h_l)
+    states = torch.stack(states, dim=1)
+    return (DTensor.from_local(h_l, mesh, hpl, run_check=False),
+            DTensor.from_local(states, mesh, pl, run_check=False))
 
 
 def mamba1_forward(p, u: torch.Tensor, cfg: LMConfig, return_state: bool = False):
@@ -107,7 +135,7 @@ def mamba1_forward(p, u: torch.Tensor, cfg: LMConfig, return_state: bool = False
     def y_fn(i, h_all):                                                # (B,ck,di,n)
         return torch.einsum("bkdn,bkn->bkd", h_all, Cc[:, i])
 
-    h0 = torch.zeros((bsz, di, n), dtype=torch.float32, device=u.device)
+    h0 = torch.zeros_like(dtc[:, 0, 0, :, None].expand(bsz, di, n))   # laid out like the inputs
     h_final, ys = _scan_chunked(a_fn, b_fn, y_fn, h0, nc)              # (nc,B,ck,di)
     y = ys.permute(1, 0, 2, 3).reshape(bsz, nc * ck, di)[:, :s]
     y = y + x[:, :s].float() * p["D"]
@@ -222,7 +250,37 @@ def _mamba2_output(p, u, cfg: LMConfig, ys, xh, z, state, x_raw, bc_raw, return_
     return out
 
 
+def mamba2_ssd_forward(p, u: torch.Tensor, cfg: LMConfig, return_state: bool = False):
+    """Mamba-2 in the SSD block-matmul form (the reference's §Perf Z1):
+    within a chunk, Y = ((C Bᵀ) ⊙ decay ⊙ causal) @ (dt ⊙ x) + C·(decay·S),
+    so only the (B,K,K,H) kernel and the (B,H,P,N) state are live, and the
+    work is matmuls. Selected by ``cfg.mamba2_impl == "ssd"``."""
+    bsz = u.shape[0]
+    heads, ck = cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_chunk
+    z, x_raw, bc_raw, (xh, dtc, Bc, Cc), A, nc = _mamba2_inputs(p, u, cfg)
+    causal = torch.tril(torch.ones((ck, ck), dtype=torch.bool, device=u.device))
+    S = torch.zeros_like(xh[:, 0, 0, :, :, None].expand(bsz, heads, cfg.ssm_head_dim,
+                                                        cfg.ssm_state))
+    ys = []
+    for i in range(nc):
+        dti, xi, Bi, Ci = dtc[:, i], xh[:, i], Bc[:, i], Cc[:, i]
+        ca = torch.cumsum(dti * A, dim=1)                              # (B,K,H) logs
+        dtx = dti[..., None] * xi                                      # (B,K,H,P)
+        cb = torch.einsum("bin,bjn->bij", Ci, Bi)                      # (B,K,K)
+        decay = torch.exp(ca[:, :, None, :] - ca[:, None, :, :])       # (B,K,K,H)
+        kern = cb[..., None] * torch.where(causal[None, :, :, None], decay, 0.0)
+        y = torch.einsum("bijh,bjhp->bihp", kern, dtx)
+        y = y + torch.exp(ca)[..., None] * torch.einsum("bin,bhpn->bihp", Ci, S)
+        tail = torch.exp(ca[:, -1:, :] - ca)                           # (B,K,H)
+        S = (torch.exp(ca[:, -1])[:, :, None, None] * S
+             + torch.einsum("bkhp,bkn->bhpn", tail[..., None] * dtx, Bi))
+        ys.append(y)
+    return _mamba2_output(p, u, cfg, torch.stack(ys), xh, z, S, x_raw, bc_raw, return_state)
+
+
 def mamba2_forward(p, u: torch.Tensor, cfg: LMConfig, return_state: bool = False):
+    if cfg.mamba2_impl == "ssd":
+        return mamba2_ssd_forward(p, u, cfg, return_state)
     bsz = u.shape[0]
     heads = cfg.d_inner // cfg.ssm_head_dim
     z, x_raw, bc_raw, (xh, dtc, Bc, Cc), A, nc = _mamba2_inputs(p, u, cfg)
@@ -237,8 +295,8 @@ def mamba2_forward(p, u: torch.Tensor, cfg: LMConfig, return_state: bool = False
     def y_fn(i, h_all):
         return torch.einsum("bkhpn,bkn->bkhp", h_all, Cc[:, i])
 
-    h0 = torch.zeros((bsz, heads, cfg.ssm_head_dim, cfg.ssm_state), dtype=torch.float32,
-                     device=u.device)
+    h0 = torch.zeros_like(xh[:, 0, 0, :, :, None].expand(bsz, heads, cfg.ssm_head_dim,
+                                                         cfg.ssm_state))
     h_final, ys = _scan_chunked(a_fn, b_fn, y_fn, h0, nc)              # (nc,B,ck,H,P)
     return _mamba2_output(p, u, cfg, ys, xh, z, h_final, x_raw, bc_raw, return_state)
 

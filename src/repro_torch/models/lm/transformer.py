@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import ctx as shard
 from repro_torch.models.lm import attention as A
 from repro_torch.models.lm import ffn as FF
 from repro_torch.models.lm import ssm as S
@@ -97,6 +98,22 @@ def init_lm(cfg: LMConfig, *, generator: Optional[torch.Generator], device="cuda
 # block forward (one layer)
 # ===========================================================================
 
+def _norm_in(x: torch.Tensor, w: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """The normed input of a mixer or FFN, its sequence gathered where the
+    residual stream is sequence-sharded (Megatron-SP's gather before the
+    column-parallel projections). XLA finds this layout by propagation; a
+    DTensor op is placed on its own, so the dry run states it. A no-op
+    without a mesh."""
+    return shard.constrain(A.rmsnorm(x, w, cfg.norm_eps), "dp", None, None)
+
+
+def _out(y: torch.Tensor) -> torch.Tensor:
+    """A mixer's or FFN's output on its way into the residual stream: under
+    a mesh its gradient comes back with the sequence gathered (the twin of
+    `_norm_in` for the backward). A no-op without a mesh."""
+    return shard.grad_to(y, "dp", None, None)
+
+
 def block_forward(p, x: torch.Tensor, cfg: LMConfig, *, q_offset: int = 0,
                   return_kv: bool = False):
     """Full-sequence (train/prefill) layer -> (x, moe_aux); with
@@ -106,26 +123,26 @@ def block_forward(p, x: torch.Tensor, cfg: LMConfig, *, q_offset: int = 0,
         return x + S.mamba1_forward(p["mamba"], A.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg), aux
     if cfg.family == "hybrid":
         return x + S.mamba2_forward(p["mamba"], A.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg), aux
-    h = A.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    h = _norm_in(x, p["ln1"], cfg)
     attn = A.mla_self_attention if cfg.use_mla else A.gqa_self_attention
     o = attn(p["attn"], h, cfg, q_offset=q_offset, return_kv=return_kv)
     o, kv = o if return_kv else (o, None)
-    x = x + o
-    h = A.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = x + _out(o)
+    h = _norm_in(x, p["ln2"], cfg)
     if cfg.n_experts:
         y, aux = FF.moe_forward(p["moe"], h, cfg)
     elif cfg.dynamic_width:
         y = FF.dynamic_width_ffn(p["mlp"], h, cfg.act)
     else:
         y = FF.mlp(p["mlp"], h, cfg.act)
-    return (x + y, aux, kv) if return_kv else (x + y, aux)
+    return (x + _out(y), aux, kv) if return_kv else (x + _out(y), aux)
 
 
 def shared_block_forward(p, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    h = A.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + A.gqa_self_attention(p["attn"], h, cfg)
-    h = A.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + FF.mlp(p["mlp"], h, cfg.act)
+    h = _norm_in(x, p["ln1"], cfg)
+    x = x + _out(A.gqa_self_attention(p["attn"], h, cfg))
+    h = _norm_in(x, p["ln2"], cfg)
+    return x + _out(FF.mlp(p["mlp"], h, cfg.act))
 
 
 def _shared_due(cfg: LMConfig, shared, i: int) -> bool:
@@ -145,8 +162,16 @@ def _embed_inputs(params, tokens, prefix_embeds) -> torch.Tensor:
             pe = pe @ params["vision_proj"]
         parts.append(pe)
     if tokens is not None:
-        parts.append(params["embed"][tokens])
+        parts.append(embed_lookup(params["embed"], tokens))
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On DTensors (the dry run) the table is gathered
+    whole first, as ZeRO-3 gathers a weight before use: DTensor's
+    vocab-sharded lookup leaves a masked partial sum whose gradient cannot
+    meet another lookup's (deepseek's MTP head reads the table twice)."""
+    return F.embedding(tokens, shard.replicate(table))
 
 
 def lm_hidden(params, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
@@ -154,6 +179,10 @@ def lm_hidden(params, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
               remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (final hidden (B,S,D), moe aux loss). S = prefix + token length."""
     x = _embed_inputs(params, tokens, prefix_embeds)
+    # Megatron-SP (seq over model) for attention archs; an SSM's sequence
+    # stays dp-only (the reference's §Perf Z2). No-ops without a mesh.
+    seq_mp = None if cfg.family in ("ssm", "hybrid") else "mp"
+    x = shard.constrain(x, "dp", seq_mp, None)
     shared = params.get("shared_block")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
@@ -161,7 +190,7 @@ def lm_hidden(params, cfg: LMConfig, tokens: Optional[torch.Tensor] = None,
             x, a = block_forward(lp, x, cfg)
             if _shared_due(cfg, shared, i):
                 x = shared_block_forward(shared, x, cfg)
-            return x, a
+            return shard.constrain(x, "dp", seq_mp, None), a
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(body, x, use_reentrant=False)
         else:
@@ -181,6 +210,7 @@ def head_weight(params) -> torch.Tensor:
 def chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                chunk: int = 512) -> torch.Tensor:
     """h: (B,S,D); w: (D,V); labels: (B,S) with -1 = masked. Mean over valid."""
+    h = shard.constrain(h, "dp", None, None)      # un-SP before the seq chunks
     s = h.shape[1]
     pad = (-s) % chunk
     if pad:
@@ -190,13 +220,28 @@ def chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     n = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range((s + pad) // chunk):
         hh, ll = h[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:(c + 1) * chunk]
-        logits = (hh @ w).float()                                      # (B,c,V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, ll.clamp_min(0)[..., None])[..., 0]
+        logits = shard.grad_like((hh @ w).float())                     # (B,c,V)
+        lse, gold = _lse_gold(logits, ll, hh, w)
         mask = (ll >= 0).float()
         loss_sum = loss_sum + torch.sum((lse - gold) * mask)
         n = n + mask.sum()
     return loss_sum / torch.clamp_min(n, 1.0)
+
+
+def _lse_gold(logits: torch.Tensor, labels: torch.Tensor, hh: torch.Tensor, w: torch.Tensor):
+    """logsumexp over the vocab and the gold logit. On a DTensor whose
+    vocab is sharded (the dry run) the logsumexp comes from per-shard
+    partials, a max and a sum of exps, each reduced over the vocab's axis,
+    as the reference's program reduces them, and the gold logit from the
+    gold columns of ``w``: DTensor would gather the (B, c, V) logits, and
+    its masked gather does not run on the meta device."""
+    if shard.is_sharded(logits, -1):
+        m = logits.amax(-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+        w_gold = shard.constrain(F.embedding(labels.clamp_min(0), w.T), "dp", None, None)
+        return lse, (hh.float() * w_gold.float()).sum(-1)
+    return (torch.logsumexp(logits, dim=-1),
+            logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0])
 
 
 def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
@@ -211,7 +256,7 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
         loss = loss + MOE_AUX_WEIGHT * aux / cfg.n_layers
     if cfg.mtp and "mtp" in params:
         # deepseek MTP: predict t+2 from [h_t ; emb(t+1)] through one extra block
-        emb_next = params["embed"][tokens[:, 1:]]
+        emb_next = embed_lookup(params["embed"], tokens[:, 1:])
         mtp_in = torch.cat([h[:, :-1], emb_next], dim=-1) @ params["mtp"]["proj"]
         mtp_h, _ = block_forward(params["mtp"]["block"], mtp_in, cfg)
         mtp_h = A.rmsnorm(mtp_h, params["mtp"]["ln"], cfg.norm_eps)
@@ -298,7 +343,7 @@ def lm_decode_step(params, cfg: LMConfig, token: torch.Tensor, caches: Dict[str,
     """token: (B,1) int64; pos: the fill count (an int). -> (logits (B,V)
     float32, caches updated in place)."""
     pos = int(pos)
-    x = params["embed"][token]
+    x = embed_lookup(params["embed"], token)
     shared = params.get("shared_block")
     if cfg.family in ("ssm", "hybrid"):
         layer_caches = caches["ssm"]
@@ -338,11 +383,7 @@ def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int,
     if cfg.family in ("ssm", "hybrid"):
         fwd = S.mamba1_forward if cfg.family == "ssm" else S.mamba2_forward
         states = []
-        if _shared_due(cfg, shared, cfg.shared_attn_every - 1):
-            n_inv = cfg.n_layers // cfg.shared_attn_every
-            shape = (n_inv, b, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-            caches["shared_kv"] = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                                   "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
+        shared_kv: Dict[str, Any] = {}
         for i, lp in enumerate(params["layers"]):
             y, st = fwd(lp["mamba"], A.rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
                         return_state=True)
@@ -351,10 +392,12 @@ def lm_prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int,
             if _shared_due(cfg, shared, i):
                 inv = (i + 1) // cfg.shared_attn_every - 1
                 x, k, v = _shared_block_prefill(shared, x, cfg)
-                sh = caches["shared_kv"]
-                sh["k"][inv, :, :s] = k.to(sh["k"].dtype)
-                sh["v"][inv, :, :s] = v.to(sh["v"].dtype)
-        caches = {"ssm": _stack_layers(states), **caches}
+                n_inv = cfg.n_layers // cfg.shared_attn_every
+                write_prefix(shared_kv, "k", inv, n_inv, k, max_len)
+                write_prefix(shared_kv, "v", inv, n_inv, v, max_len)
+        caches = {"ssm": _stack_layers(states)}
+        if shared_kv:
+            caches["shared_kv"] = shared_kv
     else:
         for i, lp in enumerate(params["layers"]):
             x, _, kv = block_forward(lp, x, cfg, return_kv=True)
@@ -381,7 +424,25 @@ def _prefill_layer_cache(caches: Dict[str, Any], i: int, kv, cfg: LMConfig,
     recomputes them from the layer input; the port takes the block's own."""
     names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
     for name, t in zip(names, kv):
-        if i == 0:
-            caches[name] = torch.zeros((cfg.n_layers, t.shape[0], max_len) + t.shape[2:],
-                                       dtype=t.dtype, device=t.device)
-        caches[name][i, :, :t.shape[1]] = t
+        write_prefix(caches, name, i, cfg.n_layers, t, max_len)
+
+
+def write_prefix(caches: Dict[str, Any], name: str, i: int, n: int, t: torch.Tensor,
+                 max_len: int) -> None:
+    """Layer ``i`` of ``n`` of cache ``name``: ``t`` (B, s, ...) at positions
+    [0, s) of a (n, B, max_len, ...) buffer, zero past them (made at layer
+    0). On DTensors (the dry run) each layer is padded on its own shards
+    (the sequence whole) and the layers are stacked after the last: a
+    DTensor takes no in-place write into a slice."""
+    if shard.is_dtensor(t):
+        if shard.is_sharded(t, 1):
+            t = shard.constrain(t, "dp", *([None] * (t.ndim - 1)))
+        pad = (0, 0) * (t.ndim - 2) + (0, max_len - t.shape[1])
+        caches.setdefault(name, []).append(shard.on_shards(lambda u: F.pad(u, pad), t))
+        if i == n - 1:
+            caches[name] = torch.stack(caches[name])
+        return
+    if i == 0:
+        caches[name] = torch.zeros((n, t.shape[0], max_len) + t.shape[2:],
+                                   dtype=t.dtype, device=t.device)
+    caches[name][i, :, :t.shape[1]] = t

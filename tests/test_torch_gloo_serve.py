@@ -1,0 +1,28 @@
+"""Prefill and decode's sharded arithmetic on a real mesh: granite-8b,
+deepseek-v3 and zamba2 SMOKE on a (2, 2) mesh of four CPU processes over
+gloo (``tests/_torch_gloo_mesh.py``): a prefill of 32 tokens into 64
+positions, its caches laid out by ``cache_specs``, then one decode step;
+the gathered logits and every cache leaf held to the plain one-process
+steps at rtol 1e-4 (of each tensor's largest value)."""
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(__file__))
+from _torch_gloo_mesh import launch  # noqa: E402
+
+ARCHS = ("granite-8b", "deepseek-v3-671b", "zamba2-1.2b")
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    return launch("serve", ARCHS, str(tmp_path_factory.mktemp("gloo") / "serve.json"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_prefill_and_decode_equal_the_plain_steps(results, arch):
+    r = results[arch]
+    assert r["leaves"] > 0
+    for what in ("prefill logits", "prefill caches", "decode logits", "decode caches"):
+        assert r[what] <= 1e-4, (what, r)

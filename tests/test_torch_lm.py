@@ -330,14 +330,20 @@ def test_entry_points_need_the_card_or_device_cpu(monkeypatch):
 @pytest.mark.parametrize("knob", [dict(moe_impl="shard_map"), dict(moe_dispatch_token_shard=True),
                                   dict(mamba2_impl="ssd"), dict(mla_lazy_kv=True)])
 def test_dry_run_knobs_refuse_rather_than_do_nothing(knob):
-    """The reference's implementation knobs stay as fields (a config equals
-    the reference's field by field), but only the baseline is served: any
-    other value raises, naming the item that brings it."""
-    JConfig(**MOE, **knob)
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        LMConfig(**MOE, **knob)
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        dataclasses.replace(LMConfig(**MOE), **knob)
+    """The reference's implementation knobs are fields, and the dry run's
+    three are served (a config equals the reference's field by field, also
+    through ``dataclasses.replace``). The explicit expert-parallel MoE runs
+    over processes: it is refused, naming the item that brings it, rather
+    than served as the einsum form."""
+    want = dataclasses.asdict(JConfig(**MOE, **knob))
+    if knob.get("moe_impl") == "shard_map":
+        with pytest.raises(NotImplementedError, match="item 16d"):
+            LMConfig(**MOE, **knob)
+        with pytest.raises(NotImplementedError, match="item 16d"):
+            dataclasses.replace(LMConfig(**MOE), **knob)
+        return
+    assert dataclasses.asdict(LMConfig(**MOE, **knob)) == want
+    assert dataclasses.asdict(dataclasses.replace(LMConfig(**MOE), **knob)) == want
 
 
 def test_param_tree_indexes_like_a_dict():
