@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --multicard    # phases 1, 2 and 25 over every card
+    python3 chip_smoke.py --multicard    # phases 1, 2, 25 and 34 over four cards
 
 Phases, one line or more each, run in this order: 1, 2, 3, 7, 17, 18, 15, 11, 4,
 8, 12, 5, 6, 9 with 13 after each mode, 16, 14, 19, 20, 21, 22, 23, 24, 25, 26, 27,
@@ -301,6 +301,31 @@ the card's phases); any failure exits non-zero before the last line:
      (8e-2), and
      the token-sharded MoE on deepseek-v3 SMOKE torch.equal to the knob off.
      A "dryrun:" JSON line before the kernels line holds it;
+ 34. the collectives over four cards ("collectives"; --multicard only,
+     after phase 25): four ranks of this script (--collectives-rank), one
+     card each, over NCCL, meeting through a file store in a temporary
+     folder; a rank that fails or outlives COLL_TIMEOUT_S fails the phase.
+     Each rank prints its figures beside its card's name and power limit.
+     (a) distributed/collectives.py: flash_decode_attention at granite-8b
+     FULL's decode shapes (COLL_FD: a cache sharded over the four cards,
+     fp32) against the port's one-card decode_attention (rtol 1e-4 / atol
+     1e-5), and compressed_psum over one granite-8b FULL layer's gradient
+     leaves (each rank its own, two steps with the error carried) against
+     its plain formula on one card (codes equal, results within 1e-6 of
+     each leaf's largest); each timed beside its one-card or plain fp32
+     all-reduce counterpart. (b) tests/_torch_gloo_mesh.py's SMOKE
+     comparison over NCCL: the train step on (2, 2) and (1, 4) (granite-8b,
+     zamba2-1.2b, deepseek-v3 with the einsum MoE and the shard_map MoE in
+     both modes) and prefill + decode, each within 1e-4 of each tensor's
+     largest of the plain one-card step. (c) item 16d's cell at full width:
+     granite-8b FULL, all 36 layers, one sequence of LM_TRAIN_SEQ tokens,
+     bf16, make_optimizer()'s functional Adam, on (data=1, model=4):
+     COLL_16D_WARMUP warm-up and COLL_16D_STEPS timed steps, each rank's
+     max_memory_allocated against the dry run's prediction (COLL_16D_ARG_GIB +
+     COLL_16D_TEMP_GIB) and the median step against its predicted compute
+     and collective times; the loss finite and equal on every rank. A
+     "collectives:" JSON line before the last holds it. No kernel of the
+     port lies on this path.
 
 It imports torch and the port (src/repro_torch), never JAX or the JAX
 package. It exits non-zero without a result when no CUDA card is visible or
@@ -2949,9 +2974,384 @@ def knob_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 34. the collectives over four cards (--multicard)
+# ---------------------------------------------------------------------------
+
+COLL_WORLD = 4
+COLL_TIMEOUT_S = 900
+#: (a) flash decode at granite-8b FULL's decode shapes: 4 sequences, a cache
+#: of 4,096 positions split over the four cards, 8 KV heads, 32 query heads,
+#: head_dim 128; the fill leaves the last card's slice empty
+COLL_FD = dict(b=4, s=4096, g=8, h=32, d=128, length=3000)
+COLL_TIMING_RUNS = 10
+#: (b) tests/_torch_gloo_mesh.py's cases (ARCH[@DxM][+MODE], default 2x2)
+COLL_TRAIN_CASES = ("granite-8b", "deepseek-v3-671b", "zamba2-1.2b",
+                    "deepseek-v3-671b+expert_tp", "deepseek-v3-671b+ep_alltoall",
+                    "granite-8b@1x4", "zamba2-1.2b@1x4", "deepseek-v3-671b@1x4",
+                    "deepseek-v3-671b@1x4+expert_tp", "qwen2-14h@1x4", "falcon-mamba-7b@1x4")
+COLL_SERVE_CASES = ("granite-8b", "deepseek-v3-671b", "zamba2-1.2b",
+                    "deepseek-v3-671b+expert_tp", "deepseek-v3-671b+ep_alltoall",
+                    "granite-8b@1x4", "qwen2-14h@1x4", "falcon-mamba-7b@1x4")
+#: (c) item 16d's cell: the dry run's prediction for each rank (PERF.md section 6,
+#: phase 33c: the dry run on the H100 constants of launch/roofline.py)
+COLL_16D_ARG_GIB, COLL_16D_TEMP_GIB = 19.22, 27.38
+COLL_16D_COMPUTE_MS, COLL_16D_COLL_MS = 71.9, 17.9
+COLL_16D_WARMUP, COLL_16D_STEPS = 1, 4
+
+
+def card_line_of(index: int) -> str:
+    out = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()
+    return out[0] if out else "?"
+
+
+def collectives_phase(torch) -> dict:
+    """34. Four ranks of this script over NCCL (see the module docstring);
+    -> each rank's report."""
+    import os
+    import tempfile
+    if torch.cuda.device_count() < COLL_WORLD:
+        fail(f"collectives: phase 34 needs {COLL_WORLD} cards, "
+             f"{torch.cuda.device_count()} visible")
+    with tempfile.TemporaryDirectory(prefix="collectives_") as tmp:
+        tmp = Path(tmp)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+        procs, logs = [], []
+        t0 = time.perf_counter()
+        for r in range(COLL_WORLD):
+            logs.append(open(tmp / f"rank{r}.log", "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--collectives-rank", str(r),
+                 str(tmp / "store"), str(tmp)], stdout=logs[-1], stderr=subprocess.STDOUT,
+                env=env, cwd=ROOT))
+        failed = None
+        try:
+            while any(p.poll() is None for p in procs):
+                bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+                if bad:
+                    failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                    break
+                if time.perf_counter() - t0 > COLL_TIMEOUT_S:
+                    failed = f"not done in {COLL_TIMEOUT_S} s"
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if failed is None:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            failed = f"ranks {bad} failed" if bad else None
+        texts = [(tmp / f"rank{r}.log").read_text() for r in range(COLL_WORLD)]
+        for r, text in enumerate(texts):
+            for line in text.splitlines():
+                if line.startswith("phase collectives") or line.startswith("FAIL"):
+                    say(line)
+        if failed:
+            fail(f"collectives: {failed}:\n" + "\n".join(
+                f"--- rank {r}:\n{t[-3000:]}" for r, t in enumerate(texts)))
+        reports = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(COLL_WORLD)]
+    wall = time.perf_counter() - t0
+    losses = [rep["16d"]["losses"] for rep in reports]
+    if any(x != losses[0] for x in losses):
+        fail(f"collectives 16d: the ranks' losses differ: {losses}")
+    peaks = [rep["16d"]["peak_gib"] for rep in reports]
+    steps = [rep["16d"]["step_ms"] for rep in reports]
+    pred = COLL_16D_ARG_GIB + COLL_16D_TEMP_GIB
+    say(f"phase collectives: {COLL_WORLD} ranks over NCCL, done in {wall:.1f} s; 16d peaks "
+        + ", ".join(f"{x:.2f}" for x in peaks) + f" GiB against the predicted {pred:.2f} "
+        f"(ratio {max(peaks) / pred:.3f} at the largest); median steps "
+        + ", ".join(f"{x:.1f}" for x in steps) + f" ms against the predicted "
+        f"{COLL_16D_COMPUTE_MS} ms of compute and {COLL_16D_COLL_MS} ms of collectives; loss "
+        + " ".join(f"{x:.4f}" for x in losses[0]) + " on every rank")
+    return {"wall_s": wall, "ranks": reports, "predicted_peak_gib": pred,
+            "predicted_compute_ms": COLL_16D_COMPUTE_MS,
+            "predicted_collective_ms": COLL_16D_COLL_MS}
+
+
+def _events_ms(fn, torch, runs: int = COLL_TIMING_RUNS) -> float:
+    """Median ms of ``fn()`` by CUDA events, the ranks lined up by a
+    barrier before each run."""
+    import torch.distributed as dist
+    fn()
+    times = []
+    for _ in range(runs):
+        dist.barrier()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def coll_flash(rank: int, dev: str, torch) -> dict:
+    """34a, flash decode against decode_attention on one card."""
+    from _torch_gloo_mesh import cached_mesh
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.lm.attention import decode_attention
+    c = COLL_FD
+    mesh = cached_mesh((COLL_WORLD,), ("model",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    q = torch.randn(c["b"], 1, c["h"], c["d"], device=dev, generator=gen)
+    k = torch.randn(c["b"], c["s"], c["g"], c["d"], device=dev, generator=gen)
+    v = torch.randn(c["b"], c["s"], c["g"], c["d"], device=dev, generator=gen)
+    s_l = c["s"] // COLL_WORLD
+    kl, vl = (t[:, rank * s_l:(rank + 1) * s_l].contiguous() for t in (k, v))
+    length = torch.tensor(c["length"], device=dev)
+    got = C.flash_decode_attention(mesh, "model", q, kl, vl, length)
+    want = decode_attention(q, k, v, length)
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, rtol=1e-4, atol=1e-5)
+    ms = _events_ms(lambda: C.flash_decode_attention(mesh, "model", q, kl, vl, length), torch)
+    one_ms = _events_ms(lambda: decode_attention(q, k, v, length), torch)
+    say(f"phase collectives flash rank {rank}: flash_decode_attention B {c['b']} cache "
+        f"{c['s']} ({s_l} a card) G {c['g']} H {c['h']} D {c['d']} fill {c['length']}, fp32: "
+        f"max abs err {err:.3g} against decode_attention on one card (rtol 1e-4 / atol 1e-5: "
+        f"{ok}); {ms:.4f} ms (one MAX and two SUM all-reduces) against {one_ms:.4f} ms for the "
+        f"whole cache on one card")
+    if not ok:
+        fail(f"collectives flash rank {rank}: max abs err {err}")
+    return {"max_abs_err": err, "ms": ms, "one_card_ms": one_ms}
+
+
+def coll_psum(rank: int, dev: str, torch) -> dict:
+    """34a, compressed psum over one granite-8b FULL layer's gradient leaves,
+    each rank its own, two steps with the error carried, against the plain
+    formula for all four ranks' gradients on this card."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import granite_8b
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from _torch_gloo_mesh import cached_mesh
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.lm import transformer as T
+    layer = T.init_lm(dataclasses.replace(granite_8b.FULL, n_layers=1), generator=None,
+                      device="meta").tree()["layers"][0]
+    shapes = [t.shape for t in tree_leaves(layer)]
+    mesh = cached_mesh((COLL_WORLD,), ("model",))
+
+    def grads(r: int, step: int):
+        g = torch.Generator(device=dev).manual_seed(SEED + 3400 + 97 * r + step)
+        return [torch.randn(sh, device=dev, generator=g) * (0.5 + r) for sh in shapes]
+
+    def plain(g, err):                       # the reference's arithmetic, written out
+        g = g + err
+        scale = g.abs().max() / 127.0 + 1e-12
+        q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+        return q, scale, q.float() * scale, g
+
+    err_port = [torch.zeros(sh, device=dev) for sh in shapes]
+    errs_plain = [[torch.zeros(sh, device=dev) for sh in shapes] for _ in range(COLL_WORLD)]
+    worst, codes_equal = 0.0, True
+    for step in range(2):
+        own = tree_unflatten(layer, grads(rank, step))
+        red, err_new = C.compressed_psum(mesh, "model", own, tree_unflatten(layer, err_port))
+        red, err_new = tree_leaves(red), tree_leaves(err_new)
+        all_g = [grads(r, step) for r in range(COLL_WORLD)]
+        for i in range(len(shapes)):
+            outs = [plain(all_g[r][i], errs_plain[r][i]) for r in range(COLL_WORLD)]
+            want = sum(o[2] for o in outs) / float(COLL_WORLD)
+            q, scale, _, g = outs[rank]
+            # the port's codes, read back from its residual: g + err - new_err
+            codes = torch.round((g - err_new[i]) / scale).to(torch.int8)
+            codes_equal &= bool(torch.equal(codes, q))
+            for r in range(COLL_WORLD):
+                errs_plain[r][i] = outs[r][3] - outs[r][2]
+            worst = max(worst, (red[i] - want).abs().max().item() / want.abs().max().item(),
+                        (err_new[i] - errs_plain[rank][i]).abs().max().item()
+                        / max(errs_plain[rank][i].abs().max().item(), 1e-30))
+        err_port = err_new
+        del all_g
+    tree = tree_unflatten(layer, grads(rank, 0))
+    zero = tree_unflatten(layer, [torch.zeros(sh, device=dev) for sh in shapes])
+    ms = _events_ms(lambda: C.compressed_psum(mesh, "model", tree, zero), torch)
+    leaves = tree_leaves(tree)
+
+    def fp32_all_reduce():
+        for t in leaves:
+            y = t.clone()
+            dist.all_reduce(y)
+            y /= COLL_WORLD
+    plain_ms = _events_ms(fp32_all_reduce, torch)
+    n = sum(t.numel() for t in leaves)
+    say(f"phase collectives psum rank {rank}: compressed_psum over one granite-8b FULL layer's "
+        f"{len(shapes)} gradient leaves ({n:,} values, each rank its own), two steps with the "
+        f"error carried: codes equal to the plain formula's {codes_equal}, results and "
+        f"residuals within {worst:.3g} of each leaf's largest (1e-6); {ms:.3f} ms against "
+        f"{plain_ms:.3f} ms for the plain fp32 all-reduce of the same tree (both all-reduce "
+        f"fp32: the reference's wire format)")
+    if not codes_equal or worst > 1e-6:
+        fail(f"collectives psum rank {rank}: codes equal {codes_equal}, worst {worst}")
+    return {"leaves": len(shapes), "values": n, "codes_equal": codes_equal, "worst_rel": worst,
+            "ms": ms, "fp32_all_reduce_ms": plain_ms}
+
+
+def coll_smoke(rank: int, dev: str, torch) -> dict:
+    """34b, tests/_torch_gloo_mesh.py's SMOKE comparison over NCCL."""
+    from _torch_gloo_mesh import run_case
+    out = {}
+    for kind, cases, keys in (("train", COLL_TRAIN_CASES, ("loss", "grads")),
+                              ("serve", COLL_SERVE_CASES, ("prefill logits", "prefill caches",
+                                                           "decode logits", "decode caches"))):
+        for case in cases:
+            r = run_case(case, kind, dev)
+            worst = max(r[k] for k in keys)
+            say(f"phase collectives smoke rank {rank}: {kind} {case}: "
+                + ", ".join(f"{k} {r[k]:.3g}" for k in keys)
+                + f" of each tensor's largest from the plain one-card step ({r['leaves']} "
+                f"leaves, {r['seconds']:.1f} s)")
+            if not worst <= 1e-4:
+                fail(f"collectives smoke rank {rank}: {kind} {case}: {r}")
+            out[f"{kind} {case}"] = r
+    return out
+
+
+def own_shard(t, mesh, placements):
+    """This rank's shard of the whole tensor ``t`` under ``placements``
+    (DTensor's even split, major mesh dim first), as a tensor of its own."""
+    from torch.distributed.tensor import Shard
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            t = t.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return t.detach().clone()
+
+
+def coll_16d(rank: int, dev: str, torch, cfg=None, seq: int = LM_TRAIN_SEQ) -> dict:
+    """34c, item 16d's cell (see the module docstring)."""
+    import gc
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import granite_8b
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.ctx import use_ctx
+    from _torch_gloo_mesh import cached_mesh
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.lm import transformer as T
+    cfg = cfg or granite_8b.FULL
+    mi = SH.mesh_info(cached_mesh((1, COLL_WORLD)))
+    opt = ST.make_optimizer()
+    # every rank draws the same whole weights and keeps its own shard of
+    # each, leaf by leaf, so that one whole copy at most is ever held
+    params = T.init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev).tree()
+    placements = ST._shardings(SH.param_specs(params, cfg, mi), mi)
+
+    def keep_shards(tree, pls):
+        for key in (range(len(tree)) if isinstance(tree, list) else list(tree)):
+            if isinstance(tree[key], (dict, list)):
+                keep_shards(tree[key], pls[key])
+            else:
+                tree[key] = DTensor.from_local(own_shard(tree[key], mi.mesh, pls[key]),
+                                               mi.mesh, pls[key], run_check=False)
+    keep_shards(params, placements)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    state = {"params": params, "opt": opt.init(params)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq + 1), device=dev, generator=gen)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    batch = tree_map(lambda t, pl: distribute_tensor(t, mi.mesh, pl), batch,
+                     ST._shardings(SH.batch_specs(batch, mi), mi))
+    arg_bytes = sum(getattr(t, "_local_tensor", t).untyped_storage().nbytes()
+                    for t in tree_leaves((state, batch)))
+    step = ST.make_train_step(cfg, opt, remat=True)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if dev == "cuda" else 0
+    losses, times = [], []
+    with use_ctx(mi.ctx()), implicit_replication():
+        for i in range(COLL_16D_WARMUP + COLL_16D_STEPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            if dev == "cuda":
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+            state, m = step(state, batch)
+            loss = m["loss"]
+            loss = float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss)
+            if dev == "cuda":
+                b.record()
+                torch.cuda.synchronize()
+                ms = a.elapsed_time(b)
+            else:
+                ms = (time.perf_counter() - t0) * 1e3
+            losses.append(loss)
+            times.append(ms)
+    warm, times = times[:COLL_16D_WARMUP], times[COLL_16D_WARMUP:]
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    step_ms = statistics.median(times)
+    gathered = [None] * COLL_WORLD
+    dist.all_gather_object(gathered, losses)
+    pred = COLL_16D_ARG_GIB + COLL_16D_TEMP_GIB
+    say(f"phase collectives 16d rank {rank}: granite-8b FULL, {cfg.n_layers} layers, 1 x {seq} "
+        f"tokens, bf16, make_optimizer()'s Adam, (data=1, model={COLL_WORLD}): arguments "
+        f"{arg_bytes / 2 ** 30:.3f} GiB (predicted {COLL_16D_ARG_GIB}), held before the first "
+        f"step {held / 2 ** 30:.3f} GiB, peak allocated {peak / 2 ** 30:.3f} GiB against the "
+        f"predicted {pred:.2f} (ratio {peak / 2 ** 30 / pred:.3f}); median step {step_ms:.1f} ms "
+        f"of {COLL_16D_STEPS} after {COLL_16D_WARMUP} warm-up ({min(times):.1f}-{max(times):.1f};"
+        f" the warm-up {', '.join(f'{x:.1f}' for x in warm)}) against the predicted "
+        f"{COLL_16D_COMPUTE_MS} ms of "
+        f"compute and {COLL_16D_COLL_MS} ms of collectives; loss "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"collectives 16d rank {rank}: a loss is not finite: {losses}")
+    if any(g != losses for g in gathered):
+        fail(f"collectives 16d rank {rank}: the ranks' losses differ: {gathered}")
+    return {"layers": cfg.n_layers, "seq": seq, "argument_gib": arg_bytes / 2 ** 30,
+            "held_gib": held / 2 ** 30, "peak_gib": peak / 2 ** 30, "step_ms": step_ms,
+            "step_runs_ms": times, "warmup_ms": warm, "losses": losses}
+
+
+def collectives_rank(rank: int, store: str, out_dir: str) -> int:
+    """One rank of phase 34: card ``rank``, NCCL, (a), (b), (c) in order;
+    its report goes to ``out_dir/rank<rank>.json``."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))           # the SMOKE comparison's harness
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        fail("collectives: no CUDA card visible to a rank")
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=COLL_WORLD,
+                            timeout=datetime.timedelta(seconds=COLL_TIMEOUT_S))
+    try:
+        card = card_line_of(rank)
+        say(f"phase collectives rank {rank}: card {rank}: {card}; torch {torch.__version__}")
+        rep = {"rank": rank, "card": card}
+        t0 = time.perf_counter()
+        rep["flash"] = coll_flash(rank, "cuda", torch)
+        rep["psum"] = coll_psum(rank, "cuda", torch)
+        rep["smoke"] = coll_smoke(rank, "cuda", torch)
+        rep["16d"] = coll_16d(rank, "cuda", torch)
+        rep["seconds"] = time.perf_counter() - t0
+        say(f"phase collectives rank {rank}: done in {rep['seconds']:.1f} s; {card}")
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rep))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--dryrun-cell"] and len(sys.argv) == 4:
         sys.exit(dryrun_cell(sys.argv[2], sys.argv[3]))     # a phase-33 process, no card
+    if sys.argv[1:2] == ["--collectives-rank"] and len(sys.argv) == 5:
+        sys.exit(collectives_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))   # phase 34
     multicard = sys.argv[1:] == ["--multicard"]
     if sys.argv[1:] and not multicard:
         fail(f"usage: python3 {Path(__file__).name} [--multicard]")
@@ -3002,8 +3402,15 @@ def main() -> None:
             fail(f"--multicard needs two cards or more, {torch.cuda.device_count()} visible")
         engine = SREngine.from_config(ESSRConfig(scale=4), seed=SEED, device="cuda")
         report = shard_phase(engine, [mixed_frame(SEED + i) for i in range(3)], torch)
+        # 34. the collectives, each rank a process on its own card
+        del engine
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        coll_report = collectives_phase(torch)
         say(card)
         say("shards: " + json.dumps(report))
+        say("collectives: " + json.dumps(coll_report))
         say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                "count": torch.cuda.device_count()}}))
         return

@@ -33,8 +33,7 @@ class LMConfig:
     moe_mode: str = "expert_tp"     # expert_tp | ep_alltoall
     capacity_factor: float = 1.25
     # implementation knobs of the reference's dry run (baseline False/einsum/
-    # scan/False; launch/dryrun.py apply_opts); shard_map is refused, see
-    # `__post_init__`
+    # scan/False; launch/dryrun.py apply_opts)
     moe_dispatch_token_shard: bool = False   # shard dispatch capacity over dp
     moe_impl: str = "einsum"                # einsum | shard_map (explicit EP)
     mamba2_impl: str = "scan"               # scan | ssd (block-matmul form)
@@ -78,12 +77,6 @@ class LMConfig:
     dynamic_width: bool = False     # ESSR-style width-selective FFN (core/dynamic_width)
 
     # ------------------------------------------------------------------
-    def __post_init__(self):
-        if self.moe_impl != "einsum":
-            raise NotImplementedError(
-                f"{self.name}: moe_impl={self.moe_impl!r}: the explicit expert-parallel MoE "
-                f"runs over processes, which the port does not do yet (ROADMAP item 16d)")
-
     @property
     def vocab_padded(self) -> int:
         """Vocab rounded up to a multiple of 512 so the embedding/logits dims

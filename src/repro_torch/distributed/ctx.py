@@ -206,6 +206,13 @@ def _gathered(v):
     return gather_dp(v)
 
 
+def ungathered(tree):
+    """The tree under a `Gathered` view, its leaves as they are stored (for
+    code that gathers its weights itself: the explicit MoE's ZeRO-3
+    all-gathers); any other tree as it is."""
+    return tree._tree if isinstance(tree, Gathered) else tree
+
+
 def params_view(params):
     """``params`` as model code should read them: through `Gathered` under
     a sharding context (the dry run), as they are otherwise."""
@@ -318,6 +325,22 @@ class _ContiguousGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.contiguous()
+
+
+def pad(x: torch.Tensor, widths, value=0.0) -> torch.Tensor:
+    """``F.pad(x, widths, value=value)``; on a DTensor, on each rank's
+    shard, the padded dims first made whole on every rank (DTensor's own pad
+    is mis-planned by some of its versions)."""
+    import torch.nn.functional as F
+    if not is_dtensor(x):
+        return F.pad(x, widths, value=value)
+    from torch.distributed.tensor import Replicate, Shard
+    dims = {x.ndim - 1 - i for i in range(len(widths) // 2) if widths[2 * i] or widths[2 * i + 1]}
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim % x.ndim in dims else p
+               for p in x.placements)
+    if pl != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return on_shards(lambda u: F.pad(u, widths, value=value), x)
 
 
 def is_dtensor(x) -> bool:

@@ -27,9 +27,15 @@ watches the ops that rank runs on its local shards.
   Argument bytes (the local shards of the state and the batch) are exact and
   counted by the caller.
 
-On the CPU mesh DTensor carries a shard-to-shard change of layout as an
-all-gather and a chunk (gloo has no all-to-all): it is counted as an
-all-gather of the same operand.
+On a mesh of CPU tensors (the dry run's, and gloo's) DTensor carries a
+change of layout from one shard dim to another as an all-gather and a chunk,
+by its own rule for CPU meshes ("CPU process group does not support
+alltoall yet, falling back with allgather + chunk"), not for want of an
+all-to-all in the backend (gloo runs ``all_to_all_single``): it is counted
+as an all-gather of the same operand. On a CUDA mesh the same change is one
+all-to-all. The explicit MoE (``distributed/moe.py``) calls
+``all_to_all_single`` itself, so its exchanges count as ``all-to-all`` on
+their axis on every mesh.
 """
 from __future__ import annotations
 

@@ -111,8 +111,8 @@ def _essr_lower(shape_name: str, mi: SH.MeshInfo, opts: str = ""):
 
 def apply_opts(cfg, opts: str):
     """§Perf iteration knobs, comma-separated (the reference's): token_shard,
-    moe_shardmap (refused: ROADMAP item 16d), mla_lazy, ssd, cf1 (capacity
-    factor 1.0), chunkN (ssm_chunk), attnchunkN (attn_chunk)."""
+    moe_shardmap (the explicit MoE of distributed/moe.py), mla_lazy, ssd, cf1
+    (capacity factor 1.0), chunkN (ssm_chunk), attnchunkN (attn_chunk)."""
     for opt in [o for o in opts.split(",") if o]:
         if opt == "token_shard":
             cfg = dataclasses.replace(cfg, moe_dispatch_token_shard=True)

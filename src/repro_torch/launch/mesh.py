@@ -7,7 +7,13 @@ ranks with this process as rank 0 (collectives return at once, and move no
 data), and `make_production_mesh` / `make_test_mesh` lay a ``DeviceMesh``
 over it. A process holds one default group, so the group lives only inside
 the ``with``: on its exit the group is destroyed and ``torch.distributed``
-is as it was. Nothing here touches CUDA.
+is as it was.
+
+The same meshes lay over a real group that the caller initialized, one
+process a rank: a ``gloo`` group gives a mesh of CPU tensors, an ``nccl``
+group one of CUDA tensors, each rank on card ``rank % device_count``.
+The device type follows the group's backend; an ``nccl`` group on a host
+without a card raises, nothing falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -33,14 +39,29 @@ def fake_world(n: int) -> Iterator[None]:
         dist.destroy_process_group()
 
 
+def _group_device_type() -> str:
+    """The device type of the initialized default group's tensors: "cuda"
+    for ``nccl`` (this rank's card made current), "cpu" for ``gloo`` and
+    ``fake``."""
+    import torch.distributed as dist
+    backend = str(dist.get_backend()).lower()
+    if "nccl" not in backend:
+        return "cpu"
+    if not torch.cuda.is_available():
+        raise RuntimeError("an nccl process group needs a CUDA card, and none is visible")
+    torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    return "cuda"
+
+
 def _device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     n = math.prod(shape)
     if not dist.is_initialized() or dist.get_world_size() != n:
         raise RuntimeError(f"a mesh of {shape} needs a process group of {n} ranks: "
-                           f"build it inside `with fake_world({n}):`")
-    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+                           f"build it inside `with fake_world({n}):` or over an initialized "
+                           f"gloo or nccl group of {n} processes")
+    return init_device_mesh(_group_device_type(), tuple(shape), mesh_dim_names=tuple(axes))
 
 
 def production_mesh_shape(*, multi_pod: bool = False):
@@ -58,7 +79,8 @@ def make_production_mesh(*, multi_pod: bool = False):
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model")):
-    """Small mesh for CPU distributed tests, inside ``fake_world(prod(shape))``."""
+    """Small mesh for distributed tests: inside ``fake_world(prod(shape))``,
+    or over a gloo (CPU) or nccl (one card a rank) group of that size."""
     return _device_mesh(tuple(shape), tuple(axes))
 
 

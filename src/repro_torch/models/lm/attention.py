@@ -17,7 +17,6 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.distributed import ctx as shard
@@ -121,11 +120,41 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # whole; K/V repeated to the query heads where only those shard; then
     # each rank's own blocks
     h = q.shape[2]
+    if is_dtensor(q) and seq_parallel(h, q.shape[1]):
+        return _blockwise_attention_seq(q, k, v, causal=causal, chunk=chunk, q_offset=q_offset)
     q, k, v = _heads_over_mp(q, k, v)
     if is_sharded(q, 2) and not is_sharded(k, 2) and k.shape[2] < h:
         k, v = _heads_over_mp(_repeat_kv(k, h), _repeat_kv(v, h))
     return shard.on_shards(lambda q, k, v: _blockwise_attention(
         q, k, v, causal=causal, chunk=chunk, q_offset=q_offset), q, k, v)
+
+
+def seq_parallel(n_heads: int, seq: int) -> bool:
+    """Under a sharding context, do the attention's query heads not divide
+    the model axis while the sequence does? Then the attention splits its
+    query rows over the model axis (`_blockwise_attention_seq`) where the
+    heads cannot split, as the reference's partitioner keeps such an
+    attention sharded (qwen2's 14 heads on 4 ranks: a quarter of the
+    unsplit FLOPs a rank, tests/test_torch_dryrun_faults.py)."""
+    c = shard.current()
+    if c is None:
+        return False
+    n = c.axis_size("mp")
+    return n > 1 and n_heads % n != 0 and seq % n == 0
+
+
+def _blockwise_attention_seq(q, k, v, *, causal, chunk, q_offset):
+    """`blockwise_attention` with the query rows split over the model axis
+    and K/V whole: each rank attends its own rows, their causal mask at
+    their global positions."""
+    c = shard.current()
+    mesh, n = c.mesh, c.axis_size("mp")
+    rows = q.shape[1] // n
+    q = shard.constrain(q, "dp", "mp", None, None)
+    k, v = (shard.constrain(t, "dp", None, None, None) for t in (k, v))
+    off = q_offset + mesh.get_local_rank(c.mp) * rows
+    return shard.on_shards(lambda q, k, v: _blockwise_attention(
+        q, k, v, causal=causal, chunk=chunk, q_offset=off), q, k, v)
 
 
 def _blockwise_attention(q, k, v, *, causal, chunk, q_offset):
@@ -137,8 +166,8 @@ def _blockwise_attention(q, k, v, *, causal, chunk, q_offset):
     nc = -(-sk // chunk)
     pad = nc * chunk - sk
     if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k = shard.pad(k, (0, 0, 0, 0, 0, pad))
+        v = shard.pad(v, (0, 0, 0, 0, 0, pad))
     # rows (q, r) of each KV group: (B, G, Sq*rep, D)
     qg = q.reshape(b, sq, g, rep, d).permute(0, 2, 1, 3, 4).reshape(b, g, sq * rep, d).float()
     kg = k.permute(0, 2, 3, 1)                         # (B, G, D, Sk)
@@ -159,7 +188,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      length) -> torch.Tensor:
     """One-token attention over a cache.
 
-    q: (B,1,H,D); caches: (B,S,G,D); length: current cache fill."""
+    q: (B,1,H,D); caches: (B,S,G,D); length: current cache fill. On DTensor
+    caches, each rank attends with its own shard (`_decode_attention_sharded`)."""
+    if is_dtensor(k_cache):
+        return _decode_attention_sharded(q, k_cache, v_cache, length)
     b, _, h, d = q.shape
     s, g = k_cache.shape[1], k_cache.shape[2]
     rep = h // g
@@ -170,6 +202,36 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(scores, dim=-1)
     out = p @ v_cache.float().permute(0, 2, 1, 3)
     return merge_dims(out, 1)[:, None].to(q.dtype)
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, length) -> torch.Tensor:
+    """`decode_attention` on each rank's shard of the caches, laid out by
+    ``cache_specs`` (batch over dp, kv heads or the sequence over mp): q is
+    laid out like them (its heads as their kv heads). Where the sequence is
+    sharded, each rank's partial softmax is merged by the flash-decoding
+    combine over the sequence's axes (``distributed/collectives.py``, the
+    explicit form of what the reference's partitioner does for a
+    sequence-sharded cache); otherwise the plain form runs on the shards."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed import collectives as C
+    mesh = k_cache.device_mesh
+    pl = tuple(k_cache.placements)
+    if tuple(v_cache.placements) != pl:
+        v_cache = v_cache.redistribute(mesh, pl)
+    qpl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in pl)
+    if not is_dtensor(q):
+        q = DTensor.from_local(q, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    if tuple(q.placements) != qpl:
+        q = q.redistribute(mesh, qpl)
+    seq_axes = [mesh.mesh_dim_names[i] for i, p in enumerate(pl)
+                if isinstance(p, Shard) and p.dim == 1]
+    ql, kl, vl = q.to_local(), k_cache.to_local(), v_cache.to_local()
+    if seq_axes:
+        out = C.flash_decode_local(mesh, seq_axes, ql, kl, vl, length)
+    else:
+        out = decode_attention(ql, kl, vl, length)
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -193,12 +255,21 @@ def init_gqa(cfg: LMConfig, *, generator, device, dtype=torch.bfloat16) -> Dict[
     return p
 
 
+def _rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; with x's sequence split (`seq_parallel`) on each rank's
+    rows against the whole weight: DTensor would flatten the batch with the
+    split sequence, which some of its versions refuse."""
+    if is_sharded(x, 1):
+        return shard.on_shards(lambda a, b: a @ b, x, shard.replicate(w))
+    return x @ w
+
+
 def gqa_qkv(p, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor):
     b, s, _ = x.shape
     hd, h, g = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = split_dim(x @ p["wq"] + p.get("bq", 0), -1, (h, hd))
-    k = split_dim(x @ p["wk"] + p.get("bk", 0), -1, (g, hd))
-    v = split_dim(x @ p["wv"] + p.get("bv", 0), -1, (g, hd))
+    q = split_dim(_rows_matmul(x, p["wq"]) + p.get("bq", 0), -1, (h, hd))
+    k = split_dim(_rows_matmul(x, p["wk"]) + p.get("bk", 0), -1, (g, hd))
+    v = split_dim(_rows_matmul(x, p["wv"]) + p.get("bv", 0), -1, (g, hd))
     cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -219,7 +290,7 @@ def gqa_self_attention(p, x: torch.Tensor, cfg: LMConfig, *, causal: bool = True
     q, k, v = gqa_qkv(p, x, cfg, _positions(q_offset, s, x.device))
     o = blockwise_attention(q, k, v, causal=causal, chunk=min(cfg.attn_chunk, s),
                             q_offset=q_offset)
-    out = merge_dims(shard.grad_like(o), 2) @ p["wo"]
+    out = _rows_matmul(merge_dims(shard.grad_like(o), 2), p["wo"])
     return (out, (k, v)) if return_kv else out
 
 
@@ -308,9 +379,9 @@ def _mla_blockwise_attention(q_nope, q_rope, k_nope, k_rope, v, *, chunk, q_offs
     nc = -(-sk // chunk)
     pad = nc * chunk - sk
     if pad:
-        k_nope = F.pad(k_nope, (0, 0, 0, 0, 0, pad))
-        k_rope = F.pad(k_rope, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_nope = shard.pad(k_nope, (0, 0, 0, 0, 0, pad))
+        k_rope = shard.pad(k_rope, (0, 0, 0, pad))
+        v = shard.pad(v, (0, 0, 0, 0, 0, pad))
     kvdt = k_nope.dtype
     qn = q_nope.to(kvdt).permute(0, 2, 1, 3).float()
     qr = q_rope.to(kvdt).permute(0, 2, 1, 3).float()
@@ -352,8 +423,8 @@ def _mla_blockwise_attention_lazy(q_nope, q_rope, c_kv, k_rope, wukv, cfg, *, ch
     nc = -(-sk // chunk)
     pad = nc * chunk - sk
     if pad:
-        c_kv = F.pad(c_kv, (0, 0, 0, pad))
-        k_rope = F.pad(k_rope, (0, 0, 0, pad))
+        c_kv = shard.pad(c_kv, (0, 0, 0, pad))
+        k_rope = shard.pad(k_rope, (0, 0, 0, pad))
     kvdt = c_kv.dtype
     qn = q_nope.to(kvdt).permute(0, 2, 1, 3).float()           # (B,H,Sq,dn)
     qr = q_rope.to(kvdt).permute(0, 2, 1, 3).float()

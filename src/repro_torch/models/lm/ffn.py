@@ -84,16 +84,81 @@ def moe_capacity(n_tokens: int, cfg: LMConfig) -> int:
 
 def _add_rows(n: int, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """(n, D) zeros with row i of ``src`` added at row ``idx[i]``. On a
-    DTensor (the dry run) an out-of-place ``index_put`` that accumulates,
-    which DTensor shards; it has no ``index_add``."""
+    DTensor each rank adds its own rows of ``src`` (``idx`` laid out like
+    them) into whole (n, D) zeros: the result is a partial sum over the axes
+    that split the rows (DTensor's own ``index_put`` on sharded rows is
+    mis-planned by some of its versions, which index a sharded result with
+    global rows)."""
     if shard.is_dtensor(src):
-        return src.new_zeros((n, src.shape[1])).index_put((idx,), src, accumulate=True)
+        return _AddRowsOnShards.apply(n, idx, src)
     out = torch.zeros((n, src.shape[1]), dtype=src.dtype, device=src.device)
     return out.index_add_(0, idx, src)
 
 
+def _take_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``src[idx]`` (rows). On a DTensor the gather is DTensor's own and its
+    gradient is added back with `_add_rows` (DTensor's ``index`` backward,
+    an ``index_put``, is mis-planned like it)."""
+    if shard.is_dtensor(src) and src.requires_grad:
+        return _TakeRows.apply(src, idx)
+    return src[idx]
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.n = src.shape[0]
+        ctx.save_for_backward(idx)
+        return src[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _AddRowsOnShards.apply(ctx.n, idx, g), None
+
+
+class _AddRowsOnShards(torch.autograd.Function):
+    """`_add_rows` of a DTensor ``src``; the gradient of each rank's rows is
+    read from the result's gradient made whole over the summed axes."""
+
+    @staticmethod
+    def forward(ctx, n, idx, src):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        mesh, pl = src.device_mesh, tuple(src.placements)
+        rows = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl)
+        if not shard.is_dtensor(idx):
+            idx = DTensor.from_local(idx, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        if tuple(idx.placements) != rows:
+            idx = idx.redistribute(mesh, rows)
+        il, sl = idx.to_local(), src.to_local()
+        out = torch.zeros((n, sl.shape[1]), dtype=sl.dtype, device=sl.device).index_add_(0, il, sl)
+        ctx.mesh, ctx.pl = mesh, pl
+        ctx.save_for_backward(il)
+        opl = tuple(Partial() if isinstance(p, Shard) and p.dim == 0 else p for p in pl)
+        return DTensor.from_local(out, mesh, opl, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        (il,) = ctx.saved_tensors
+        want = tuple(p if isinstance(p, Shard) and p.dim == 1 else Replicate() for p in ctx.pl)
+        if tuple(g.placements) != want:
+            g = g.redistribute(ctx.mesh, want)
+        gl = g.to_local()[il]
+        gpl = tuple(p if isinstance(p, Shard) else Replicate() for p in ctx.pl)
+        return None, None, DTensor.from_local(gl, ctx.mesh, gpl, run_check=False)
+
+
 def moe_forward(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,D) -> (out, aux_loss). Top-k, capacity-dropped, softmax-weighted."""
+    """x: (B,S,D) -> (out, aux_loss). Top-k, capacity-dropped, softmax-weighted.
+    Under ``moe_impl="shard_map"`` and a sharding context, the explicit MoE
+    of ``distributed/moe.py`` (the reference's semantics: the einsum path
+    otherwise)."""
+    if cfg.moe_impl == "shard_map":
+        c = shard.current()
+        if c is not None:
+            from repro_torch.distributed.moe import moe_forward_shardmap
+            return moe_forward_shardmap(p, x, cfg, c.mesh, c.resolve("dp"), c.mp)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_per_tok
     t = b * s
@@ -118,7 +183,7 @@ def moe_forward(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.
     slot = torch.where(valid, flat_e * cap + pos, torch.full_like(pos, e * cap))  # drops -> scratch
 
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
-    disp = _add_rows(e * cap + 1, slot, xf[tok] * valid[:, None])
+    disp = _add_rows(e * cap + 1, slot, _take_rows(xf, tok) * valid[:, None])
     disp = disp[:-1].reshape(e, cap, d)
     # EP: experts over 'model'; expert-TP: dispatch replicated over 'model',
     # hidden dim TP'd via the w specs. token_shard (the reference's §Perf
@@ -138,7 +203,7 @@ def moe_forward(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.
     y = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)], dim=0)
 
     w = (gate.reshape(-1) * valid).to(x.dtype)
-    out = _add_rows(t, tok, y[slot] * w[:, None])
+    out = _add_rows(t, tok, _take_rows(y, slot) * w[:, None])
     if "shared" in p:
         out = out + mlp(p["shared"], xf, cfg.act)
     return out.reshape(b, s, d), aux

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import ctx as shard
 from repro_torch.distributed.ctx import is_dtensor
 from repro_torch.models.lm.attention import rmsnorm
 from repro_torch.models.lm.params import normal, uniform
@@ -29,7 +30,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     where state carries the last k-1 inputs for decode."""
     k = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))
+        xp = shard.pad(x, (0, 0, k - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k))
@@ -37,7 +38,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _pad_seq(pad: int, *ts):
-    return tuple(F.pad(t, (0, 0, 0, pad)) for t in ts) if pad else ts
+    return tuple(shard.pad(t, (0, 0, 0, pad)) for t in ts) if pad else ts
 
 
 # ===========================================================================
@@ -103,18 +104,39 @@ def _steps_on_shards(a, b, h):
             DTensor.from_local(states, mesh, pl, run_check=False))
 
 
+def _in_proj(p, u: torch.Tensor, di: int):
+    """(x, z) of Mamba-1's merged in_proj (D, 2*di). Where its merged dim is
+    split over the model axis, the shards hold x on some ranks and z on
+    others, so a product with the merged weight would leave d_inner whole on
+    every rank; each half of the weight is laid out on its own instead (the
+    weight gathered over the axis, then split like the rest of the block's
+    d_inner), and the activations keep d_inner split. Plain: one product."""
+    w = p["in_proj"]
+    if not shard.is_sharded(w, 1):
+        xz = u @ w
+        return xz[..., :di], xz[..., di:]
+    from torch.distributed.tensor import Replicate, Shard
+    u = shard.constrain(u, "dp", None, None)          # the sequence whole, d_inner split
+    mesh, pl = w.device_mesh, tuple(w.placements)
+    whole = w.redistribute(mesh, tuple(Replicate() if isinstance(q, Shard) and q.dim == 1 else q
+                                       for q in pl))
+    return tuple(u @ half.redistribute(mesh, pl) for half in (whole[:, :di], whole[:, di:]))
+
+
 def mamba1_forward(p, u: torch.Tensor, cfg: LMConfig, return_state: bool = False):
     """u: (B,S,D) -> (B,S,D) [, final {'h','conv'} state]. Chunked scan.
     Padded tail steps get dt=0 (identity state update) so the returned state
     is exact regardless of S % chunk."""
     bsz, s, _ = u.shape
     di, n, r, ck = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_chunk
-    xz = u @ p["in_proj"]
-    x_raw, z = xz[..., :di], xz[..., di:]
+    x_raw, z = _in_proj(p, u, di)
     x, _ = _causal_conv(x_raw, p["conv_w"], p["conv_b"])
     x = F.silu(x)
-    proj = x @ p["x_proj"]
-    dt = F.softplus(proj[..., :r] @ p["dt_proj"] + p["dt_bias"])      # (B,S,di)
+    # the small (B,S,r+2n) projection summed over d_inner's shards, so that
+    # dt's up-projection keeps d_inner split (a no-op without a mesh)
+    proj = shard.constrain(x @ p["x_proj"], "dp", None, None)
+    # softplus on each rank's shard: DTensor runs its backward whole on every rank
+    dt = shard.on_shards(F.softplus, proj[..., :r] @ p["dt_proj"] + p["dt_bias"])  # (B,S,di)
     Bm, Cm = proj[..., r:r + n], proj[..., r + n:]                     # (B,S,n)
     A = -torch.exp(p["A_log"])                                         # (di,n)
 
@@ -137,9 +159,11 @@ def mamba1_forward(p, u: torch.Tensor, cfg: LMConfig, return_state: bool = False
 
     h0 = torch.zeros_like(dtc[:, 0, 0, :, None].expand(bsz, di, n))   # laid out like the inputs
     h_final, ys = _scan_chunked(a_fn, b_fn, y_fn, h0, nc)              # (nc,B,ck,di)
-    y = ys.permute(1, 0, 2, 3).reshape(bsz, nc * ck, di)[:, :s]
-    y = y + x[:, :s].float() * p["D"]
-    y = (y * F.silu(z[:, :s].float())).to(u.dtype)
+    y = ys.permute(1, 0, 2, 3).reshape(bsz, nc * ck, di)
+    if pad:          # a slice only where there is a pad: on a DTensor the
+        y, x = y[:, :s], x[:, :s]     # slice's gradient is made whole on every rank
+    y = y + x.float() * p["D"]
+    y = (y * F.silu(z.float())).to(u.dtype)
     out = y @ p["out_proj"]
     if return_state:
         return out, {"h": h_final, "conv": x_raw[:, -(cfg.ssm_conv - 1):, :]}
@@ -157,8 +181,7 @@ def mamba1_init_cache(cfg: LMConfig, batch: int, dtype=torch.float32,
 def mamba1_decode(p, u, cfg: LMConfig, cache):
     """u: (B,1,D); O(1) state update."""
     di, n, r = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    xz = u @ p["in_proj"]
-    x, z = xz[..., :di], xz[..., di:]
+    x, z = _in_proj(p, u, di)
     x, conv_state = _causal_conv(x, p["conv_w"], p["conv_b"], cache["conv"])
     x = F.silu(x)
     proj = x @ p["x_proj"]

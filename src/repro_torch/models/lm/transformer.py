@@ -120,10 +120,15 @@ def block_forward(p, x: torch.Tensor, cfg: LMConfig, *, q_offset: int = 0,
     ``return_kv`` (attention layers) also the layer's K/V (or MLA latents)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        return x + S.mamba1_forward(p["mamba"], A.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg), aux
+        return x + _out(S.mamba1_forward(p["mamba"], _norm_in(x, p["ln1"], cfg), cfg)), aux
     if cfg.family == "hybrid":
         return x + S.mamba2_forward(p["mamba"], A.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg), aux
-    h = _norm_in(x, p["ln1"], cfg)
+    if not cfg.use_mla and A.seq_parallel(cfg.n_heads, x.shape[1]):
+        # heads that do not divide the model axis: the projections and the
+        # attention keep the sequence split (A.seq_parallel)
+        h = shard.constrain(A.rmsnorm(x, p["ln1"], cfg.norm_eps), "dp", "mp", None)
+    else:
+        h = _norm_in(x, p["ln1"], cfg)
     attn = A.mla_self_attention if cfg.use_mla else A.gqa_self_attention
     o = attn(p["attn"], h, cfg, q_offset=q_offset, return_kv=return_kv)
     o, kv = o if return_kv else (o, None)
@@ -214,8 +219,8 @@ def chunked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     s = h.shape[1]
     pad = (-s) % chunk
     if pad:
-        h = F.pad(h, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+        h = shard.pad(h, (0, 0, 0, pad))
+        labels = shard.pad(labels, (0, pad), value=-1)
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     n = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range((s + pad) // chunk):
@@ -260,7 +265,7 @@ def lm_loss(params, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
         mtp_in = torch.cat([h[:, :-1], emb_next], dim=-1) @ params["mtp"]["proj"]
         mtp_h, _ = block_forward(params["mtp"]["block"], mtp_in, cfg)
         mtp_h = A.rmsnorm(mtp_h, params["mtp"]["ln"], cfg.norm_eps)
-        mtp_labels = F.pad(labels[:, 2:], (0, 1), value=-1)
+        mtp_labels = shard.pad(labels[:, 2:], (0, 1), value=-1)
         loss = loss + MTP_WEIGHT * chunked_ce(mtp_h, w, mtp_labels[:, :mtp_h.shape[1]])
     return loss
 

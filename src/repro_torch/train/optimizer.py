@@ -115,7 +115,9 @@ def _adam_core(lr, b1: float, b2: float, eps: float, weight_decay: float, lamb_t
     sched = lr if callable(lr) else constant(lr)
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        # zeros_like: a DTensor parameter's moments are DTensors of its layout
+        zeros = lambda p: torch.zeros_like(p, dtype=moment_dtype,  # noqa: E731
+                                           memory_format=torch.contiguous_format)
         return {"step": _step0(params), "m": tree_map(zeros, params),
                 "v": tree_map(zeros, params)}
 

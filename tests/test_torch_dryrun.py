@@ -169,6 +169,30 @@ def test_token_shard_changes_the_collective_mix():
     assert on_c.flops > 0 and off_c.flops > 0
 
 
+@pytest.mark.parametrize("mode", ["ep_alltoall", "expert_tp"])
+def test_moe_shardmap_cell_counts_its_explicit_collectives(mode):
+    """deepseek-v3 SMOKE's train step under ``--opts moe_shardmap`` on the
+    (2, 2) test mesh against the einsum MoE's: expert parallelism's
+    exchanges are all-to-alls over the model axis, the forward's at the MoE's
+    call site (the einsum form moves none: on a CPU mesh DTensor changes shard dims by
+    all-gathers), expert-TP moves no all-to-all and a different mix."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b", smoke=True), moe_mode=mode)
+    with fake_world(4):
+        mi = SH.mesh_info(make_test_mesh((2, 2)))
+        off = ST.lower_cell(cfg, SHAPES["train"], mi)
+        on = ST.lower_cell(D.apply_opts(cfg, "moe_shardmap"), SHAPES["train"], mi)
+    assert off.collectives["all-to-all"] == 0
+    assert on.collectives != off.collectives and on.flops > 0
+    if mode == "ep_alltoall":
+        assert on.collectives["all-to-all"] > 0
+        rows = [r for r in on.top_collectives if r["op"] == "all-to-all"]
+        assert rows and all(r["axis"] == "model" for r in rows), rows
+        assert any("moe_forward" in r["op_name"] for r in rows), rows
+    else:
+        assert on.collectives["all-to-all"] == 0
+
+
 def test_gradient_goes_back_to_its_parameters_placement():
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     with fake_world(4):

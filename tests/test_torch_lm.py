@@ -331,19 +331,20 @@ def test_entry_points_need_the_card_or_device_cpu(monkeypatch):
                                   dict(mamba2_impl="ssd"), dict(mla_lazy_kv=True)])
 def test_dry_run_knobs_refuse_rather_than_do_nothing(knob):
     """The reference's implementation knobs are fields, and the dry run's
-    three are served (a config equals the reference's field by field, also
-    through ``dataclasses.replace``). The explicit expert-parallel MoE runs
-    over processes: it is refused, naming the item that brings it, rather
-    than served as the einsum form."""
+    four are served (a config equals the reference's field by field, also
+    through ``dataclasses.replace``). ``moe_impl="shard_map"`` selects the
+    explicit MoE of ``distributed/moe.py`` under a sharding context; without
+    one the MoE is the einsum form, the reference's semantics (ffn.py:92-96)."""
     want = dataclasses.asdict(JConfig(**MOE, **knob))
-    if knob.get("moe_impl") == "shard_map":
-        with pytest.raises(NotImplementedError, match="item 16d"):
-            LMConfig(**MOE, **knob)
-        with pytest.raises(NotImplementedError, match="item 16d"):
-            dataclasses.replace(LMConfig(**MOE), **knob)
-        return
     assert dataclasses.asdict(LMConfig(**MOE, **knob)) == want
     assert dataclasses.asdict(dataclasses.replace(LMConfig(**MOE), **knob)) == want
+    if knob.get("moe_impl") == "shard_map":
+        cfg = LMConfig(**MOE, **knob)
+        p = F.init_moe(cfg, generator=torch.Generator().manual_seed(0),
+                       device=torch.device("cpu"), dtype=torch.float32)
+        x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator().manual_seed(1))
+        got, want_out = F.moe_forward(p, x, cfg), F.moe_forward(p, x, LMConfig(**MOE))
+        assert all(torch.equal(a, b) for a, b in zip(got, want_out))
 
 
 def test_param_tree_indexes_like_a_dict():

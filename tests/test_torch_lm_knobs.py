@@ -133,7 +133,8 @@ def ref_apply_opts():
 
 
 @pytest.mark.parametrize("opts", ["token_shard", "mla_lazy", "ssd", "cf1", "chunk64",
-                                  "attnchunk256", "token_shard,ssd,cf1", ""])
+                                  "attnchunk256", "token_shard,ssd,cf1", "", "moe_shardmap",
+                                  "moe_shardmap,token_shard,cf1"])
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "zamba2-1.2b"])
 def test_apply_opts_matches_reference(ref_apply_opts, arch, opts):
     want = dataclasses.asdict(ref_apply_opts(jget_config(arch), opts))
@@ -142,14 +143,15 @@ def test_apply_opts_matches_reference(ref_apply_opts, arch, opts):
 
 def test_apply_opts_errors_like_reference(ref_apply_opts):
     """An unknown flag is a ValueError in both; the shard_map MoE the
-    reference selects is refused here, naming the item that ports it."""
+    reference selects is selected here too, field for field."""
     with pytest.raises(ValueError, match="unknown opt bogus"):
         ref_apply_opts(jget_config("granite-8b"), "bogus")
     with pytest.raises(ValueError, match="unknown opt bogus"):
         apply_opts(get_config("granite-8b"), "bogus")
-    assert ref_apply_opts(jget_config("deepseek-v3-671b"), "moe_shardmap").moe_impl == "shard_map"
-    with pytest.raises(NotImplementedError, match="item 16d"):
-        apply_opts(get_config("deepseek-v3-671b"), "moe_shardmap")
+    want = ref_apply_opts(jget_config("deepseek-v3-671b"), "moe_shardmap")
+    got = apply_opts(get_config("deepseek-v3-671b"), "moe_shardmap")
+    assert want.moe_impl == got.moe_impl == "shard_map"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_knobs_reach_every_config():
